@@ -4,25 +4,48 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with one sm_90 card.  It
-builds the port's CUDA kernels from the checkout's sources and drives the
-main path, the paper's tiled QR (§4.1) at its benchmark size (2048² fp32,
-64² tiles), through ``repro_torch.apps.qr.run_qr`` in all four execution
-modes.  Phases, each fatal when it fails:
+builds the port's CUDA kernels from the checkout's sources (one nvcc per
+source, all at once) and drives the port's two paths.  The tiled QR
+(paper §4.1) at its benchmark size (2048² fp32, 64² tiles) through
+``repro_torch.apps.qr.run_qr``, and the Barnes-Hut tree code (§4.2)
+through ``repro_torch.apps.barneshut.solve`` at 100k particles in all
+four modes and at the paper's 1M particles in engine mode.  Phases, each
+fatal when it fails:
 
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
  2. build the kernels (nvcc, sm_90a) and report the build time;
  3. K1-K4 (geqrf, tsqrf, apply_qt, apply_tsqt) against their plain
     PyTorch versions on the card, b in {16, 32, 64}, batch 1 and 8;
- 4. K5 (the task-table walk) against the plain walk, 256² with 32² tiles;
- 5. the main path: run_qr at 2048²/64² in sequential, threaded, rounds
-    and engine modes on the card — bitwise equal across modes, R valid
-    (Gram identity, float64 LAPACK up to signs), the engine's R equal to
-    the plain path's on the CPU within tolerance, and the launch counters
-    showing that every kernel ran and no plain version ran on the card;
- 6. timings (CUDA events, median of 3 after warm-up): run_qr per mode at
-    2048² and engine mode at 4096², launches per plan, each kernel at
+ 4. K5 (the QR task-table walk) against the plain walk, 256² / 32² tiles;
+ 5. the QR path: run_qr at 2048²/64² in sequential, threaded, rounds and
+    engine modes on the card — bitwise equal across modes, R valid (Gram
+    identity, float64 LAPACK up to signs), the engine's R equal to the
+    plain path's on the CPU within tolerance, and the launch counters
+    showing that every QR kernel ran and no plain version ran on the card;
+ 6. QR timings (CUDA events, median of 3 after warm-up): run_qr per mode
+    at 2048² and engine mode at 4096², launches per plan, each kernel at
     b = 64 beside its bound, its plain version and a PyTorch yardstick
-    (torch.geqrf, torch.ormqr, torch.linalg.qr — never called by the port).
+    (torch.geqrf, torch.ormqr, torch.linalg.qr — never called by the port);
+ 7. K6/K7 (acc_pair, acc_self) against their plain versions on the card,
+    Ni, Nj in {1, 37, 58, 100, 128, 463}, with coincident particles and
+    zero masses;
+ 8. K8 (the Barnes-Hut walk) against the plain walk at 20k particles;
+ 9. the BH path at 100k particles (n_max 100, n_task 1000, seed 42): solve
+    in the four modes on the card, pairwise within 1e-4 per particle, the
+    engine within 1e-4 of the plain walk on the CPU, the counters showing
+    K6, K7 and K8 launched and no N-body plain version on the card;
+10. BH at the paper's 1M particles (n_max 100, n_task 5000, seed 42) in
+    engine mode: a float64 recomputation of the interaction lists of 256
+    sampled leaves within 1e-4, the float64 direct sum for 4,096 sampled
+    targets inside test_barneshut.py's accuracy bounds, and bh_walk
+    launches per plan at most the plan's rounds.  The host modes run at
+    100k and not at 1M: at 1M they would make about 800k per-op launches
+    from Python, more than this script's time limit holds;
+11. BH timings: solve per mode at 100k and engine at 1M, split into tree,
+    graph, lowering and execution; the walk over the whole 1M plan; K6 and
+    K7 at the path's shapes, each beside its bound and plain version (no
+    single PyTorch call computes softened gravity, so they have no
+    library yardstick).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -31,6 +54,7 @@ nothing of jax and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import pathlib
@@ -59,6 +83,24 @@ CPU_TOL = 1e-4    # ‖R_engine − R_cpu‖_F/‖R_cpu‖_F: two float32 orders
 LIB_TOL = dict(atol=1e-4, rtol=1e-3)  # yardstick vs kernel: another
 #                   algorithm (blocked LAPACK-style) summing in another order;
 #                   it shows only that the yardstick computes the same function
+
+N_BH, NTASK_BH = 100_000, 1000           # benchmarks/bh_scaling.py default
+N_PAPER, NTASK_PAPER = 1_000_000, 5000   # the paper's benchmark (§4.2)
+NMAX_BH, SEED_BH = 100, 42               # bh_scaling.py: n_max, its seed
+N_WALK, NMAX_WALK, NTASK_WALK = 20_000, 64, 256   # K8 vs the plain walk
+BH_TOL = 1e-4     # per particle ‖Δa‖/‖a‖: the reference's cross-mode
+#                   tolerance (tests/test_backends.py), float32 sums in
+#                   other orders
+NB_RTOL, NB_ATOL = 2e-4, 1e-5   # K6-K8 vs plain, per target: ‖Δa‖ <=
+#                   2e-4 ‖a‖ + 1e-5, the reference's kernel tolerance
+#                   (tests/test_kernels_nbody.py) on each target's vector:
+#                   a component that cancels to ~1 out of terms of ~10³
+#                   keeps no relative precision in any float32 sum
+ACC_MEDIAN, ACC_MEAN = 2e-2, 5e-2  # BH vs the direct sum, per-particle
+#                   relative error: tests/test_barneshut.py's bounds
+FLOPS_PER_PAIR = 19   # one softened pair: 3 sub, 3 mul + 3 add (r²),
+#                   rsqrt, 3 mul (w³·m), 3 fma (a += Δx·w), rsqrt as one
+SAMPLE_LEAVES, SAMPLE_TARGETS = 256, 4096
 
 
 def log(*a):
@@ -127,11 +169,14 @@ def phase_device(torch):
 
 def phase_build():
     from repro_torch import _build
+    from repro_torch.kernels.nbody import kernel as nb_kernel
     from repro_torch.kernels.qr_tile import kernel
     t0 = time.perf_counter()
+    _build.build([kernel.SOURCE, nb_kernel.SOURCE])     # in parallel
     kernel.lib()
-    log(f"[build] kernels built (nvcc, sm_90a) and loaded in "
-        f"{time.perf_counter() - t0:.2f} s into {_build.build_dir()}")
+    nb_kernel.lib()
+    log(f"[build] qr_tile.cu and nbody.cu built (nvcc, sm_90a) and loaded "
+        f"in {time.perf_counter() - t0:.2f} s into {_build.build_dir()}")
 
 
 def phase_ops(torch, np):
@@ -335,6 +380,28 @@ def events_ms(torch, fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def graph_ms(torch, fn, reps=50):
+    """Device ms per call of fn: reps calls captured in one CUDA graph and
+    replayed between two events, so no host enqueue is in the timed
+    region (a kernel shorter than its Python launch is otherwise timed by
+    the host)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, card):
     from repro_torch import engine
     from repro_torch.apps import qr
@@ -492,6 +559,514 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Barnes-Hut (paper §4.2)
+# ---------------------------------------------------------------------------
+
+def bh_inputs(np, n):
+    """bh_scaling.py's particles: uniform in the unit cube, masses in
+    [0.5, 1.5), from seed 42."""
+    rng = np.random.default_rng(SEED_BH)
+    return rng.random((n, 3)), rng.random(n) + 0.5
+
+
+def rel_err(np, a, want):
+    """Per-particle relative error ‖Δa‖/‖a‖ of (3, N) float64 arrays."""
+    num = np.linalg.norm(a - want, axis=0)
+    return num / np.maximum(np.linalg.norm(want, axis=0), 1e-12)
+
+
+def vec_check(np, name, got, want, axis):
+    """Hold a kernel's output against its plain version per target vector
+    (coordinates along ``axis``); returns (max |Δ| of any element, worst
+    ‖Δ‖ / (NB_RTOL ‖want‖ + NB_ATOL))."""
+    g = got.double().cpu().numpy()
+    w = want.double().cpu().numpy()
+    if not np.isfinite(g).all():
+        fail(f"{name}: non-finite kernel output")
+    ratio = float((np.linalg.norm(g - w, axis=axis)
+                   / (NB_RTOL * np.linalg.norm(w, axis=axis)
+                      + NB_ATOL)).max())
+    if ratio > 1.0:
+        fail(f"{name}: kernel vs plain {ratio:.3f}× the tolerance")
+    return float(np.abs(g - w).max()), ratio
+
+
+def phase_nbody_ops(torch, np):
+    """K6/K7 against their plain versions on the card."""
+    from repro_torch.kernels.nbody import ops, ref
+    sizes = (1, 37, 58, 100, 128, 463)
+    rng = np.random.default_rng(6)
+    errs = {"acc_pair": [0.0, 0.0], "acc_self": [0.0, 0.0]}
+
+    def cloud(n):
+        x = torch.tensor(rng.random((3, n)), dtype=torch.float32,
+                         device="cuda")
+        m = torch.tensor(rng.random(n) + 0.1, dtype=torch.float32,
+                         device="cuda")
+        return x, m
+
+    def keep(name, got, want):
+        e = vec_check(np, name, got, want, axis=0)
+        errs[name] = [max(a, b) for a, b in zip(errs[name], e)]
+
+    for ni in sizes:
+        xi, mi = cloud(ni)
+        if ni > 2:                     # a pair of coincident particles and
+            xi[:, 1] = xi[:, 0]        # a zero mass inside the self set
+            mi[ni // 2] = 0.0
+        keep("acc_self", ops.acc_self(xi, mi), ref.acc_self_ref(xi, mi))
+        for nj in sizes:
+            xj, mj = cloud(nj)
+            xj[:, : min(3, nj)] = xi[:, :1]      # sources on a target
+            mj[nj - nj // 4:] = 0.0              # zero-mass tail
+            keep("acc_pair", ops.acc_pair(xi, xj, mj),
+                 ref.acc_pair_ref(xi, xj, mj))
+    torch.cuda.synchronize()
+    log(f"[nbody] K6/K7 match their plain versions, Ni, Nj in {sizes}, "
+        f"coincident particles and zero masses, per target ‖Δa‖ <= "
+        f"{NB_RTOL}‖a‖ + {NB_ATOL}: max |err|, worst share of the bound "
+        f"{errs}")
+    return errs
+
+
+def bh_table(torch, g, st):
+    from repro_torch import engine
+    from repro_torch.core import lower
+    plan = lower(g.sched, LANES)
+    tab = engine.lower_tables(plan, g.sched, st.batch_registry(),
+                              arg_width=engine.BH_ARG_WIDTH,
+                              row_access=engine.bh_row_access)
+    return tab, engine.launch_groups(tab, engine.bh_row_keys)
+
+
+def phase_bh_walk(torch, np):
+    """K8 against the plain walk on the card, one table."""
+    from repro_torch import engine
+    from repro_torch.apps import barneshut as bh
+    rng = np.random.default_rng(N_WALK)
+    x, m = rng.random((N_WALK, 3)), rng.random(N_WALK) + 0.5
+    g = bh.build_graph(bh.Octree(x, m, n_max=NMAX_WALK), n_task=NTASK_WALK,
+                       nr_queues=LANES)
+    st = bh.BHState(g, device="cuda")
+    tab, lg = bh_table(torch, g, st)
+    hooks = st.engine_hooks()
+    statics = hooks.statics()
+    walked, plain = hooks.buffers(), hooks.buffers()
+    desc = torch.as_tensor(tab.desc[lg.order], device="cuda")
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    hooks.round_fn(desc, lg, statics, walked)
+    e1.record()
+    torch.cuda.synchronize()
+    walk_ms = e0.elapsed_time(e1)
+    t0 = time.perf_counter()
+    engine.bh_walk_plain(tab.desc, *statics, *plain, st.eps)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = [vec_check(np, f"bh_walk {name}", a, b, axis=1)
+            for name, a, b in zip(("acc", "com", "cmass"), walked, plain)]
+    err = {"abs": max(e[0] for e in errs), "ratio": max(e[1] for e in errs)}
+    log(f"[bh-walk] K8 matches the plain walk at {N_WALK} particles (n_max "
+        f"{NMAX_WALK}, {tab.nr_items} rows, {tab.nr_rounds} rounds, "
+        f"{lg.nr_groups} launches, {lg.nr_buckets} buckets): max |err| "
+        f"{err['abs']:.3e}, worst share of the bound {err['ratio']:.3e}; "
+        f"walk {walk_ms:.3f} ms (first launch), plain walk {plain_ms:.1f} "
+        f"ms (one run)")
+    return err, walk_ms, plain_ms, tab.nr_items
+
+
+def phase_bh_main(torch, np):
+    """The BH path at 100k particles in the four modes."""
+    from repro_torch.apps import barneshut as bh
+    from repro_torch.kernels.nbody import kernel as nbk
+    x, m = bh_inputs(np, N_BH)
+    accs, firsts, per_mode = {}, {}, {}
+    nbk.reset_counts()
+    for mode in MODES:
+        before = dict(nbk.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc, _, _ = bh.solve(x, m, n_max=NMAX_BH, n_task=NTASK_BH,
+                             mode=mode, nr_workers=LANES, device="cuda")
+        torch.cuda.synchronize()
+        firsts[mode] = time.perf_counter() - t0
+        accs[mode] = acc.double().cpu().numpy()
+        per_mode[mode] = {k: v - before[k] for k, v in nbk.LAUNCHES.items()}
+        log(f"[bh-main] {mode} at {N_BH}: {firsts[mode]:.3f} s (first "
+            f"run), launches {per_mode[mode]}")
+    launches = dict(nbk.LAUNCHES)
+    if any(nbk.PLAIN_CALLS.values()):
+        fail(f"an N-body plain version ran on the card {nbk.PLAIN_CALLS}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"BH kernels never launched on the BH path: {missing}")
+    worst = 0.0
+    for a, b in itertools.combinations(MODES, 2):
+        e = float(rel_err(np, accs[a], accs[b]).max())
+        worst = max(worst, e)
+        if not e < BH_TOL:
+            fail(f"BH {a} vs {b}: per-particle error {e:.3e} >= {BH_TOL}")
+    if not all(np.isfinite(a).all() for a in accs.values()):
+        fail("BH: non-finite accelerations")
+    t0 = time.perf_counter()
+    cpu, _, _ = bh.solve(x, m, n_max=NMAX_BH, n_task=NTASK_BH,
+                         mode="engine", nr_workers=LANES, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    vs_cpu = float(rel_err(np, accs["engine"], cpu.double().numpy()).max())
+    if not vs_cpu < BH_TOL:
+        fail(f"BH engine vs the plain walk on the CPU: {vs_cpu:.3e}")
+    log(f"[bh-main] {N_BH} particles, four modes pairwise within "
+        f"{worst:.3e} per particle (bound {BH_TOL}); engine vs the plain "
+        f"walk on the CPU {vs_cpu:.3e} (CPU run {cpu_s:.1f} s); launches "
+        f"{launches}")
+    return launches, firsts
+
+
+def pull64(np, xi, xj, mj, eps, skip_self=False):
+    dx = xj[:, None, :] - xi[:, :, None]
+    w = ((dx * dx).sum(0) + eps * eps) ** -1.5 * mj[None, :]
+    if skip_self:
+        np.fill_diagonal(w, 0.0)
+    return np.einsum("dij,ij->di", dx, w)
+
+
+def sampled_lists_f64(np, g, acc, eps):
+    """Worst per-particle error of ``acc`` (3, N) against a float64
+    recomputation of the interaction lists of SAMPLE_LEAVES sampled
+    leaves: direct self block and pairs, COM sources from float64 prefix
+    sums of the float32 particles."""
+    t = g.tree
+    x = t.x.astype(np.float32).astype(np.float64)
+    m = t.m.astype(np.float32).astype(np.float64)
+    partners = {}
+    for pairs in itertools.chain(g.self_pairs.values(),
+                                 g.pair_pairs.values()):
+        for a, b in pairs:
+            partners.setdefault(a, []).append(b)
+            partners.setdefault(b, []).append(a)
+    pcs = {g.task_cell[tid][1]: s for tid, s in g.pc_lists.items()}
+    cm = np.concatenate([[0.0], np.cumsum(m)])
+    cxm = np.concatenate([np.zeros((3, 1)), np.cumsum(x * m, 1)], 1)
+    leaves = [c.cid for c in t.cells if not c.split]
+    pick = np.random.default_rng(256).choice(len(leaves), SAMPLE_LEAVES,
+                                             replace=False)
+    worst = 0.0
+
+    def rng(c):
+        return slice(t.cells[c].start, t.cells[c].start + t.cells[c].count)
+
+    for k in pick:
+        leaf = leaves[k]
+        r = rng(leaf)
+        want = pull64(np, x[:, r], x[:, r], m[r], eps, skip_self=True)
+        srcs = partners.get(leaf, [])
+        if srcs:
+            xs = np.concatenate([x[:, rng(b)] for b in srcs], axis=1)
+            ms = np.concatenate([m[rng(b)] for b in srcs])
+            want += pull64(np, x[:, r], xs, ms, eps)
+        cells = pcs.get(leaf, [])
+        if cells:
+            lo = np.array([t.cells[c].start for c in cells])
+            hi = lo + np.array([t.cells[c].count for c in cells])
+            mc = cm[hi] - cm[lo]
+            want += pull64(np, x[:, r], (cxm[:, hi] - cxm[:, lo]) / mc, mc,
+                           eps)
+        worst = max(worst, float(rel_err(np, acc[:, r], want).max()))
+    return worst
+
+
+def direct_f64(torch, np, st, targets, chunk=32):
+    """The float64 direct sum on the card for the sampled targets, over
+    all particles (the target itself adds a zero displacement)."""
+    x = st.x.double()
+    m = st.m.double()
+    out = []
+    for i0 in range(0, len(targets), chunk):
+        xi = x[:, targets[i0:i0 + chunk]]
+        dx = x[:, None, :] - xi[:, :, None]
+        w = ((dx * dx).sum(0) + st.eps * st.eps).pow(-1.5) * m[None, :]
+        out.append(torch.einsum("dij,ij->di", dx, w))
+        del dx, w
+    return torch.cat(out, 1).cpu().numpy()
+
+
+def phase_bh_paper(torch, np):
+    """BH at the paper's 1M particles in engine mode."""
+    from repro_torch.apps import barneshut as bh
+    from repro_torch.core import lower
+    from repro_torch.kernels.nbody import kernel as nbk
+    x, m = bh_inputs(np, N_PAPER)
+    nbk.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, st, g = bh.solve(x, m, n_max=NMAX_BH, n_task=NTASK_PAPER,
+                          mode="engine", nr_workers=LANES, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(nbk.LAUNCHES)
+    if any(nbk.PLAIN_CALLS.values()):
+        fail(f"an N-body plain version ran on the card {nbk.PLAIN_CALLS}")
+    rounds = lower(g.sched, LANES).nr_rounds         # the plan cache's
+    if not 1 <= launches["bh_walk"] <= rounds:
+        fail(f"bh_walk launches per 1M plan {launches['bh_walk']} not in "
+             f"1..{rounds} (rounds)")
+    a = acc.double().cpu().numpy()
+    if not np.isfinite(a).all() or a.shape != (3, N_PAPER):
+        fail("BH 1M: accelerations not finite (3, N)")
+    lists = sampled_lists_f64(np, g, a, st.eps)
+    if not lists < BH_TOL:
+        fail(f"BH 1M vs float64 interaction lists: {lists:.3e}")
+    targets = np.random.default_rng(4096).choice(N_PAPER, SAMPLE_TARGETS,
+                                                 replace=False)
+    exact = direct_f64(torch, np, st, torch.as_tensor(targets,
+                                                      device="cuda"))
+    rel = rel_err(np, a[:, targets], exact)
+    med, mean = float(np.median(rel)), float(rel.mean())
+    if not (med < ACC_MEDIAN and mean < ACC_MEAN):
+        fail(f"BH 1M vs the direct sum: median {med:.3e}, mean {mean:.3e}")
+    c = g.counts
+    log(f"[bh-paper] {N_PAPER} particles, engine: {secs:.1f} s (first run), "
+        f"tasks self/pair/pc/com {c['self']}/{c['pair_pp']}/{c['pair_pc']}/"
+        f"{c['com']}, bh_walk launches {launches['bh_walk']} for "
+        f"{rounds} rounds; {SAMPLE_LEAVES} sampled leaves vs float64 "
+        f"interaction lists {lists:.3e} (bound {BH_TOL}); {SAMPLE_TARGETS} "
+        f"targets vs the float64 direct sum: median {med:.3e} (bound "
+        f"{ACC_MEDIAN}), mean {mean:.3e} (bound {ACC_MEAN})")
+    del acc, st, g
+    torch.cuda.empty_cache()
+    return launches, rounds
+
+
+def staged_solve(torch, x, m, n_task, mode):
+    """One solve split into stages, each ending synchronized: tree, graph
+    (and the state's upload), lowering (plan, and for the engine the task
+    table, the launch groups and the padded blocks) and execution.  The
+    plan cache is cleared first: a new particle set lowers anew."""
+    from repro_torch import engine
+    from repro_torch.apps import barneshut as bh
+    from repro_torch.core import clear_plan_cache, lower, run_plan
+    clear_plan_cache()
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+
+    tree = bh.Octree(x, m, n_max=NMAX_BH)
+    mark()
+    g = bh.build_graph(tree, n_task=n_task, nr_queues=LANES)
+    st = bh.BHState(g, device="cuda")
+    mark()
+    keep = {}
+    if mode == "engine":
+        tab, lg = bh_table(torch, g, st)
+        hooks = st.engine_hooks()
+        statics, buffers = hooks.statics(), hooks.buffers()
+        mark()
+        hooks.writeback(engine.execute_plan(tab, hooks.round_fn, statics,
+                                            buffers, groups=lg))
+        keep = dict(tab=tab, lg=lg, hooks=hooks, statics=statics, st=st)
+    else:
+        plan = lower(g.sched, LANES) if mode == "rounds" else None
+        mark()
+        run_plan(g.sched, st.batch_registry(), mode, nr_workers=LANES,
+                 plan=plan)
+    mark()
+    stages = dict(zip(("tree", "graph", "lowering", "execution"),
+                      (b - a for a, b in zip(t, t[1:]))))
+    stages["total"] = t[-1] - t[0]
+    return stages, keep
+
+
+def log_structure(np, keep, n):
+    """The plan's structure counts: what the host lowered for the card."""
+    from repro_torch import engine
+    tab, lg, st = keep["tab"], keep["lg"], keep["st"]
+    c = st.g.counts
+    leaves, _, P, _ = st._leaf_slots()
+    names = ("COM_LEAF", "COM_INNER", "SELF", "PP", "PC")
+    per = np.bincount(tab.desc[:, 0], minlength=len(names))
+    log(f"[bh-structure] {n} particles: tasks {c['tasks']} (self "
+        f"{c['self']}, pair {c['pair_pp']}, pc {c['pair_pc']}, com "
+        f"{c['com']}); leaves {len(leaves)}, largest leaf P {P}, mean leaf "
+        f"{n / len(leaves):.2f}, cells {len(st.g.tree.cells)}; rows "
+        f"{tab.nr_items} ("
+        + ", ".join(f"{k} {int(v)}" for k, v in zip(names, per)) + f"); "
+        f"rounds {tab.nr_rounds}, write-colored phases {tab.nr_phases}, "
+        f"largest phase {tab.stats['max_phase_len']}; launch groups "
+        f"{lg.nr_groups}, buckets {lg.nr_buckets}; desc "
+        f"{tab.desc.nbytes / 1e6:.1f} MB, padded blocks xs "
+        f"{len(leaves) * 3 * P * 4 / 1e6:.1f} MB (engine.BH_ARG_WIDTH "
+        f"{engine.BH_ARG_WIDTH})")
+
+
+def walk_flops_bytes(np, tab, st):
+    """Operations and bytes the 1M walk needs, counted from its rows with
+    the real leaf counts (zero-mass pads are not work the data needs), and
+    the pair interactions the padded walk evaluates."""
+    from repro_torch import engine
+    leaves, _, P, _ = st._leaf_slots()
+    cnt = np.array([st.g.tree.cells[c].count for c in leaves], np.int64)
+    d = tab.desc.astype(np.int64)
+    et, w, a0 = d[:, 0], d[:, 1], d[:, 2]
+    ncells = len(st.g.tree.cells)
+    real = (d[:, 2:2 + engine.BH_MAX_CHILDREN] != ncells).sum(1)
+    sel = {k: et == v for k, v in (("self", engine.BH_SELF),
+                                   ("pp", engine.BH_PP),
+                                   ("pc", engine.BH_PC),
+                                   ("leaf", engine.BH_COM_LEAF),
+                                   ("inner", engine.BH_COM_INNER))}
+    pairs = (int((cnt[w[sel["self"]]] * (cnt[w[sel["self"]]] - 1)).sum())
+             + int((cnt[w[sel["pp"]]] * cnt[a0[sel["pp"]]]).sum())
+             + int((cnt[w[sel["pc"]]] * real[sel["pc"]]).sum()))
+    padded = (int(sel["self"].sum() + sel["pp"].sum()) * P * P
+              + int(sel["pc"].sum()) * P * engine.BH_MAX_CHILDREN)
+    com_ops = 7 * (int(cnt[a0[sel["leaf"]]].sum()) + 8 * int(
+        sel["inner"].sum()))
+    flops = FLOPS_PER_PAIR * pairs + com_ops
+    nbytes = (tab.desc.nbytes + len(leaves) * P * 4 * 4   # desc, xs, ms
+              + len(leaves) * 3 * P * 4 + (ncells + 1) * 4 * 4)  # acc, com
+    return flops, nbytes, pairs, padded
+
+
+def phase_bh_timing(torch, np, firsts, launches, paper_launches,
+                    paper_rounds, ops_err, walk_err, walk20k, card):
+    from repro_torch.kernels.nbody import kernel as nbk
+    from repro_torch.kernels.nbody import ref
+    x, m = bh_inputs(np, N_BH)
+    for mode in MODES:
+        # a median of 3 unless the first run was long (threaded: the GIL)
+        reps = 3 if firsts[mode] < 15.0 else 1
+        runs = []
+        for _ in range(reps):
+            stages, keep = staged_solve(torch, x, m, NTASK_BH, mode)
+            runs.append(stages)
+        if mode == "engine":
+            log_structure(np, keep, N_BH)
+        med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        fewer = ("" if reps == 3 else
+                 f", fewer: the first run took {firsts[mode]:.1f} s")
+        log(f"[bh-time] {mode} at {N_BH} (median of {reps}{fewer}): "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in med.items())
+            + f"; {card}")
+    x, m = bh_inputs(np, N_PAPER)
+    runs = []
+    for _ in range(2):              # two runs: the 1M lowering is long
+        stages, keep = staged_solve(torch, x, m, NTASK_PAPER, "engine")
+        runs.append(stages)
+    log(f"[bh-time] engine at {N_PAPER} (2 runs, each shown): "
+        + "; ".join(", ".join(f"{k} {v:.4f} s" for k, v in r.items())
+                    for r in runs) + f"; {card}")
+    log_structure(np, keep, N_PAPER)
+    tab, lg, hooks, statics, st = (keep[k] for k in ("tab", "lg", "hooks",
+                                                     "statics", "st"))
+    desc = torch.as_tensor(tab.desc[lg.order], device="cuda")
+
+    def walk_once():
+        bufs = hooks.buffers()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        hooks.round_fn(desc, lg, statics, bufs)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    walk_once()
+    walk_ms = median_of(walk_once)
+    flops, nbytes, pairs, padded = walk_flops_bytes(np, tab, st)
+    wbms, wby = bound_ms(flops, nbytes)
+    log(f"[bh-time] bh_walk over the {N_PAPER} plan ({tab.nr_items} rows, "
+        f"{lg.nr_groups} launches, {lg.nr_buckets} buckets): {walk_ms:.3f} "
+        f"ms (median of 3), bound {wbms:.4f} ms ({wby}; {pairs:.4e} pair "
+        f"interactions the data needs, {padded:.4e} evaluated over padded "
+        f"blocks); {card}")
+
+    # K6 / K7 at the path's shapes: a PP row's leaf pair (~30 x 30), a PC
+    # task's leaf against its COM sources (~30 x 460), a self block (~30)
+    rng = np.random.default_rng(30)
+
+    def cloud(n):
+        return (torch.tensor(rng.random((3, n)), dtype=torch.float32,
+                             device="cuda"),
+                torch.tensor(rng.random(n) + 0.5, dtype=torch.float32,
+                             device="cuda"))
+
+    xi, mi = cloud(30)
+    xj, mj = cloud(30)
+    xc, mc = cloud(460)
+    out = torch.empty((3, 30), device="cuda")
+    eps2 = ref.DEFAULT_EPS ** 2
+    # (kernel, plain, pairs, bytes: targets, sources + masses and the
+    # output each moved once, float32)
+    shapes = {
+        "acc_pair": (lambda: nbk.acc_pair(xi, xj, mj, eps2, out),
+                     lambda: ref.acc_pair_ref(xi, xj, mj), 30 * 30,
+                     4 * (3 * 30 + 4 * 30 + 3 * 30), 30, 30),
+        "acc_pair_pc": (lambda: nbk.acc_pair(xi, xc, mc, eps2, out),
+                        lambda: ref.acc_pair_ref(xi, xc, mc), 30 * 460,
+                        4 * (3 * 30 + 4 * 460 + 3 * 30), 30, 460),
+        "acc_self": (lambda: nbk.acc_self(xi, mi, eps2, out),
+                     lambda: ref.acc_self_ref(xi, mi), 30 * 29,
+                     4 * (4 * 30 + 3 * 30), 30, 30),
+    }
+    times = {}
+    for name, (fn, plain, npairs, nbytes, ni, nj) in shapes.items():
+        ms = median_of(lambda: graph_ms(torch, fn))
+        enq = median_of(lambda: events_ms(torch, fn, 50))
+        pms = median_of(lambda: events_ms(torch, plain, 10))
+        bms, by = bound_ms(FLOPS_PER_PAIR * npairs, nbytes)
+        times[name] = (ms, pms, bms, by, enq)
+        log(f"[bh-time] {name} {ni}x{nj}: {ms:.5f} ms on the device (CUDA "
+            f"graph of 50, median of 3), {enq:.5f} ms a launch from Python,"
+            f" bound {bms:.7f} ms ({by}), plain {pms:.4f} ms, library none;"
+            f" {card}")
+    source = "src/repro_torch/kernels/nbody/csrc/nbody.cu"
+    none = ("none: no single PyTorch call computes softened gravity "
+            "(cdist gives distances only)")
+    rows = []
+    for name, replaces, key, err in (
+            ("acc_pair", "src/repro/kernels/nbody/kernel.py:82", "acc_pair",
+             ops_err["acc_pair"]),
+            ("acc_self", "src/repro/kernels/nbody/kernel.py:102",
+             "acc_self", ops_err["acc_self"])):
+        ms, pms, bms, by, enq = times[key]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": err[0], "err_share_of_bound": err[1],
+               "ms": ms, "launch_from_python_ms": enq, "plain_ms": pms,
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": None, "library": none,
+               "shape": "30x30" if name == "acc_pair" else "30"}
+        if name == "acc_pair":
+            row.update(ms_pc_30x460=times["acc_pair_pc"][0],
+                       plain_ms_pc_30x460=times["acc_pair_pc"][1],
+                       bound_ms_pc_30x460=times["acc_pair_pc"][2])
+        rows.append(row)
+    rows.append({"name": "bh_walk", "route": "cuda", "source": source,
+                 "replaces": "src/repro/engine/megakernel.py:221",
+                 "launches": launches["bh_walk"]
+                 + paper_launches["bh_walk"],
+                 "launches_per_1m_plan": paper_launches["bh_walk"],
+                 "rounds_per_1m_plan": paper_rounds,
+                 "max_abs_err": walk_err["abs"],
+                 "err_share_of_bound": walk_err["ratio"],
+                 "ms": walk_ms, "plain_ms": walk20k["plain_ms"],
+                 "plain_size": f"{N_WALK} particles, {walk20k['rows']} rows",
+                 "ms_at_plain_size": walk20k["ms"],
+                 "bound_ms": wbms, "bound_by": wby, "library_ms": None,
+                 "library": none, "shape": f"{N_PAPER} particles, "
+                 f"{tab.nr_items} rows, {lg.nr_groups} launches",
+                 "pair_interactions": pairs,
+                 "padded_pair_interactions": padded})
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -509,6 +1084,16 @@ def main():
     a, launches, vs_cpu = phase_main(torch, np)
     rows = phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu,
                         card)
+    del a
+    torch.cuda.empty_cache()
+    nb_errs = phase_nbody_ops(torch, np)
+    bh_err, ms20k, plain20k, rows20k = phase_bh_walk(torch, np)
+    bh_launches, firsts = phase_bh_main(torch, np)
+    paper_launches, paper_rounds = phase_bh_paper(torch, np)
+    rows += phase_bh_timing(torch, np, firsts, bh_launches, paper_launches,
+                            paper_rounds, nb_errs, bh_err,
+                            {"ms": ms20k, "plain_ms": plain20k,
+                             "rows": rows20k}, card)
     leaked = sorted(k for k in sys.modules if k == "jax"
                     or k.startswith("jax.") or k == "repro"
                     or k.startswith("repro."))

@@ -4,8 +4,10 @@ A second package beside ``repro`` (the JAX/Pallas reference), with the
 same subpackage layout and module names so each module's counterpart is
 easy to find.  It imports ``torch`` and numpy, never ``jax`` and nothing
 of ``repro``.  Inside, it uses PyTorch idiom: plain functions on tensors,
-an explicit ``device``, and in-place updates of the tile stack where the
-reference rebuilt immutable arrays.
+an explicit ``device``, and in-place updates of the state (the QR tile
+stack, the Barnes-Hut accelerations) where the reference rebuilt
+immutable arrays.  Two task families are ported so far: the tiled QR
+(``apps.qr``) and the Barnes-Hut tree code (``apps.barneshut``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than quietly run on the CPU.  On a CPU

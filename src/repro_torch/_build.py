@@ -4,8 +4,9 @@ Each ``.cu`` under a package's ``csrc/`` compiles with ``nvcc`` into a
 shared library with a plain C interface (loaded with ``ctypes`` by the
 kernel's binding module) for ``sm_90a``.  Libraries land in
 ``build/repro_torch/<hash>/`` at the root of the checkout (override with
-``REPRO_TORCH_BUILD_DIR``), keyed by a hash of every source, header and
-flag, so an edited source rebuilds and an unchanged one is reused.  All
+``REPRO_TORCH_BUILD_DIR``), each keyed by a hash of its source, the
+headers beside it and the flags, so an edited source rebuilds and an
+unchanged one is reused, whichever set of sources a call asks for.  All
 requested sources compile in parallel, one ``nvcc`` each.  Nothing is
 downloaded and no prebuilt kernel is used: a checkout builds everything
 it runs from its own sources.
@@ -43,28 +44,27 @@ def _nvcc() -> str:
     return path
 
 
-def _digest(sources: Sequence[pathlib.Path],
-            headers: Sequence[pathlib.Path]) -> str:
+def _digest(src: pathlib.Path) -> str:
+    """Hash of the flags, ``src`` and every header beside it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in list(sources) + list(headers):
+    for p in [src] + sorted(src.parent.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(sources: Sequence[pathlib.Path],
-          headers: Sequence[pathlib.Path] = ()) -> Dict[str, pathlib.Path]:
+def build(sources: Sequence[pathlib.Path]) -> Dict[str, pathlib.Path]:
     """Compile each of ``sources`` into ``<stem>.so`` (reused when already
     built from the same bytes) and return ``{stem: path}``.  Raises with
     nvcc's output when a compile fails."""
-    out_dir = build_dir() / _digest(sources, headers)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {src.stem: out_dir / f"{src.stem}.so" for src in sources}
+    libs = {src.stem: build_dir() / _digest(src) / f"{src.stem}.so"
+            for src in sources}
     procs = {}
     for src in sources:
         lib = libs[src.stem]
         if lib.exists():
             continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(src.parent), "-o", str(tmp),
                str(src)]

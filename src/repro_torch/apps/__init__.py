@@ -1,2 +1,2 @@
-"""Task-graph applications of the port (tiled QR; Barnes-Hut is still to
-be ported)."""
+"""Task-graph applications of the port: the tiled QR (``qr``) and the
+Barnes-Hut tree code (``barneshut``)."""

@@ -33,10 +33,11 @@ nothing of ``repro`` (not even its jax-free modules), so it keeps its own
 copy, with its own process-local registry: the device backend keeps the
 mode name ``engine`` without touching ``repro``'s.  Changes: the
 ``engine`` backend runs ``repro_torch.engine`` (one CUDA walk launch per
-write-colored phase), ``compiled_kernels`` probes for an sm_90 CUDA card,
-and ``EngineHooks`` drops ``fuse_rounds``/``donate``, which have no
-counterpart in eager PyTorch (the walk already launches phase by phase
-over the whole plan, and the tile stack is updated in place).
+write-colored phase, or per launch group for a family that gives
+``EngineHooks.row_keys``), ``compiled_kernels`` probes for an sm_90 CUDA
+card, and ``EngineHooks`` drops ``fuse_rounds``/``donate``, which have no
+counterpart in eager PyTorch (the walk already launches over the whole
+plan, and the state is updated in place).
 """
 
 from __future__ import annotations
@@ -69,13 +70,19 @@ class EngineHooks:
     happens only when the engine actually executes.
     ``writeback(buffers)`` scatters the final device state back into the
     caller's host-side structures.
+
+    ``row_keys(desc) -> (write, reads)``, when given, is ``row_access``
+    for a whole table as integer keys; the engine then cuts the table
+    into launch groups (``engine.descriptors.launch_groups``) and hands
+    them to ``round_fn`` in place of the phase bounds.
     """
     arg_width: int
-    round_fn: Callable   # (desc, phase_bounds, statics, buffers) -> buffers
+    round_fn: Callable   # (desc, schedule, statics, buffers) -> buffers
     statics: Callable[[], Tuple]
     buffers: Callable[[], Tuple]
     writeback: Callable[[Tuple], None]
     row_access: Optional[Callable] = None
+    row_keys: Optional[Callable] = None
 
 
 def _plan_types(plan: ExecutionPlan, sched: QSched) -> Sequence[int]:
@@ -171,8 +178,9 @@ class RoundsBackend(Backend):
 class EngineBackend(Backend):
     """Device-resident execution (DESIGN.md §Engine): the plan lowers to
     descriptor task tables through the registry's ``encode`` hooks and the
-    family's walk kernel runs them, one launch per write-colored phase on
-    one stream."""
+    family's walk kernel runs them on one stream, one launch per
+    write-colored phase or, for a family with ``row_keys``, per launch
+    group."""
 
     name = "engine"
     needs_plan = True
@@ -195,12 +203,15 @@ class EngineBackend(Backend):
         del nr_workers
         # engine lives above core in the layer diagram; import lazily so
         # core carries no hard dependency on the kernel stack
-        from repro_torch.engine import execute_plan, lower_tables
+        from repro_torch.engine import (execute_plan, launch_groups,
+                                        lower_tables)
         tables = lower_tables(plan, sched, registry,
                               arg_width=engine.arg_width,
                               row_access=engine.row_access)
+        groups = (None if engine.row_keys is None
+                  else launch_groups(tables, engine.row_keys))
         out = execute_plan(tables, engine.round_fn, engine.statics(),
-                           engine.buffers())
+                           engine.buffers(), groups=groups)
         engine.writeback(out)
 
 

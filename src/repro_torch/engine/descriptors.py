@@ -42,7 +42,8 @@ Port note: a copy of ``repro.engine.descriptors`` (the tables stay numpy
 on the host; ``repro_torch.engine.runner`` uploads ``desc`` to the device
 once per plan), plus ``table_from_arrays``, which rebuilds a table from
 another table's arrays so the port's walk can run exactly the schedule
-the reference lowered.
+the reference lowered, and ``launch_groups``, which cuts a table into the
+launches of a walk whose blocks each own one write key (Barnes-Hut).
 """
 
 from __future__ import annotations
@@ -61,6 +62,10 @@ from repro_torch.obs import trace as _trace
 # coloring; the per-family maps live next to the row layouts in
 # ``repro_torch.engine.megakernel``.
 RowAccess = Callable[[Tuple[int, ...]], Tuple[Sequence, Sequence]]
+# desc -> (write (items,), reads (items, k)): the same map for a whole
+# table as non-negative integer keys, one write key per row (-1: none),
+# reads padded with -1.  Drives ``launch_groups``.
+RowKeys = Callable[[np.ndarray], Tuple[np.ndarray, np.ndarray]]
 
 
 @dataclass(frozen=True)
@@ -222,7 +227,8 @@ def count_host_dispatches(plan: ExecutionPlan, sched: QSched,
     """Host kernel dispatches the per-round BatchSpec path performs for
     this plan: one per batched group, one per ``run_one`` task.  The port's
     engine replaces them with one walk launch per write-colored phase
-    (``TaskTable.nr_phases``)."""
+    (``TaskTable.nr_phases``) or, for a family walked in launch groups,
+    one per group (``LaunchGroups.nr_groups``)."""
     flags = sched._tflags
     n = 0
     for rnd in plan.rounds:
@@ -266,3 +272,95 @@ def table_from_arrays(*, desc, tids, round_offsets, phase_offsets,
                      round_phase_ptr=round_phase_ptr, arg_width=arg_width,
                      nr_tasks=nr_tasks, structural_hash=structural_hash,
                      stats=dict(stats or {}))
+
+
+@dataclass(frozen=True)
+class LaunchGroups:
+    """A task table cut for a walk that launches once per group, with one
+    block per bucket.  ``order`` lists the table's rows in walk order:
+    group by group, and within a group bucket by bucket, each bucket's
+    rows in table order.  ``bucket_offsets`` is the CSR of buckets over
+    ``order`` and ``group_offsets`` the CSR of groups over buckets."""
+    order: np.ndarray            # (nr_items,) int64
+    bucket_offsets: np.ndarray   # (B + 1,) int64
+    group_offsets: np.ndarray    # (G + 1,) int64
+
+    @property
+    def nr_groups(self) -> int:
+        return self.group_offsets.shape[0] - 1
+
+    @property
+    def nr_buckets(self) -> int:
+        return self.bucket_offsets.shape[0] - 1
+
+
+def launch_groups(tables: TaskTable, row_keys: RowKeys) -> LaunchGroups:
+    """Cut ``tables`` into launch groups for a walk whose blocks each own
+    one write key.
+
+    A group is a run of whole consecutive rounds in which no row's write
+    key is read or written by a row with another write key (rows that
+    share a key only for reading are fine: Barnes-Hut's PC rows of
+    different leaves read the same COM rows).  Within a group the rows are
+    bucketed by write key, keeping table order.  Walking the groups in
+    order, each bucket's rows in order, therefore keeps the reference's
+    invariant: rows that write the same state row run in table order, and
+    a row never runs before the rows whose writes it reads (or after the
+    rows that read what it overwrites).  Rounds are merged greedily, so
+    there are at most ``tables.nr_rounds`` groups.
+
+    Raises ``ValueError`` for a table it cannot cut safely: a row without
+    exactly one write key, or a round in which a row reads a key that a
+    row with another write key writes."""
+    with _trace.span("engine.launch_groups", items=tables.nr_items,
+                     rounds=tables.nr_rounds) as sp:
+        write, reads = row_keys(tables.desc)
+        write = np.asarray(write, dtype=np.int64)
+        reads = np.asarray(reads, dtype=np.int64).reshape(len(write), -1)
+        if (write < 0).any():
+            q = int(np.flatnonzero(write < 0)[0])
+            raise ValueError(f"row {q} {tables.desc[q].tolist()} has no "
+                             f"write key: launch groups need exactly one "
+                             f"per row")
+        # reads of a key by a row that does not own it (-1: none)
+        foreign = np.where(reads == write[:, None], -1, reads)
+        nkeys = int(max(write.max(initial=-1), foreign.max(initial=-1))) + 1
+        written = np.zeros(nkeys, bool)     # keys written by the group
+        read = np.zeros(nkeys, bool)        # keys read by a non-owner
+        group_of = np.zeros(len(write), np.int64)
+        gid = -1
+        ro = tables.round_offsets
+        for r in range(tables.nr_rounds):
+            o0, o1 = int(ro[r]), int(ro[r + 1])
+            if o0 == o1:
+                continue
+            w = write[o0:o1]
+            f = foreign[o0:o1]
+            f = f[f >= 0]
+            mine = np.zeros(nkeys, bool)
+            mine[w] = True
+            if mine[f].any():
+                raise ValueError(
+                    f"round {r} reads keys its other rows write "
+                    f"({np.unique(f[mine[f]])[:8].tolist()}): no launch "
+                    f"group can hold it")
+            if gid < 0 or written[f].any() or read[w].any():
+                gid += 1                    # a new group starts here
+                written[:] = False
+                read[:] = False
+            written[w] = True
+            read[f] = True
+            group_of[o0:o1] = gid
+        order = np.lexsort((write, group_of))        # stable: table order
+        g, k = group_of[order], write[order]
+        new = np.ones(len(order), bool)
+        new[1:] = (g[1:] != g[:-1]) | (k[1:] != k[:-1])
+        starts = np.flatnonzero(new)
+        bucket_offsets = np.append(starts, len(order)).astype(np.int64)
+        group_offsets = np.searchsorted(g[starts], np.arange(gid + 2),
+                                        side="left").astype(np.int64)
+        sp.args["groups"] = gid + 1
+        sp.args["buckets"] = len(starts)
+    return LaunchGroups(order=order.astype(np.int64),
+                        bucket_offsets=bucket_offsets,
+                        group_offsets=group_offsets)

@@ -1,42 +1,63 @@
-"""The tiled-QR task-table walk: the port of the QR family of
-``repro/engine/megakernel.py`` (``qr_round_fn`` → ``_grid_walk`` +
-``_qr_kernel``).
+"""The task-table walks of the port's engine: the counterparts of
+``repro/engine/megakernel.py``'s QR and Barnes-Hut families
+(``qr_round_fn`` / ``bh_round_fn`` → ``_grid_walk`` + ``_qr_kernel`` /
+``_bh_kernel``).
 
-A lowered plan is a ragged table of rows ``[etype, s0, s1, s2]`` split
-into write-colored phases (``descriptors.lower_tables``); the rows of a
-phase touch pairwise-disjoint tiles, and phases must run in order.  The
-Pallas walk relied on its grid running in order on one TPU core.  CUDA
-blocks of one launch run concurrently, so here the host launches the walk
-kernel once per phase, in phase order, on one stream: the launch boundary
-is the barrier between phases, and within a launch each row is one block
-that switches on ``etype`` over the same ``__device__`` tile functions the
-per-op kernels run (``kernels/qr_tile/csrc``).  The tile and T stacks are
-updated in place, so the walk has no copy-in and no copy-out.
+A lowered plan is a ragged table of rows ``[etype, args...]`` split into
+write-colored phases (``descriptors.lower_tables``).  The Pallas walks
+relied on their grid running in order on one TPU core.  CUDA blocks of one
+launch run concurrently, so each family states what it keeps in order:
 
-On CPU tensors ``qr_round_fn`` runs ``qr_walk_plain``, which applies the
-same rows phase by phase through the plain tile functions
-(``kernels/qr_tile/ref.py``) with exactly the calls the host backends
-make, so the four execution modes stay bitwise equal on the CPU too.
-``chip_smoke.py`` holds the kernel walk against the plain walk on the card.
+* **QR** launches its walk kernel once per phase, in phase order, on one
+  stream: the rows of a phase touch pairwise-disjoint tiles, and the
+  launch boundary is the barrier between phases.  Within a launch each
+  row is one block that switches on ``etype`` over the same
+  ``__device__`` tile functions the per-op kernels run
+  (``kernels/qr_tile/csrc``).
+* **Barnes-Hut** would need 2,148,304 phases at the paper's 1M particles,
+  because a leaf's ~58 consecutive particle-cell rows all add into the
+  same accelerations.  It walks launch groups instead
+  (``descriptors.launch_groups``): runs of whole rounds in which no row's
+  write key is read or written by a row with another write key, each
+  bucketed by write key in table order.  One launch per group, one block
+  per bucket, the bucket's rows in table order
+  (``kernels/nbody/csrc``): at most one launch per round.
 
-Engine types equal ``apps.qr``'s task types; ``QR_NOOP`` and any other
-type outside 0..3 is a no-op in both walks (a lowering-bug guard; tables
-carry no no-op rows).
+State stacks are updated in place, so the walks have no copy-in and no
+copy-out.  On CPU tensors each round function runs its plain walk, which
+applies the same rows in table order through the plain functions
+(``kernels/*/ref.py``) — QR's with exactly the calls its host backends
+make, so its four execution modes stay bitwise equal on the CPU too;
+``chip_smoke.py`` holds each kernel walk against its plain walk on the
+card.  Each family keeps a no-op type: ``*_NOOP``
+and any type out of range is a no-op in both walks (a lowering-bug guard;
+tables carry no no-op rows).
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.kernels.nbody import kernel as nb_kernel
+from repro_torch.kernels.nbody import ref as nb_ref
 from repro_torch.kernels.qr_tile import kernel, ref
 from repro_torch.kernels.qr_tile.ops import check_tiles
+
+from .descriptors import LaunchGroups
 
 # QR engine types — intentionally equal to apps.qr.T_* so task types encode
 # to themselves; QR_NOOP is the defensive clamp branch (never in a table).
 QR_GEQRF, QR_LARFT, QR_TSQRF, QR_SSRFT, QR_NOOP = range(5)
 QR_ARG_WIDTH = 3       # rows: [etype, slot0, slot1, slot2] (tile indices)
+
+# Barnes-Hut engine (work-item) types; BH_NOOP is the clamp branch.
+(BH_COM_LEAF, BH_COM_INNER, BH_SELF, BH_PP, BH_PC, BH_NOOP) = range(6)
+BH_MAX_CHILDREN = 8    # octree fan-out; COM_INNER rows carry 8 child cells
+# and ragged PC source lists chunk into rows of 8 cells (pad = zero-mass)
+BH_ARG_WIDTH = 1 + BH_MAX_CHILDREN   # rows: [etype, write, a0..a7]
 
 
 def qr_row_access(row: Sequence[int]) -> Tuple[Tuple, Tuple]:
@@ -138,3 +159,163 @@ def qr_round_fn(desc: torch.Tensor, phase_bounds: Sequence[int], statics,
         if p1 > p0:
             kernel.qr_walk(desc, int(p0), int(p1), tiles, tmat)
     return tiles, tmat
+
+
+# ---------------------------------------------------------------------------
+# Barnes-Hut family
+# ---------------------------------------------------------------------------
+
+def bh_row_access(row: Sequence[int]) -> Tuple[Tuple, Tuple]:
+    """Barnes-Hut keyspace: ``("a", leaf_slot)`` acceleration blocks,
+    ``("c", cell)`` COM/mass rows.  Particle positions/masses are
+    read-only statics and carry no keys."""
+    et = row[0]
+    if et == BH_COM_LEAF:
+        return (), (("c", row[1]),)
+    if et == BH_COM_INNER:
+        return (tuple(("c", int(c)) for c in row[2:2 + BH_MAX_CHILDREN]),
+                (("c", row[1]),))
+    if et in (BH_SELF, BH_PP):
+        return (), (("a", row[1]),)
+    if et == BH_PC:
+        return (tuple(("c", int(c)) for c in row[2:2 + BH_MAX_CHILDREN]),
+                (("a", row[1]),))
+    return (), ()
+
+
+def bh_row_keys(desc) -> Tuple[np.ndarray, np.ndarray]:
+    """``bh_row_access`` for a whole table at once, as integers for
+    ``descriptors.launch_groups``: ``("a", s)`` is ``2 s`` and ``("c", c)``
+    is ``2 c + 1``.  Returns each row's write key (-1 for a no-op row) and
+    its read keys, (items, 8) padded with -1."""
+    desc = np.asarray(desc)
+    et, w = desc[:, 0], desc[:, 1].astype(np.int64)
+    write = np.where(et <= BH_COM_INNER, 2 * w + 1, 2 * w)
+    write[(et < BH_COM_LEAF) | (et > BH_PC)] = -1
+    gathers = (et == BH_COM_INNER) | (et == BH_PC)
+    cells = desc[:, 2:2 + BH_MAX_CHILDREN].astype(np.int64)
+    return write, np.where(gathers[:, None], 2 * cells + 1, -1)
+
+
+def _bh_plain_row(row: Sequence[int], xs, ms, acc, com, cmass,
+                  eps: float) -> None:
+    et, w = row[0], row[1]
+    cells = list(row[2:2 + BH_MAX_CHILDREN])
+    if et == BH_COM_LEAF:      # [cell, leaf]: mass-weighted mean of a block
+        x, m = xs[row[2]], ms[row[2]]
+        tot = m.sum()
+        com[w] = (x @ m) / tot.clamp_min(1e-30)
+        cmass[w] = tot
+    elif et == BH_COM_INNER:   # [cell, c0..c7]: combine children's COMs
+        m = cmass[cells, 0]
+        tot = m.sum()
+        com[w] = (com[cells].T @ m) / tot.clamp_min(1e-30)
+        cmass[w] = tot
+    elif et == BH_SELF:        # [leaf]: all pairs within one block
+        acc[w] += nb_ref.acc_self_ref(xs[w], ms[w], eps)
+    elif et == BH_PP:          # [leaf_i, leaf_j]: one direction of a pair
+        acc[w] += nb_ref.acc_pair_ref(xs[w], xs[row[2]], ms[row[2]], eps)
+    elif et == BH_PC:          # [leaf, s0..s7]: ≤ 8 COM sources
+        acc[w] += nb_ref.acc_pair_ref(xs[w], com[cells].T, cmass[cells, 0],
+                                      eps)
+    # BH_NOOP and anything out of range: no-op
+
+
+def bh_walk_plain(desc, xs, ms, acc, com, cmass, eps: float) -> None:
+    """The plain walk: apply every row of ``desc``, in its order, through
+    the plain functions (``kernels/nbody/ref.py``, the COM reductions as
+    torch expressions), updating ``acc``/``com``/``cmass`` in place.
+    Works on any device; the round function takes it only for CPU
+    tensors."""
+    for row in torch.as_tensor(desc).cpu().tolist():
+        _bh_plain_row(row, xs, ms, acc, com, cmass, eps)
+
+
+def _check_bh_table(desc, groups: LaunchGroups, nleaves: int,
+                    ncells: int) -> None:
+    """Refuse a table the walk would run out of bounds on: the groups must
+    cut all rows of ``desc`` into buckets, and every leaf slot and cell id
+    must index the state (one device sync for a CUDA ``desc``)."""
+    bo, go = groups.bucket_offsets, groups.group_offsets
+    if (bo[0] != 0 or bo[-1] != len(desc) or (np.diff(bo) < 0).any()
+            or go[0] != 0 or go[-1] != len(bo) - 1
+            or (np.diff(go) < 0).any()):
+        raise ValueError("launch groups do not cut the table's rows into "
+                         "buckets")
+    d = torch.as_tensor(desc).long()
+    if not len(d):
+        return
+    et, w, a0 = d[:, 0], d[:, 1], d[:, 2]
+    to_acc = (et >= BH_SELF) & (et <= BH_PC)
+    to_com = (et == BH_COM_LEAF) | (et == BH_COM_INNER)
+    leaf_arg = (et == BH_PP) | (et == BH_COM_LEAF)
+    gathers = (et == BH_COM_INNER) | (et == BH_PC)
+    cells = d[:, 2:2 + BH_MAX_CHILDREN]
+    bad = ((to_acc & ((w < 0) | (w >= nleaves)))
+           | (to_com & ((w < 0) | (w >= ncells)))
+           | (leaf_arg & ((a0 < 0) | (a0 >= nleaves)))
+           | (gathers & ((cells < 0) | (cells > ncells)).any(1)))
+    if bool(bad.any()):
+        q = int(bad.nonzero()[0, 0])
+        raise ValueError(f"table row {q} {d[q].tolist()} indexes outside "
+                         f"{nleaves} leaves / {ncells} cells")
+
+
+def _check_bh_state(desc, xs, ms, acc, com, cmass) -> None:
+    """Validate the walk's operands for a launch."""
+    L, _, P = xs.shape
+    shapes = {"xs": (xs, (L, 3, P)), "ms": (ms, (L, P)),
+              "acc": (acc, (L, 3, P)), "com": (com, (com.shape[0], 3)),
+              "cmass": (cmass, (com.shape[0], 1))}
+    for name, (t, shape) in shapes.items():
+        if (t.device != xs.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 {shape} "
+                             f"tensor on {xs.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not 1 <= P <= nb_kernel.MAX_P:
+        raise ValueError(f"leaf blocks of {P} particles not supported: the "
+                         f"walk takes one thread per particle, P <= "
+                         f"{nb_kernel.MAX_P}")
+    if (desc.device != xs.device or desc.dtype != torch.int32
+            or not desc.is_contiguous()
+            or desc.shape[1] < 1 + BH_ARG_WIDTH):
+        raise ValueError(f"desc must be a contiguous int32 (items, "
+                         f"{1 + BH_ARG_WIDTH}) table on the state's device")
+
+
+def bh_round_fn(eps: float):
+    """Walk executor for the Barnes-Hut family:
+    ``(desc, groups, (xs, ms), (acc, com, cmass)) -> (acc, com, cmass)``,
+    updated in place.  ``desc`` holds the table's rows in the walk order
+    ``groups.order`` (``descriptors.launch_groups``); ``xs``/``ms`` are
+    (L, 3, P)/(L, P) zero-mass-padded leaf blocks (read only), ``acc`` is
+    (L, 3, P), and ``com``/``cmass`` are (ncells + 1, 3)/(ncells + 1, 1)
+    with the extra zero row as the pad target of COM_INNER and PC rows.
+
+    On CUDA tensors: one ``bh_walk`` launch per launch group, in order, on
+    the current stream, one block per bucket (``desc`` must be the device
+    copy, int32 contiguous).  On CPU tensors: ``bh_walk_plain`` over the
+    rows in that order, which per-destination table order makes bitwise
+    equal to the table order."""
+    eps = float(eps)
+
+    def round_fn(desc, groups: LaunchGroups, statics, buffers):
+        xs, ms = statics
+        acc, com, cmass = buffers
+        _check_bh_table(desc, groups, xs.shape[0], com.shape[0] - 1)
+        if acc.device.type == "cpu":
+            nb_kernel.count(nb_kernel.PLAIN_CALLS, "bh_walk")
+            bh_walk_plain(desc, xs, ms, acc, com, cmass, eps)
+            return acc, com, cmass
+        _check_bh_state(desc, xs, ms, acc, com, cmass)
+        ptr = torch.as_tensor(groups.bucket_offsets.astype(np.int32),
+                              device=acc.device)
+        go = groups.group_offsets
+        for b0, b1 in zip(go.tolist(), go[1:].tolist()):
+            if b1 > b0:
+                nb_kernel.bh_walk(desc, ptr, b0, b1, xs, ms, acc, com,
+                                  cmass, eps * eps)
+        return acc, com, cmass
+
+    return round_fn

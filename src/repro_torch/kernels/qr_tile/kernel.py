@@ -23,11 +23,11 @@ import pathlib
 import threading
 from typing import Dict
 
-import torch
+from repro_torch.kernels import _binding
+from repro_torch.kernels._binding import count
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "qr_tile.cu",)
-HEADERS = (CSRC / "qr_tile.cuh",)
+SOURCE = CSRC / "qr_tile.cu"     # includes csrc/qr_tile.cuh
 
 MAX_B = 64         # QR_MAX_B in csrc/qr_tile.cuh: six padded tiles in smem
 
@@ -38,12 +38,10 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("geqrf", "tsqrf", "apply_qt", "apply_tsqt", "qr_walk"), 0)
 PLAIN_CALLS: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
-_COUNT_LOCK = threading.Lock()
 _LOAD_LOCK = threading.Lock()
 _LIB = None
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
+_P, _I = _binding.P, _binding.I
 _SIGNATURES = {
     "qr_init": (),
     "qr_geqrf": (_P, _P, _P, _P, _I, _I, _P),
@@ -54,22 +52,11 @@ _SIGNATURES = {
 }
 
 
-def count(table: Dict[str, int], name: str) -> None:
-    with _COUNT_LOCK:          # threaded-backend workers count concurrently
-        table[name] += 1
-
-
 def reset_counts() -> None:
-    with _COUNT_LOCK:
-        for table in (LAUNCHES, PLAIN_CALLS):
-            for k in table:
-                table[k] = 0
+    _binding.reset(LAUNCHES, PLAIN_CALLS)
 
 
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {what} was not launched: "
-                           f"cudaError {err}")
+_check, _ptr, _stream = _binding.check, _binding.ptr, _binding.stream
 
 
 def lib() -> ctypes.CDLL:
@@ -78,24 +65,10 @@ def lib() -> ctypes.CDLL:
     if _LIB is None:
         with _LOAD_LOCK:
             if _LIB is None:
-                from repro_torch import _build
-                path = _build.build(SOURCES, HEADERS)["qr_tile"]
-                handle = ctypes.CDLL(str(path))
-                for name, args in _SIGNATURES.items():
-                    fn = getattr(handle, name)
-                    fn.argtypes = list(args)
-                    fn.restype = ctypes.c_int
+                handle = _binding.load(SOURCE, _SIGNATURES)
                 _check(handle.qr_init(), "qr_init")
                 _LIB = handle
     return _LIB
-
-
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 def geqrf(a, rv, tau, t) -> None:

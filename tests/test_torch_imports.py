@@ -13,7 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
+from repro_torch.apps import barneshut as bh  # noqa: E402
 from repro_torch.apps import qr  # noqa: E402
+from repro_torch.kernels.nbody import kernel as nb_kernel  # noqa: E402
 from repro_torch.kernels.qr_tile import kernel  # noqa: E402
 
 IMPORT_ALL = """
@@ -27,7 +29,7 @@ bad = sorted(k for k in sys.modules
              if k == 'jax' or k.startswith('jax.') or k == 'repro'
              or k.startswith('repro.'))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+sys.exit(1 if bad or len(names) < 20 else 0)
 """
 
 
@@ -42,7 +44,11 @@ def test_every_module_imports_here():
                                                    "repro_torch.")]
     for n in names:
         importlib.import_module(n)
-    assert "repro_torch.kernels.qr_tile.kernel" in names
+    assert {"repro_torch.kernels.qr_tile.kernel",
+            "repro_torch.kernels.nbody.kernel",
+            "repro_torch.kernels.nbody.ops",
+            "repro_torch.kernels.nbody.ref",
+            "repro_torch.apps.barneshut"} <= set(names)
 
 
 def test_tf32_is_off():
@@ -59,6 +65,19 @@ def test_run_qr_defaults_to_cuda_and_raises_without_card():
     assert all(v == 0 for v in kernel.PLAIN_CALLS.values())
     with pytest.raises(RuntimeError, match="CUDA"):
         qr._TileState.from_numpy({(0, 0): np.eye(4)})
+
+
+def test_solve_defaults_to_cuda_and_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    nb_kernel.reset_counts()
+    x = np.random.default_rng(0).random((64, 3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bh.solve(x, np.ones(64), n_max=16, n_task=32)
+    assert all(v == 0 for v in nb_kernel.PLAIN_CALLS.values())
+    g = bh.build_graph(bh.Octree(x, np.ones(64), n_max=16), n_task=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bh.BHState(g)
 
 
 def test_resolve_device():
