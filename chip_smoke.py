@@ -5,11 +5,13 @@
 
 Run from the root of a checkout on a machine with one sm_90 card.  It
 builds the port's CUDA kernels from the checkout's sources (one nvcc per
-source, all at once) and drives the port's two paths.  The tiled QR
+source, all at once) and drives the port's three paths.  The tiled QR
 (paper §4.1) at its benchmark size (2048² fp32, 64² tiles) through
-``repro_torch.apps.qr.run_qr``, and the Barnes-Hut tree code (§4.2)
-through ``repro_torch.apps.barneshut.solve`` at 100k particles in all
-four modes and at the paper's 1M particles in engine mode.  Phases, each
+``repro_torch.apps.qr.run_qr``; the Barnes-Hut tree code (§4.2) through
+``repro_torch.apps.barneshut.solve`` at 100k particles in all four modes
+and at the paper's 1M particles in engine mode; and continuous-batching
+serving of qwen3-1.7b as published (bf16, 28 layers, random weights from
+seed 0) through ``repro_torch.serve.GenerateService``.  Phases, each
 fatal when it fails:
 
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
@@ -45,7 +47,25 @@ fatal when it fails:
     graph, lowering and execution; the walk over the whole 1M plan; K6 and
     K7 at the path's shapes, each beside its bound and plain version (no
     single PyTorch call computes softened gravity, so they have no
-    library yardstick).
+    library yardstick);
+12. K10 (paged GQA decode) against its plain version on the card: the
+    reduced and the published widths, page 8 and 16, fp32 and bf16, bs 1,
+    3 and 8, NaN unlisted pages, stale non-finite tails, a second slot's
+    pages bitwise untouched;
+13. the serving path at full width on decode_path "auto", the launcher's
+    workload (a: 4 slots, prompt 8, up to 32 new tokens, 12 requests) and
+    one that walks and reuses 40 pages a slot (b: 8 slots, prompt 256, up
+    to 64, 24 requests): every request done with its budget, the pool
+    empty, path "kernel", degrade level 0, no retries, K10 launched layers
+    x decode ticks times and no plain version; timings (wall, tok/s, TTFT
+    median and p90, each tick's host plan and its round on the host and
+    the device, peak memory) and a profiler window over steady ticks; bf16
+    kernel vs gather logits over 16 teacher-forced steps; workload (a)
+    token for token, kernel vs gather, in an fp32 copy of the config;
+14. K10 timings at the path's shapes (one launch on each of 28 layer
+    pools in a CUDA graph) beside its bound, its plain version and
+    F.scaled_dot_product_attention over the window gathered beforehand
+    (the yardstick, never called by the port).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -170,13 +190,17 @@ def phase_device(torch):
 def phase_build():
     from repro_torch import _build
     from repro_torch.kernels.nbody import kernel as nb_kernel
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.qr_tile import kernel
     t0 = time.perf_counter()
-    _build.build([kernel.SOURCE, nb_kernel.SOURCE])     # in parallel
+    _build.build([kernel.SOURCE, nb_kernel.SOURCE,       # in parallel
+                  pa_kernel.SOURCE])
     kernel.lib()
     nb_kernel.lib()
-    log(f"[build] qr_tile.cu and nbody.cu built (nvcc, sm_90a) and loaded "
-        f"in {time.perf_counter() - t0:.2f} s into {_build.build_dir()}")
+    pa_kernel.lib()
+    log(f"[build] qr_tile.cu, nbody.cu and paged_attention.cu built (nvcc, "
+        f"sm_90a) and loaded in {time.perf_counter() - t0:.2f} s into "
+        f"{_build.build_dir()}")
 
 
 def phase_ops(torch, np):
@@ -1067,6 +1091,575 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# slice 3: continuous-batching serving of qwen3-1.7b with K10
+# ---------------------------------------------------------------------------
+
+ARCH_SERVE = "qwen3-1.7b"   # as published: bf16, 28 layers, d 2048, 16/8
+#                             heads of 128, vocab 151,936 (about 1.7e9 weights)
+SERVE_PAGE = 8
+# (name, slots, prompt length, new tokens): (a) the launcher's own workload
+# (launch/serve.py --continuous: 3 x slots requests, budgets drawn from
+# {new/8, new/2, new}, seed 0); (b) one that walks 40 pages a slot and
+# reuses them (24 requests through 8 slots)
+SERVE_WORKLOADS = (("a", 4, 8, 32), ("b", 8, 256, 64))
+TEACHER_STEPS = 16
+# K10 vs its plain version.  fp32: the reference's kernel-vs-oracle
+# tolerance (tests/test_paged_properties.py).  bf16: both compute in float
+# from the same bf16 operands and round the output once, so they may
+# differ by one bf16 ulp, at most 2^-7 of the value.
+PAGED_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+             "bfloat16": dict(atol=1e-5, rtol=2 ** -7)}
+# positions of the 8 slots in the serving-depth case (workload (b) runs
+# positions 256-319)
+SERVE_DEPTH_POS = [256, 263, 264, 277, 288, 300, 311, 319]
+PAGED_SHAPES = ((4, 2, 32, 8, "float32"),       # qwen3-1.7b reduced
+                (16, 8, 128, 8, "float32"),     # qwen3-1.7b as published
+                (16, 8, 128, 16, "float32"),
+                (16, 8, 128, 8, "bfloat16"),
+                (16, 8, 128, 16, "bfloat16"))
+# kernel vs gather logits over teacher-forced bf16 decode steps, per step
+# ‖Δ‖₂/‖logits‖₂.  The two paths round differently: K10 keeps the attention
+# in float and rounds its output to bf16 once; the gather path rounds the
+# softmax weights to bf16 before the product with V.  Each of the 28 layers
+# may so move the residual stream by about one bf16 ulp of the attention
+# output (2^-8 relative); as a random walk over 28 layers that is
+# sqrt(28) * 2^-8 = 2.1e-2.  The same steps are run once more through a
+# planted fault (K10's walk stopping one page early, so it misses the
+# slot's newest 1-8 positions, itself among them), and the check fails
+# unless that fault's gap exceeds the limit.  On an H100 the paths differ
+# by 1.78e-2 at most and the planted fault by 6.1e-2 at least; the limit
+# sits between them, 1.7 times the random-walk estimate.
+BF16_LOGIT_RTOL = 3.5e-2
+
+
+def paged_case(torch, np, bs, n_heads, n_kv, hd, ps, dtype, seed,
+               stale_tail=False, pos=None, max_pages=5):
+    from repro_torch.kernels.paged_attention import ref
+    rows, pos, walked, n_pages = ref.random_layout(bs, ps, max_pages, 3,
+                                                   seed, pos)
+    arrs = ref.random_operands(rows, pos, walked, n_pages, n_heads=n_heads,
+                               n_kv=n_kv, hd=hd, page_size=ps, seed=seed + 1,
+                               stale_tail=stale_tail)
+    dt = getattr(torch, dtype)
+    ts = [torch.tensor(a, device="cuda").to(dt) for a in arrs]
+    return ts + [torch.tensor(rows, device="cuda"),
+                 torch.tensor(pos, device="cuda")], rows, pos
+
+
+def nan_equal(torch, a, b):
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+def phase_k10(torch, np):
+    """K10 against its plain version on the card, the cases of
+    tests/test_torch_gpu.py; returns max |err| per storage type."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+
+    def check(operands, rows, pos, ps, dtype, what):
+        plain = [x.clone() for x in operands]
+        o, kp, vp = ops.paged_gqa_decode(*operands, page_size=ps)
+        ro, rk, rv = ref.paged_gqa_decode_ref(*plain, page_size=ps)
+        torch.cuda.synchronize()
+        if not torch.isfinite(o).all():
+            fail(f"K10 {what}: non-finite output (read a poisoned position)")
+        g, w = o.float().cpu().numpy(), ro.float().cpu().numpy()
+        np.testing.assert_allclose(g, w, err_msg=f"K10 {what}",
+                                   **PAGED_TOL[dtype])
+        errs[dtype] = max(errs[dtype], float(np.abs(g - w).max()))
+        for got, want in ((kp, rk), (vp, rv)):
+            for t in range(len(pos)):
+                pages = torch.as_tensor(rows[t, :pos[t] // ps + 1])
+                if not nan_equal(torch, got[pages], want[pages]):
+                    fail(f"K10 {what}: walked pages differ from the plain "
+                         f"version's")
+
+    n = 0
+    for bs in (1, 3, 8):
+        for (h, hkv, hd, ps, dt) in PAGED_SHAPES:
+            ops_, rows, pos = paged_case(torch, np, bs, h, hkv, hd, ps, dt,
+                                         bs)
+            check(ops_, rows, pos, ps, dt, f"bs {bs} H {h} Hkv {hkv} hd "
+                  f"{hd} ps {ps} {dt}")
+            n += 1
+    for dt in ("float32", "bfloat16"):
+        # workload (b)'s geometry: 8 slots of 40 pages, positions spread
+        # over 256-319 (up to 40 pages walked), as tests/test_torch_gpu.py
+        ops_, rows, pos = paged_case(torch, np, 8, 16, 8, 128, 8, dt, 21,
+                                     pos=SERVE_DEPTH_POS, max_pages=40)
+        check(ops_, rows, pos, 8, dt, f"serving depth {dt}")
+        # stale non-finite tails
+        ops_, rows, pos = paged_case(torch, np, 4, 16, 8, 128, 8, dt, 11,
+                                     stale_tail=True, pos=[0, 7, 8, 13])
+        check(ops_, rows, pos, 8, dt, f"stale tail {dt}")
+        n += 2
+    # one slot's launch leaves the other slot's pages bitwise unchanged
+    ops_, rows, pos = paged_case(torch, np, 2, 16, 8, 128, 8, "bfloat16", 5,
+                                 pos=[12, 20])
+    q, kn, vn, kp, vp, pr, po = ops_
+    before = kp.clone(), vp.clone()
+    ops.paged_gqa_decode(q[:1].contiguous(), kn[:1].contiguous(),
+                         vn[:1].contiguous(), kp, vp, pr[:1].contiguous(),
+                         po[:1].contiguous(), page_size=8)
+    torch.cuda.synchronize()
+    cell = (int(rows[0, pos[0] // 8]), int(pos[0] % 8))
+    for pool, old, new in ((kp, before[0], kn), (vp, before[1], vn)):
+        if not torch.equal(pool[cell], new[0]):
+            fail("K10: the new cell was not written")
+        pool[cell] = old[cell]
+        if not nan_equal(torch, pool, old):
+            fail("K10: a launch for slot 0 changed another cell of the pool")
+    log(f"[k10] paged_gqa_decode vs plain on the card: {n + 1} cases (bs 1,"
+        f" 3, 8 x {len(PAGED_SHAPES)} shapes, 8 slots at positions "
+        f"{SERVE_DEPTH_POS[0]}-{SERVE_DEPTH_POS[-1]} of 40 pages, stale "
+        f"non-finite tails, "
+        f"NaN unlisted pages, a second slot untouched); max |err| fp32 "
+        f"{errs['float32']:.3e}, bf16 {errs['bfloat16']:.3e}")
+    return errs
+
+
+def tree_numel(tree):
+    return sum(tree_numel(v) if isinstance(v, dict) else int(v.numel())
+               for v in tree.values())
+
+
+def reset_all_counts():
+    from repro_torch.kernels.nbody import kernel as nb_kernel
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.qr_tile import kernel as qr_kernel
+    for k in (qr_kernel, nb_kernel, pa_kernel):
+        k.reset_counts()
+
+
+def plain_calls():
+    from repro_torch.kernels.nbody import kernel as nb_kernel
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.qr_tile import kernel as qr_kernel
+    return {k: v for m in (qr_kernel, nb_kernel, pa_kernel)
+            for k, v in m.PLAIN_CALLS.items() if v}
+
+
+def serve_workload(np, vocab, slots, plen, new):
+    """launch/serve.py's continuous workload: 3 x slots requests, prompts
+    uniform in the vocabulary, budgets drawn from {new/8, new/2, new}."""
+    rng = np.random.default_rng(0)
+    work = []
+    for _ in range(3 * slots):
+        prompt = rng.integers(0, vocab, plen, dtype=np.int32)
+        work.append((prompt, int(rng.choice([new // 8 or 1, new // 2 or 1,
+                                             new]))))
+    return work
+
+
+def run_service(torch, np, params, cfg, work, slots, plen, new, path):
+    """Drive GenerateService over ``work`` with every count set to 0 just
+    before and read just after; returns what the checks and the timings
+    need."""
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.serve import GenerateService
+    max_seq = -(-(plen + new - 1) // SERVE_PAGE) * SERVE_PAGE
+    svc = GenerateService(params, cfg, max_batch=slots, max_seq=max_seq,
+                          page_size=SERVE_PAGE, decode_path=path,
+                          device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    hs = [svc.submit(p, n) for p, n in work]
+    svc.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pa_kernel.LAUNCHES)
+    plain = plain_calls()
+    peak = torch.cuda.max_memory_allocated()
+    return dict(svc=svc, hs=hs, wall=wall, launches=launches,
+                plain=plain, peak=peak, max_seq=max_seq)
+
+
+def check_served(np, cfg, name, run, work, want_path):
+    svc, hs = run["svc"], run["hs"]
+    if svc.decode_path != want_path:
+        fail(f"serve ({name}): decode path {svc.decode_path!r}, wanted "
+             f"{want_path!r}")
+    for h, (_, n) in zip(hs, work):
+        if h.status != "done" or len(h.generated) != n:
+            fail(f"serve ({name}): request {h.rid} {h.status} with "
+                 f"{len(h.generated)} of {n} tokens")
+        if not all(0 <= t < cfg.vocab for t in h.generated):
+            fail(f"serve ({name}): request {h.rid} produced a token outside "
+                 f"the vocabulary")
+    if svc.pool.allocated != 0:
+        fail(f"serve ({name}): {svc.pool.allocated} pages still allocated")
+    svc.pool.check_invariants()
+    level = svc.metrics.get("serve.degrade_level").value
+    if svc.stats["retries"] or svc.stats["preemptions"] or level:
+        fail(f"serve ({name}): retries {svc.stats['retries']}, preemptions "
+             f"{svc.stats['preemptions']}, degrade level {level}")
+    if run["plain"]:
+        fail(f"serve ({name}): plain versions ran on the card: "
+             f"{run['plain']}")
+    ticks = svc.metrics.get("serve.decode_round_s").count
+    if want_path == "kernel":
+        want = cfg.n_layers * ticks
+        if run["launches"]["paged_gqa"] != want or not want:
+            fail(f"serve ({name}): K10 launched {run['launches']} times, "
+                 f"wanted layers x decode ticks = {cfg.n_layers} x {ticks}")
+    return ticks
+
+
+def serve_timings(np, name, run):
+    svc, hs = run["svc"], run["hs"]
+    plan = svc.metrics.get("serve.decode_plan_s").summary()
+    host = svc.metrics.get("serve.decode_round_s").summary()
+    dev = svc.metrics.get("serve.decode_device_s").summary()
+    ttft = np.array([h.ttft_s for h in hs]) * 1e3
+    toks = svc.stats["generated_tokens"]
+    out = {"wall_s": run["wall"], "tokens": toks,
+           "tok_per_s": toks / run["wall"], "requests": len(hs),
+           "ticks": host["count"], "steps": svc.stats["steps"],
+           "ttft_ms_median": float(np.median(ttft)),
+           "ttft_ms_p90": float(np.percentile(ttft, 90)),
+           "decode_plan_ms_mean": plan["mean"] * 1e3,
+           "decode_round_host_ms_mean": host["mean"] * 1e3,
+           "decode_round_device_ms_mean": dev["mean"] * 1e3,
+           "decode_round_device_ms_total": dev["sum"] * 1e3,
+           "pages_attended": svc.stats["pages_attended"],
+           "peak_gib": run["peak"] / 2 ** 30,
+           "k10_launches": run["launches"]["paged_gqa"]}
+    log(f"[serve-time] ({name}) {len(hs)} requests, {toks} tokens in "
+        f"{out['wall_s']:.3f} s = {out['tok_per_s']:.1f} tok/s; TTFT median "
+        f"{out['ttft_ms_median']:.1f} ms, p90 {out['ttft_ms_p90']:.1f} ms; "
+        f"{out['ticks']} decode ticks: host sched + lower "
+        f"{out['decode_plan_ms_mean']:.3f} ms a tick, the round "
+        f"{out['decode_round_host_ms_mean']:.3f} ms on the host (Python "
+        f"issuing it) and {out['decode_round_device_ms_mean']:.3f} ms on "
+        f"the device (CUDA events around it; means of the service's "
+        f"serve.decode_*_s histograms); peak memory "
+        f"{out['peak_gib']:.2f} GiB; K10 launches {out['k10_launches']}")
+    return out
+
+
+def walk_one_page_short(q, k_new, v_new, k_pool, v_pool, page_rows, pos, *,
+                        page_size):
+    """A planted fault in K10's place: the cell is written, but the walk
+    stops after page pos // ps - 1 (the plain version at position ``cut``,
+    the last one of that page, fed the cell it already holds)."""
+    from repro_torch.kernels.paged_attention import ref
+    ref.write_cell(k_pool, page_rows, pos, k_new, page_size)
+    ref.write_cell(v_pool, page_rows, pos, v_new, page_size)
+    cut = pos - pos % page_size - 1
+    pg = page_rows.long().gather(1, (cut.long() // page_size)[:, None])[:, 0]
+    off = cut.long() % page_size
+    o, _, _ = ref.paged_gqa_decode_ref(q, k_pool[pg, off], v_pool[pg, off],
+                                       k_pool, v_pool, page_rows, cut,
+                                       page_size=page_size)
+    return o, k_pool, v_pool
+
+
+def teacher_forced(torch, np, params, cfg):
+    """Kernel vs gather logits over TEACHER_STEPS decode steps fed the same
+    tokens, from one prefill of 8 prompts of 256: the paged pool (pages
+    shuffled) through K10, a contiguous copy through the gather math; then
+    the paged steps again with the planted fault in K10's place."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import serving
+    bs, plen, ps = 8, 256, SERVE_PAGE
+    n = -(-(plen + TEACHER_STEPS) // ps)
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (bs, plen)),
+                             device="cuda")
+    teach = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                         (TEACHER_STEPS, bs, 1)),
+                            device="cuda")
+    _, cache, pos = serving.prefill(params, cfg, tokens)
+    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n * ps - plen))
+             for k, v in cache.items()}
+    rows = torch.as_tensor(rng.permutation(bs * n), device="cuda").reshape(
+        bs, n)
+    leaves = {}
+    for k, v in cache.items():
+        leaf = torch.zeros((v.shape[0], bs * n, ps) + v.shape[3:],
+                           dtype=v.dtype, device="cuda")
+        leaf[:, rows] = v.reshape((v.shape[0], bs, n, ps) + v.shape[3:])
+        leaves[k] = leaf
+    rows = rows.int()
+    pos0 = pos
+    rels, maxs, gather = [], [], []
+    for s in range(TEACHER_STEPS):
+        lk, _ = serving.decode_step_paged(params, cfg, leaves, rows,
+                                          teach[s], pos, page_size=ps)
+        lg, _ = serving.decode_step(params, cfg, cache, teach[s], pos)
+        lk, lg = lk.float(), lg.float()
+        if not (torch.isfinite(lk).all() and torch.isfinite(lg).all()):
+            fail("teacher-forced bf16 logits are not finite")
+        rels.append(float((lk - lg).norm() / lg.norm()))
+        maxs.append(float((lk - lg).abs().max() / lg.abs().max()))
+        gather.append(lg)
+        pos = pos + 1
+    # the planted fault over the same steps (each step rewrites its cell
+    # before reading, so the pool's later cells from the run above are
+    # never read)
+    planted, pos = [], pos0
+    real_op = pa_ops.paged_gqa_decode
+    pa_ops.paged_gqa_decode = walk_one_page_short
+    try:
+        for s in range(TEACHER_STEPS):
+            lf, _ = serving.decode_step_paged(params, cfg, leaves, rows,
+                                              teach[s], pos, page_size=ps)
+            lg = gather[s]
+            planted.append(float((lf.float() - lg).norm() / lg.norm()))
+            pos = pos + 1
+    finally:
+        pa_ops.paged_gqa_decode = real_op
+    log(f"[serve] bf16 kernel vs gather logits, {TEACHER_STEPS} "
+        f"teacher-forced steps from 8 x 256 prompts: ‖Δ‖/‖logits‖ max "
+        f"{max(rels):.3e} (limit {BF16_LOGIT_RTOL}), median "
+        f"{float(np.median(rels)):.3e}; max|Δ|/max|logits| max "
+        f"{max(maxs):.3e}; a planted fault (the walk one page short) vs "
+        f"gather: ‖Δ‖/‖logits‖ min {min(planted):.3e}, median "
+        f"{float(np.median(planted)):.3e}, max {max(planted):.3e}")
+    if not max(rels) <= BF16_LOGIT_RTOL:
+        fail(f"bf16 kernel vs gather logits {max(rels):.3e} > "
+             f"{BF16_LOGIT_RTOL}")
+    if not min(planted) > BF16_LOGIT_RTOL:
+        fail(f"the logits check cannot see a walk one page short: its gap "
+             f"{min(planted):.3e} <= {BF16_LOGIT_RTOL}")
+    return {"max": max(rels), "planted_min": min(planted),
+            "planted_median": float(np.median(planted))}
+
+
+
+def profile_ticks(torch, np, params, cfg, n_ticks=8):
+    """Device busy share of steady decode ticks: workload (b)'s first 8
+    requests admitted, then ``n_ticks`` service steps under torch.profiler
+    (CPU and CUDA activities).  Kernel time by name from key_averages();
+    the share is the kernels' summed device time over the window's wall
+    time, which the profiler itself lengthens (so the share is a lower
+    bound).  Returns None when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import GenerateService
+    _, slots, plen, new = SERVE_WORKLOADS[1]
+    work = serve_workload(np, cfg.vocab, slots, plen, new)
+    max_seq = -(-(plen + new - 1) // SERVE_PAGE) * SERVE_PAGE
+    svc = GenerateService(params, cfg, max_batch=slots, max_seq=max_seq,
+                          page_size=SERVE_PAGE, device="cuda")
+    for p, n in work[:slots]:
+        svc.submit(p, max(n, n_ticks + 2))
+    svc.step()                          # admission, prefill, first tick
+    svc.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            svc.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+    busy = sum(kernels.values())
+    if busy <= 0:
+        log("[serve-profile] the profiler reported no device time: device "
+            "busy share not measured")
+        return None
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    k10 = sum(v for k, v in kernels.items() if "gqa_decode_kernel" in k)
+    out = {"ticks": n_ticks, "wall_ms_per_tick": wall_us / n_ticks / 1e3,
+           "device_ms_per_tick": busy / n_ticks / 1e3,
+           "busy_share": busy / wall_us,
+           "k10_ms_per_tick": k10 / n_ticks / 1e3,
+           "kernels_per_tick": sum(1 for e in prof.events()
+                                   if e.device_type ==
+                                   torch.autograd.DeviceType.CUDA) / n_ticks}
+    log(f"[serve-profile] workload (b), 8 slots at positions 258-{257 + n_ticks}"
+        f", {n_ticks} ticks under torch.profiler: {out['wall_ms_per_tick']:.3f}"
+        f" ms a tick on the host clock, kernels {out['device_ms_per_tick']:.3f}"
+        f" ms a tick on the device (busy share {out['busy_share']:.3f}), "
+        f"{out['kernels_per_tick']:.0f} kernels a tick, K10 "
+        f"{out['k10_ms_per_tick']:.3f} ms a tick; top kernels (ms a tick): "
+        + ", ".join(f"{k[:48]} {v / n_ticks / 1e3:.3f}" for k, v in top))
+    return out
+
+def phase_serve(torch, np):
+    """The serving path at full width: qwen3-1.7b as published (bf16, 28
+    layers) through GenerateService on decode_path "auto" (K10), the two
+    workloads, then the precision checks."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(ARCH_SERVE)
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    torch.cuda.synchronize()
+    n_par = tree_numel(params)
+    log(f"[serve] {ARCH_SERVE} as published ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}): {n_par:,} weights drawn on the "
+        f"card in {time.perf_counter() - t0:.2f} s (seed 0)")
+    out = {"launches": 0, "ticks": 0}
+    for name, slots, plen, new in SERVE_WORKLOADS:
+        work = serve_workload(np, cfg.vocab, slots, plen, new)
+        run = run_service(torch, np, params, cfg, work, slots, plen, new,
+                          "auto")
+        ticks = check_served(np, cfg, name, run, work, "kernel")
+        out[name] = serve_timings(np, name, run)
+        out[name]["max_seq"] = run["max_seq"]
+        out["launches"] += run["launches"]["paged_gqa"]
+        out["ticks"] += ticks
+        log(f"[serve] ({name}) {slots} slots, prompt {plen}, up to {new} "
+            f"new tokens, {len(work)} requests, max_seq {run['max_seq']} "
+            f"({run['max_seq'] // SERVE_PAGE} pages a slot): every request "
+            f"done with its budget, pool empty, path kernel, degrade level "
+            f"0, retries 0, K10 launches {run['launches']['paged_gqa']} = "
+            f"{cfg.n_layers} layers x {ticks} ticks, no plain version")
+        del run
+    out["bf16_logit_rel"] = teacher_forced(torch, np, params, cfg)
+    out["profile"] = profile_ticks(torch, np, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    # workload (a) token for token, kernel vs gather, in an fp32 copy of
+    # the same full-width configuration
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg32)
+    name, slots, plen, new = SERVE_WORKLOADS[0]
+    work = serve_workload(np, cfg32.vocab, slots, plen, new)
+    streams = {}
+    for path in ("kernel", "gather"):
+        run = run_service(torch, np, params32, cfg32, work, slots, plen,
+                          new, path)
+        check_served(np, cfg32, f"{name} fp32 {path}", run, work, path)
+        streams[path] = [h.generated for h in run["hs"]]
+        del run
+    same = sum(a == b for a, b in zip(streams["kernel"], streams["gather"]))
+    log(f"[serve] fp32 copy, workload ({name}): kernel and gather streams "
+        f"equal token for token in {same} of {len(work)} requests")
+    if same != len(work):
+        fail("fp32 kernel and gather streams differ")
+    del params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_k10_timing(torch, np, errs, serve, card):
+    """K10 per launch at workload (b)'s shape in the middle of its decode
+    (8 slots at position 288, 37 of 40 pages walked, bf16), over 28
+    distinct layer pools as one decode tick has them, beside its bound,
+    its plain version and the library yardstick; and at workload (a)'s."""
+    from repro_torch.kernels.paged_attention import kernel as pak
+    from repro_torch.kernels.paged_attention import ref
+    import torch.nn.functional as F
+    L, h, hkv, hd, ps = 28, 16, 8, 128, SERVE_PAGE
+    rng = np.random.default_rng(13)
+    rows_out = {}
+    for name, bs, pos_v, max_pages in (("b", 8, 288, 40), ("a", 4, 20, 5)):
+        n_pages = bs * max_pages
+        dt = torch.bfloat16
+
+        def rnd(*shape):
+            return torch.tensor(rng.standard_normal(shape) * 0.5,
+                                dtype=torch.float32, device="cuda").to(dt)
+
+        kps = [rnd(n_pages, ps, hkv, hd) for _ in range(L)]
+        vps = [rnd(n_pages, ps, hkv, hd) for _ in range(L)]
+        q, kn, vn = rnd(bs, h, hd), rnd(bs, hkv, hd), rnd(bs, hkv, hd)
+        rows = torch.as_tensor(rng.permutation(n_pages).reshape(
+            bs, max_pages), dtype=torch.int32, device="cuda")
+        pos = torch.full((bs,), pos_v, dtype=torch.int32, device="cuda")
+        o = torch.empty_like(q)
+
+        def tick():
+            for i in range(L):
+                pak.paged_gqa(q, kn, vn, kps[i], vps[i], rows, pos, o)
+
+        ms = median_of(lambda: graph_ms(torch, tick, reps=2)) / L
+        enq = median_of(lambda: events_ms(torch, tick, 5)) / L
+        kp0, vp0 = kps[0].clone(), vps[0].clone()
+        pms = median_of(lambda: events_ms(
+            torch, lambda: ref.paged_gqa_decode_ref(
+                q, kn, vn, kp0, vp0, rows, pos, page_size=ps), 10))
+        # the timed launch's output against the plain version's on the
+        # same inputs (kp0, vp0 hold the new cell like kps[0], vps[0])
+        want = ref.paged_gqa_decode_ref(q, kn, vn, kp0, vp0, rows, pos,
+                                        page_size=ps)[0].float().cpu()
+        pak.paged_gqa(q, kn, vn, kps[0], vps[0], rows, pos, o)
+        np.testing.assert_allclose(o.float().cpu().numpy(), want.numpy(),
+                                   err_msg=f"K10 at the timed shape ({name})",
+                                   **PAGED_TOL["bfloat16"])
+        # library yardstick: F.scaled_dot_product_attention over the window
+        # gathered beforehand (not timed), the new cell already in place;
+        # never called by the port
+        n_walk = pos_v // ps + 1
+        win = n_walk * ps
+
+        def window(pool):
+            w = pool[rows[:, :n_walk].long()].reshape(bs, win, hkv, hd)
+            return w.transpose(1, 2).contiguous()
+
+        kw, vw = window(kps[0]), window(vps[0])
+        mask = (torch.arange(win, device="cuda")[None, :]
+                <= pos[:, None].long())[:, None, None, :]
+        q4 = q[:, :, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(q4, kw, vw, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lms = median_of(lambda: graph_ms(torch, lib, reps=20))
+        # the yardstick computes the kernel's function (same window: the
+        # walk has just written the new cell into kps[0])
+        pak.paged_gqa(q, kn, vn, kps[0], vps[0], rows, pos, o)
+        kw, vw = window(kps[0]), window(vps[0])
+        got = lib()[:, :, 0].float()
+        torch.cuda.synchronize()
+        lerr = float((got - o.float()).abs().max())
+        if not lerr <= 2 ** -6:
+            fail(f"K10 yardstick disagrees with the kernel: {lerr:.3e}")
+        positions = bs * (pos_v + 1)
+        nbytes = (2 * positions * hkv * hd * 2          # K, V rows walked
+                  + 2 * bs * h * hd * 2                 # q in, o out
+                  + 2 * 2 * bs * hkv * hd * 2           # new cells in, out
+                  + bs * n_walk * 4 + bs * 4)           # page rows, pos
+        flops = positions * h * 4 * hd                  # q.k and p.v
+        bms, by = bound_ms(flops, nbytes)
+        rows_out[name] = dict(ms=ms, enq=enq, pms=pms, lms=lms, bms=bms,
+                              by=by, nbytes=nbytes)
+        log(f"[k10-time] ({name}) bs {bs}, pos {pos_v} ({n_walk} pages "
+            f"walked), H {h}, Hkv {hkv}, hd {hd}, ps {ps}, bf16, 28 layer "
+            f"pools: {ms:.5f} ms a launch on the device (CUDA graph, median "
+            f"of 3), {enq:.5f} ms a launch from Python; bound {bms:.5f} ms "
+            f"({by}: {nbytes} bytes at 3.35 TB/s); plain {pms:.4f} ms; "
+            f"library (F.scaled_dot_product_attention over the window "
+            f"gathered beforehand) {lms:.5f} ms, max |Δ| {lerr:.2e}; {card}")
+        del kps, vps
+    b, a = rows_out["b"], rows_out["a"]
+    return {"name": "paged_gqa", "route": "cuda",
+            "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                      "paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:206",
+            "launches": serve["launches"],
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_fp32": errs["float32"],
+            "max_abs_err_bf16": errs["bfloat16"],
+            "ms": b["ms"], "launch_from_python_ms": b["enq"],
+            "plain_ms": b["pms"], "bound_ms": b["bms"], "bound_by": b["by"],
+            "library_ms": b["lms"],
+            "library": "F.scaled_dot_product_attention(enable_gqa=True) "
+                       "over the window gathered beforehand",
+            "shape": "bs 8, pos 288 (37 pages), H 16, Hkv 8, hd 128, ps 8, "
+                     "bf16",
+            "ms_a": a["ms"], "plain_ms_a": a["pms"], "bound_ms_a": a["bms"],
+            "library_ms_a": a["lms"],
+            "shape_a": "bs 4, pos 20 (3 pages)",
+            "decode_ticks": serve["ticks"]}
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -1094,6 +1687,11 @@ def main():
                             paper_rounds, nb_errs, bh_err,
                             {"ms": ms20k, "plain_ms": plain20k,
                              "rows": rows20k}, card)
+    k10_errs = phase_k10(torch, np)
+    serve = phase_serve(torch, np)
+    rows.append(phase_k10_timing(torch, np, k10_errs, serve, card))
+    log("[serve-json] " + json.dumps(
+        {k: serve[k] for k in ("a", "b", "bf16_logit_rel", "profile")}))
     leaked = sorted(k for k in sys.modules if k == "jax"
                     or k.startswith("jax.") or k == "repro"
                     or k.startswith("repro."))

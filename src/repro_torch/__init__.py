@@ -6,23 +6,28 @@ easy to find.  It imports ``torch`` and numpy, never ``jax`` and nothing
 of ``repro``.  Inside, it uses PyTorch idiom: plain functions on tensors,
 an explicit ``device``, and in-place updates of the state (the QR tile
 stack, the Barnes-Hut accelerations) where the reference rebuilt
-immutable arrays.  Two task families are ported so far: the tiled QR
-(``apps.qr``) and the Barnes-Hut tree code (``apps.barneshut``).
+immutable arrays.  Three paths are ported so far: the tiled QR
+(``apps.qr``), the Barnes-Hut tree code (``apps.barneshut``) and the
+continuous-batching serving tier for the dense GQA family (``serve``,
+``models``, ``launch.serve``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than quietly run on the CPU.  On a CPU
 tensor every kernel wrapper takes its plain PyTorch version; on a CUDA
 tensor it launches the hand-written kernel or raises.
 
-Precision is float32 throughout with TF32 off: both switches below are set
-when the package is imported, so no float32 product in the port (or in a
-plain version it is compared with) is rounded to TF32.
+Precision: TF32 is off, so no float32 product in the port (or in a plain
+version it is compared with) is rounded to TF32; and bf16 matrix products
+keep a float32 accumulation throughout (no reduced-precision split-K
+reduction), the nearest to the reference's float32 accumulation of bf16
+products.  All three switches are set when the package is imported.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:

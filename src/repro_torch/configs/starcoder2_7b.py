@@ -1,0 +1,15 @@
+"""starcoder2-7b — dense GQA, RoPE [arXiv:2402.19173; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-7b",
+    family="dense",
+    n_layers=32,
+    d_model=4608,
+    n_heads=36,
+    n_kv_heads=4,
+    d_ff=18432,
+    vocab=49152,
+    head_dim=128,
+    attn_chunk=2048,
+)

@@ -119,10 +119,9 @@ class Backend:
     def compiled_kernels(self) -> bool:
         """Capability probe: True when this backend executes its device
         kernels natively compiled for the local runtime (as opposed to
-        host dispatch or Pallas interpret mode).  Callers use it to pick
-        between a kernel-resident fast path and a jitted fallback — the
-        serving tier selects its paged-attention decode path this way
-        (DESIGN.md §Serving) — instead of sniffing platform names."""
+        host dispatch or Pallas interpret mode).  The serving tier does
+        not ask it: on the card its decode attention is always K10, which
+        raises on a card it is not built for."""
         return False
 
     def run(self, sched: QSched, plan: Optional[ExecutionPlan],
@@ -197,7 +196,7 @@ class EngineBackend(Backend):
         # else the engine runs its plain PyTorch walk on CPU tensors
         import torch
         return (torch.cuda.is_available()
-                and torch.cuda.get_device_capability(0) == (9, 0))
+                and torch.cuda.get_device_capability() == (9, 0))
 
     def run(self, sched, plan, registry, *, nr_workers=1, engine=None):
         del nr_workers

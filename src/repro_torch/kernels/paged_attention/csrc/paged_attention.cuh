@@ -1,0 +1,47 @@
+// Storage-type helpers and the warp reduction of the paged GQA decode
+// kernel (K10, paged_attention.cu).  The pools, q, the new K/V cells and
+// the output share one storage type, float or bf16; everything inside the
+// kernel is float.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define PA_THREADS 128      // blockDim: four warps per (slot, KV head)
+#define PA_ITEMS 8          // accumulators a thread holds: n_rep * hd <= 1024
+#define PA_MAX_HD 256       // the wrappers refuse wider heads
+
+template <typename T>
+__device__ __forceinline__ float pa_to_float(T x);
+
+template <>
+__device__ __forceinline__ float pa_to_float<float>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ float pa_to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T pa_from_float(float x);
+
+template <>
+__device__ __forceinline__ float pa_from_float<float>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 pa_from_float<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);   // round to nearest even, as torch's .to()
+}
+
+// Sum of v over the 32 lanes of a warp; every lane gets the sum.
+__device__ __forceinline__ float pa_warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}

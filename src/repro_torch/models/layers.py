@@ -1,0 +1,222 @@
+"""Core transformer layers, dense parts: RMSNorm, RoPE, GQA attention (full
+/ chunked / decode-with-cache) and the SwiGLU MLP.  The port of
+``repro/models/layers.py``: plain functions over explicit parameter
+dictionaries of tensors, in the reference's layouts (activations
+``(B, S, H, hd)``, weights ``(d_in, d_out)``), so the tests compare like
+with like.
+
+Changes from the reference:
+
+* no ``constrain``: it is a sharding hint and means nothing on one device;
+* ``attention_decode`` writes the new K/V into the cache in place (the
+  reference returned an updated copy);
+* attention outside the paged decode kernel stays plain ``torch.matmul``
+  and softmax, as the reference left it to XLA; the fused library
+  attention waits for K12's slice.
+
+Scores and softmax are float32 whatever the storage type, as the
+reference's ``preferred_element_type=float32``; matrix products of bf16
+operands are bf16 (PyTorch accumulates them in float32).  The SSM, MLA,
+MoE and cross-attention layers belong to later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, object]
+
+
+def torch_dtype(cfg) -> torch.dtype:
+    """The storage type named by ``cfg.dtype`` ("bfloat16", "float32")."""
+    return getattr(torch, cfg.dtype)
+
+
+# --- init: every draw on the generator's device, stacked over ``lead`` ----------
+
+def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
+               dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1/d_in) weights of ``shape (..., d_in, d_out)``, drawn in float32
+    on ``gen``'s device and stored in ``dtype``."""
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_((1.0 / shape[-2]) ** 0.5).to(dtype)
+
+
+def rmsnorm_init(d: int, lead: Tuple[int, ...], device) -> Params:
+    return {"scale": torch.ones(lead + (d,), dtype=torch.float32,
+                                device=device)}
+
+
+def attention_init(gen: torch.Generator, cfg,
+                   lead: Tuple[int, ...] = ()) -> Params:
+    d, hd, dt = cfg.d_model, cfg.hd, torch_dtype(cfg)
+    p = {
+        "wq": dense_init(gen, lead + (d, cfg.n_heads * hd), dt),
+        "wk": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dt),
+        "wv": dense_init(gen, lead + (d, cfg.n_kv_heads * hd), dt),
+        "wo": dense_init(gen, lead + (cfg.n_heads * hd, d), dt),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, lead, gen.device)
+        p["k_norm"] = rmsnorm_init(hd, lead, gen.device)
+    return p
+
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype: torch.dtype,
+             lead: Tuple[int, ...] = ()) -> Params:
+    return {"w_gate": dense_init(gen, lead + (d, d_ff), dtype),
+            "w_up": dense_init(gen, lead + (d, d_ff), dtype),
+            "w_down": dense_init(gen, lead + (d_ff, d), dtype)}
+
+
+# --- RMSNorm ------------------------------------------------------------------
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    h = x.float()
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h * p["scale"]).to(x.dtype)
+
+
+# --- rotary embeddings ----------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, hd), positions: (..., S) integer."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs               # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                        # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- GQA attention ------------------------------------------------------------
+
+def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B,S,Hkv,hd) → (B,S,H,hd) by repeating each kv head."""
+    hkv = k.shape[2]
+    if hkv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // hkv, dim=2)
+
+
+def sdpa_full(q, k, v, causal: bool = True,
+              q_offset: int = 0) -> torch.Tensor:
+    """q: (B,Sq,H,hd); k,v: (B,Sk,H,hd).  fp32 softmax."""
+    hd = q.shape[-1]
+    scale = hd ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        qi = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kj = torch.arange(sk, device=q.device)[None, :]
+        scores = scores.masked_fill(qi < kj, float("-inf"))
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def sdpa_chunked(q, k, v, chunk: int, causal: bool = True) -> torch.Tensor:
+    """Online-softmax over KV chunks (flash-attention math, plain torch).
+    Requires Sk % chunk == 0.  Same-length causal self-attention."""
+    b, sq, h, hd = q.shape
+    vd = v.shape[-1]
+    sk = k.shape[1]
+    if sk % chunk:
+        raise ValueError(f"sequence {sk} is not a multiple of chunk {chunk}")
+    scale = hd ** -0.5
+    qi = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, h, sq), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    acc = torch.zeros((b, sq, h, vd), device=q.device)
+    qf = q.float()
+    for c in range(sk // chunk):
+        kb = k[:, c * chunk:(c + 1) * chunk]
+        vb = v[:, c * chunk:(c + 1) * chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.float()) * scale
+        if causal:
+            kj = c * chunk + torch.arange(chunk, device=q.device)[None, :]
+            s = s.masked_fill(qi < kj, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (m_new = -inf): exp(-inf - -inf) → nan
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros((), device=q.device))
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(torch.isfinite(s), p, torch.zeros((), device=q.device))
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                           torch.zeros((), device=q.device))
+        l = l * corr + p.sum(dim=-1)
+        acc = (acc * corr.permute(0, 2, 1)[..., None]
+               + torch.einsum("bhqk,bkhd->bqhd", p, vb.float()))
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    return (acc / l.permute(0, 2, 1)[..., None]).to(q.dtype)
+
+
+def attention(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+              return_kv: bool = False):
+    """Causal self-attention over (B,S,d).  ``return_kv`` also returns the
+    pre-repeat (B,S,Hkv,hd) keys/values for prefill cache construction."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, positions)
+    kf = _repeat_kv(k, cfg.n_heads)
+    vf = _repeat_kv(v, cfg.n_heads)
+    if cfg.attn_chunk and s > cfg.attn_chunk and s % cfg.attn_chunk == 0:
+        o = sdpa_chunked(q, kf, vf, cfg.attn_chunk)
+    else:
+        o = sdpa_full(q, kf, vf)
+    out = o.reshape(b, s, -1) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attention_decode(p: Params, cfg, x: torch.Tensor,
+                     cache: Tuple[torch.Tensor, torch.Tensor],
+                     pos: torch.Tensor):
+    """One-token decode: x (B,1,d), cache = (k,v) each (B,Smax,Hkv,hd),
+    pos (B,) current index.  Writes the new K/V at ``pos`` in place and
+    returns (out (B,1,d), cache)."""
+    b = x.shape[0]
+    ck, cv = cache
+    pos = pos.long()
+    q, k, v = _qkv(p, cfg, x, pos[:, None])
+    rows = torch.arange(b, device=x.device)
+    ck[rows, pos] = k[:, 0]
+    cv[rows, pos] = v[:, 0]
+    kf = _repeat_kv(ck, cfg.n_heads)
+    vf = _repeat_kv(cv, cfg.n_heads)
+    scale = cfg.hd ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf.float()) * scale
+    mask = torch.arange(ck.shape[1], device=x.device)[None, :] <= pos[:, None]
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, vf)
+    return o.reshape(b, 1, -1) @ p["wo"], (ck, cv)
+
+
+# --- SwiGLU MLP ------------------------------------------------------------------
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

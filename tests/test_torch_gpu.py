@@ -222,3 +222,200 @@ def test_bh_walk_launches_per_plan_within_rounds(cuda):
              device=cuda)
     torch.cuda.synchronize()
     assert 1 <= nb_kernel.LAUNCHES["bh_walk"] <= tab.nr_rounds
+
+
+# --- K10: paged GQA decode ---------------------------------------------------
+# fp32: the reference's kernel-vs-oracle tolerance
+# (tests/test_paged_properties.py: atol 1e-5, rtol 1e-5).  bf16: kernel and
+# plain version compute in float from the same bf16 operands and each
+# rounds its output to bf16 once, so they may differ by one bf16 ulp,
+# 2^-7 of the value at most.
+PAGED_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+             torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7)}
+PAGED_SHAPES = [(4, 2, 32, 8, torch.float32),        # qwen3-1.7b reduced
+                (16, 8, 128, 8, torch.float32),      # qwen3-1.7b as published
+                (16, 8, 128, 16, torch.float32),
+                (16, 8, 128, 8, torch.bfloat16),
+                (16, 8, 128, 16, torch.bfloat16)]
+
+
+def paged_case(bs, n_heads, n_kv, hd, ps, dtype, seed, device,
+               stale_tail=False, max_pages=5, pos=None):
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    rows, pos, walked, n_pages = pa_ref.random_layout(bs, ps, max_pages, 3,
+                                                      seed, pos)
+    arrs = pa_ref.random_operands(rows, pos, walked, n_pages,
+                                  n_heads=n_heads, n_kv=n_kv, hd=hd,
+                                  page_size=ps, seed=seed + 1,
+                                  stale_tail=stale_tail)
+    ts = [torch.tensor(a, device=device).to(dtype) for a in arrs]
+    return ts + [torch.tensor(rows, device=device),
+                 torch.tensor(pos, device=device)], rows, pos
+
+
+def paged_check(operands, rows, pos, ps):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    q = operands[0]
+    plain = [x.clone() for x in operands]
+    n0 = pa_ops.LAUNCHES["paged_gqa"]
+    o, kp, vp = pa_ops.paged_gqa_decode(*operands, page_size=ps)
+    torch.cuda.synchronize()
+    assert pa_ops.LAUNCHES["paged_gqa"] == n0 + 1
+    ro, rk, rv = pa_ref.paged_gqa_decode_ref(*plain, page_size=ps)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    assert torch.isfinite(o).all(), "the kernel read a poisoned position"
+    assert_allclose(o.float().cpu().numpy(), ro.float().cpu().numpy(),
+                    **PAGED_TOL[q.dtype])
+    for got, want in ((kp, rk), (vp, rv)):     # the walked pages, bitwise
+        for t in range(len(pos)):
+            pages = torch.as_tensor(rows[t, :pos[t] // ps + 1])
+            assert torch.equal(got[pages].isnan(), want[pages].isnan())
+            assert torch.equal(got[pages].nan_to_num(), want[pages].nan_to_num())
+
+
+@pytest.mark.parametrize("bs", [1, 3, 8])
+@pytest.mark.parametrize("n_heads,n_kv,hd,ps,dtype", PAGED_SHAPES)
+def test_paged_gqa_kernel_matches_plain_on_card(cuda, bs, n_heads, n_kv, hd,
+                                                ps, dtype):
+    ops_, rows, pos = paged_case(bs, n_heads, n_kv, hd, ps, dtype, bs, cuda)
+    paged_check(ops_, rows, pos, ps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_gqa_kernel_matches_plain_at_serving_depth(cuda, dtype):
+    """Workload (b) of chip_smoke.py's serving phase: 8 slots of 40 pages
+    at positions spread over 256-319 (288 among them), up to 40 pages
+    walked a slot."""
+    pos = [256, 263, 264, 277, 288, 300, 311, 319]
+    ops_, rows, pos = paged_case(8, 16, 8, 128, 8, dtype, 21, cuda,
+                                 max_pages=40, pos=pos)
+    paged_check(ops_, rows, pos, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_gqa_kernel_skips_stale_nonfinite_tail(cuda, dtype):
+    """Unlisted pages are NaN and every slot's last page holds +inf keys
+    and NaN values after pos: the result stays finite and equal to the
+    plain version, at pos 0, ps - 1, ps and mid-page."""
+    ps = 8
+    ops_, rows, pos = paged_case(4, 16, 8, 128, ps, dtype, 11, cuda,
+                                 stale_tail=True, pos=[0, ps - 1, ps, 13])
+    paged_check(ops_, rows, pos, ps)
+
+
+def test_paged_gqa_kernel_leaves_other_slots_pages_bitwise(cuda):
+    """A launch for slot 0 alone writes one cell of its own page and
+    nothing of slot 1's pages (or any other byte of the pools)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    ps = 8
+    ops_, rows, pos = paged_case(2, 16, 8, 128, ps, torch.bfloat16, 5, cuda,
+                                 pos=[12, 20])
+    q, kn, vn, kp, vp, pr, po = ops_
+    k0, v0 = kp.clone(), vp.clone()
+    pa_ops.paged_gqa_decode(q[:1].contiguous(), kn[:1].contiguous(),
+                            vn[:1].contiguous(), kp, vp, pr[:1].contiguous(),
+                            po[:1].contiguous(), page_size=ps)
+    torch.cuda.synchronize()
+    cell = (int(rows[0, pos[0] // ps]), int(pos[0] % ps))
+    for pool, before, new in ((kp, k0, kn), (vp, v0, vn)):
+        assert torch.equal(pool[cell], new[0])
+        pool[cell] = before[cell]
+        assert torch.equal(pool.isnan(), before.isnan())
+        assert torch.equal(pool.nan_to_num(), before.nan_to_num())
+
+
+def test_paged_gqa_kernel_out_of_range_gives_nan(cuda):
+    """A position past the row makes the slot's output NaN (the guard's
+    signal) and writes nothing."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    ps = 8
+    ops_, rows, pos = paged_case(2, 4, 2, 32, ps, torch.float32, 9, cuda,
+                                 pos=[3, 9])
+    q, kn, vn, kp, vp, pr, po = ops_
+    po[1] = pr.shape[1] * ps
+    k0 = kp.clone()
+    o, _, _ = pa_ops.paged_gqa_decode(q, kn, vn, kp, vp, pr, po,
+                                      page_size=ps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o[0]).all() and torch.isnan(o[1]).all()
+    changed = ~((kp == k0) | (kp.isnan() & k0.isnan()))
+    assert int(changed.sum()) == 2 * 32      # slot 0's cell: Hkv x hd
+
+
+def test_paged_gqa_kernel_bad_page_id_writes_nothing(cuda):
+    """A page id outside the pool among the pages a slot walks (here its
+    first, not the page of the new cell) makes that slot's output NaN and
+    writes no cell of it: every listed id is checked before the write."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    ps = 8
+    ops_, rows, pos = paged_case(2, 4, 2, 32, ps, torch.float32, 9, cuda,
+                                 pos=[3, 20])
+    q, kn, vn, kp, vp, pr, po = ops_
+    pr[1, 0] = kp.shape[0]
+    k0 = kp.clone()
+    o, _, _ = pa_ops.paged_gqa_decode(q, kn, vn, kp, vp, pr, po,
+                                      page_size=ps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o[0]).all() and torch.isnan(o[1]).all()
+    changed = ~((kp == k0) | (kp.isnan() & k0.isnan()))
+    assert int(changed.sum()) == 2 * 32      # slot 0's cell: Hkv x hd
+
+
+def _card_service(cuda, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import GenerateService
+    cfg = get_config("qwen3-1.7b").reduced()
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    return GenerateService(params, cfg, max_batch=2, max_seq=32,
+                           page_size=8, device=cuda, **kw)
+
+
+def test_service_on_card_takes_k10_and_raises_on_its_fault(cuda):
+    """On the card "auto" is the K10 path; a page id out of the pool makes
+    K10 write NaN, and the service raises rather than recompute the slot
+    on the plain path."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.serve import KernelFault
+    svc = _card_service(cuda)
+    assert svc.decode_path == "kernel"
+    for i in range(2):
+        svc.submit(np.arange(8, dtype=np.int32) + i, 8)
+    pa_ops.reset_counts()
+    svc.step()                      # admission, prefill and one decode tick
+    assert pa_ops.LAUNCHES["paged_gqa"] == svc.cfg.n_layers
+    assert pa_ops.PLAIN_CALLS["paged_gqa"] == 0
+    svc._pt[1, 0] = svc.pool.n_pages
+    with pytest.raises(KernelFault) as err:
+        svc.step()
+    assert err.value.slots == [1]
+    assert svc.stats["retries"] == 0
+
+
+def test_service_on_card_injected_fault_walks_the_ladder(cuda):
+    """An injected NaN is the chaos harness's, not the kernel's: the slot
+    is retried on the gather path and the tick degrades, with a warning."""
+    from repro_torch.serve import FaultEvent, FaultPlan
+    svc = _card_service(cuda, faults=FaultPlan(
+        [FaultEvent(tick=1, kind="nan_decode", victim=0)]))
+    hs = [svc.submit(np.arange(8, dtype=np.int32) + i, 8) for i in range(2)]
+    with pytest.warns(RuntimeWarning, match="degraded"):
+        svc.run_until_complete()
+    assert svc.stats["retries"] == 1
+    assert all(h.status == "done" and len(h.generated) == 8 for h in hs)
+
+
+def test_paged_gqa_ops_check_operands(cuda):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    ops_, _, _ = paged_case(1, 4, 2, 32, 8, torch.float32, 1, cuda)
+    bad = list(ops_)
+    bad[3] = bad[3].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        pa_ops.paged_gqa_decode(*bad, page_size=8)
+    bad = list(ops_)
+    bad[5] = bad[5].long()
+    with pytest.raises(ValueError, match="int32"):
+        pa_ops.paged_gqa_decode(*bad, page_size=8)
+    with pytest.raises(ValueError, match="shapes"):
+        pa_ops.paged_gqa_decode(*ops_, page_size=4)

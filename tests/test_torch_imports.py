@@ -48,12 +48,25 @@ def test_every_module_imports_here():
             "repro_torch.kernels.nbody.kernel",
             "repro_torch.kernels.nbody.ops",
             "repro_torch.kernels.nbody.ref",
-            "repro_torch.apps.barneshut"} <= set(names)
+            "repro_torch.apps.barneshut",
+            "repro_torch.kernels.paged_attention.kernel",
+            "repro_torch.kernels.paged_attention.ops",
+            "repro_torch.kernels.paged_attention.ref",
+            "repro_torch.models.config", "repro_torch.models.layers",
+            "repro_torch.models.lm", "repro_torch.models.serving",
+            "repro_torch.models.convert", "repro_torch.configs",
+            "repro_torch.configs.qwen3_1p7b",
+            "repro_torch.serve", "repro_torch.serve.blockpool",
+            "repro_torch.serve.faults", "repro_torch.serve.service",
+            "repro_torch.serve.traffic", "repro_torch.obs.export",
+            "repro_torch.launch.serve"} <= set(names)
 
 
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    assert (torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction is False)
 
 
 def test_run_qr_defaults_to_cuda_and_raises_without_card():
@@ -78,6 +91,27 @@ def test_solve_defaults_to_cuda_and_raises_without_card():
     g = bh.build_graph(bh.Octree(x, np.ones(64), n_max=16), n_task=32)
     with pytest.raises(RuntimeError, match="CUDA"):
         bh.BHState(g)
+
+
+def test_service_and_launcher_default_to_cuda_and_raise_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import lm
+    from repro_torch.serve import GenerateService
+    cfg = get_config("qwen3-1.7b").reduced()
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    pa_kernel.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerateService(params, cfg)
+    assert launch_serve.build_parser().parse_args(
+        ["--arch", "qwen3-1.7b"]).device == "cuda"
+    for extra in (["--continuous"], []):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch_serve.main(["--arch", "qwen3-1.7b", "--reduced"] + extra)
+    assert all(v == 0 for v in pa_kernel.PLAIN_CALLS.values())
 
 
 def test_resolve_device():

@@ -1,0 +1,122 @@
+"""The port's plain K10 (paged GQA decode) against the reference's oracle.
+
+``repro_torch.kernels.paged_attention.ref.paged_gqa_decode_ref`` is what
+``ops.paged_gqa_decode`` runs on CPU tensors and what the CUDA kernel is
+held against on the card.  Here it is held against
+``repro.kernels.paged_attention.ref.paged_gqa_decode_ref`` on the same
+seeded numpy inputs, at the reference's kernel-vs-oracle tolerance (atol
+1e-5, rtol 1e-5, ``tests/test_paged_properties.py``), and against the
+access contract: unlisted pages and the stale tail of the last page
+never reach the result, even when non-finite, and the call writes the
+one new cell of each slot and nothing else.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from numpy.testing import assert_allclose  # noqa: E402
+
+from repro.kernels.paged_attention import ref as jref  # noqa: E402
+from repro_torch.kernels.paged_attention import ops, ref  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+N_HEADS, HD, MAX_PAGES = 4, 32, 4
+
+
+def _case(bs, n_kv, ps, seed, pos=None, stale_tail=False):
+    rows, pos, walked, n_pages = ref.random_layout(bs, ps, MAX_PAGES, 3,
+                                                   seed, pos)
+    arrs = ref.random_operands(rows, pos, walked, n_pages, n_heads=N_HEADS,
+                               n_kv=n_kv, hd=HD, page_size=ps,
+                               seed=seed + 1, stale_tail=stale_tail)
+    return list(arrs) + [rows, pos]
+
+
+def _both(arrs, ps):
+    """(port's o, k_pool, v_pool) and (reference's), as numpy."""
+    got = ops.paged_gqa_decode(*[torch.tensor(a) for a in arrs],
+                               page_size=ps)
+    want = jref.paged_gqa_decode_ref(*[jnp.asarray(a) for a in arrs],
+                                     page_size=ps)
+    return ([g.numpy() for g in got], [np.asarray(w) for w in want])
+
+
+def _same_pages(got, want, rows, pos, ps):
+    """The walked pages of each slot are bitwise equal (NaN for NaN)."""
+    for t in range(len(pos)):
+        pages = rows[t, :pos[t] // ps + 1]
+        np.testing.assert_array_equal(got[pages], want[pages])
+
+
+@pytest.mark.parametrize("n_kv", [4, 2, 1])           # H/Hkv 1, 2, 4
+@pytest.mark.parametrize("ps", [4, 8])
+@pytest.mark.parametrize("where", ["zero", "page_end", "page_start", "mid"])
+def test_plain_k10_matches_reference_oracle(n_kv, ps, where):
+    p = {"zero": 0, "page_end": ps - 1, "page_start": ps,
+         "mid": ps + ps // 2 + 1}[where]
+    arrs = _case(3, n_kv, ps, seed=10 * n_kv + ps,
+                 pos=[p, MAX_PAGES * ps - 1 - p, p])
+    (o, kp, vp), (ro, rk, rv) = _both(arrs, ps)
+    assert np.isfinite(o).all()
+    assert_allclose(o, ro, **TOL)
+    for got, want in ((kp, rk), (vp, rv)):
+        _same_pages(got, want, arrs[5], arrs[6], ps)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_plain_k10_never_reads_unlisted_pages(seed):
+    """test_paged_properties.py's property on seeded layouts: every page
+    no slot walks is NaN and each row's tail points at one; the output
+    stays finite and equal to the reference."""
+    rng = np.random.default_rng(100 + seed)
+    ps = int(rng.choice([4, 8]))
+    arrs = _case(int(rng.integers(1, 4)), int(rng.choice([1, 2, 4])), ps,
+                 seed=seed)
+    (o, kp, vp), (ro, rk, rv) = _both(arrs, ps)
+    assert np.isfinite(o).all(), "read a poisoned (unlisted) page"
+    assert_allclose(o, ro, **TOL)
+    for got, want in ((kp, rk), (vp, rv)):
+        _same_pages(got, want, arrs[5], arrs[6], ps)
+
+
+def test_plain_k10_skips_stale_nonfinite_tail():
+    """The last page of every slot holds +inf keys and NaN values after
+    pos (a reused page's stale tail): masked out, not multiplied by 0."""
+    ps = 8
+    arrs = _case(4, 2, ps, seed=3, pos=[0, ps - 1, ps, 13],
+                 stale_tail=True)
+    (o, _, _), (ro, _, _) = _both(arrs, ps)
+    assert np.isfinite(o).all()
+    assert_allclose(o, ro, **TOL)
+
+
+def test_plain_k10_writes_the_cell_and_nothing_else():
+    ps = 4
+    arrs = _case(3, 2, ps, seed=7)
+    rows, pos = arrs[5], arrs[6]
+    before = [a.copy() for a in arrs[3:5]]
+    q, kn, vn, kp, vp, pr, po = [torch.tensor(a) for a in arrs]
+    ops.paged_gqa_decode(q, kn, vn, kp, vp, pr, po, page_size=ps)
+    for pool, old, new in ((kp.numpy(), before[0], arrs[1]),
+                           (vp.numpy(), before[1], arrs[2])):
+        for t in range(len(pos)):
+            cell = (rows[t, pos[t] // ps], pos[t] % ps)
+            np.testing.assert_array_equal(pool[cell], new[t])
+            pool[cell] = old[cell]
+        np.testing.assert_array_equal(pool, old)
+
+
+def test_cpu_tensors_take_the_plain_version_and_others_raise():
+    arrs = [torch.tensor(a) for a in _case(1, 2, 4, seed=1)]
+    ops.reset_counts()
+    ops.paged_gqa_decode(*arrs, page_size=4)
+    assert ops.PLAIN_CALLS["paged_gqa"] == 1 and ops.LAUNCHES["paged_gqa"] == 0
+    meta = [a.to("meta") for a in arrs]
+    with pytest.raises(ValueError, match="CUDA"):       # no fallback
+        ops.paged_gqa_decode(*meta, page_size=4)
+    assert ops.PLAIN_CALLS["paged_gqa"] == 1
+    assert ops.pages_occupied(torch.tensor([0, 3, 4, 9]), 4).tolist() == [
+        1, 1, 2, 3]
