@@ -5,14 +5,15 @@
 
 Run from the root of a checkout on a machine with one sm_90 card.  It
 builds the port's CUDA kernels from the checkout's sources (one nvcc per
-source, all at once) and drives the port's three paths.  The tiled QR
-(paper §4.1) at its benchmark size (2048² fp32, 64² tiles) through
+source, all at once) and drives the port's paths.  The tiled QR (paper
+§4.1) at its benchmark size (2048² fp32, 64² tiles) through
 ``repro_torch.apps.qr.run_qr``; the Barnes-Hut tree code (§4.2) through
 ``repro_torch.apps.barneshut.solve`` at 100k particles in all four modes
 and at the paper's 1M particles in engine mode; and continuous-batching
-serving of qwen3-1.7b as published (bf16, 28 layers, random weights from
-seed 0) through ``repro_torch.serve.GenerateService``.  Phases, each
-fatal when it fails:
+serving through ``repro_torch.serve.GenerateService`` of qwen3-1.7b as
+published (bf16, 28 layers) and of deepseek-v3-671b (MoE + MLA) at full
+width cut to its first 5 layers (bf16), random weights from seed 0.
+Phases, each fatal when it fails:
 
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
  2. build the kernels (nvcc, sm_90a) and report the build time;
@@ -66,6 +67,25 @@ fatal when it fails:
     pools in a CUDA graph) beside its bound, its plain version and
     F.scaled_dot_product_attention over the window gathered beforehand
     (the yardstick, never called by the port).
+15. K11 (paged MLA decode) against its plain version on the card: H 4 /
+    lat 32 / rope 16 (--reduced), lat 16 / rope 8, and H 128 / lat 512 /
+    rope 64 (published), page 8 and 16, fp32 and bf16, bs 1, 3 and 8; 8
+    slots at positions 256-319 (up to 40 pages); stale non-finite tails,
+    NaN unlisted pages, a second slot's pages bitwise untouched;
+16. the MoE + MLA serving path: deepseek-v3-671b at full width, 5 layers
+    (3 dense, 2 MoE of 256 routed + 1 shared experts), bf16, after the
+    qwen3 model is freed, through GenerateService on "auto" for the same
+    two workloads: every request done with its budget, the pool empty,
+    path "kernel", degrade level 0, no retries, K11 launched layers x
+    decode ticks times, K10 never, no plain version; its timings and a
+    profiler window (K11's and the expert products' shares); bf16 kernel
+    vs gather logits over 16 teacher-forced steps (the median step within
+    a limit that every step of a planted fault exceeds); workload (a)
+    token for token in an fp32 copy of 1 dense + 1 MoE layer;
+17. K11 timings at the path's shapes (28 layer pools in a CUDA graph)
+    beside its bound (operations), its plain version and
+    F.scaled_dot_product_attention with one shared KV head (the yardstick,
+    never called by the port).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -91,6 +111,9 @@ N_LARGE = 4096
 LANES = 4
 MODES = ("sequential", "threaded", "rounds", "engine")
 FP32_PEAK = 67e12     # H100 SXM fp32 outside the tensor cores (data sheet)
+BF16_PEAK = 989e12    # H100 SXM bf16 dense on the tensor cores, float
+#                       accumulation (data sheet): bf16 products are exact in
+#                       float, so this rate computes the same function
 HBM_RATE = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
 
 # tolerances, each with its reason
@@ -163,8 +186,10 @@ def tile_bytes(op, b, n=1):
     return per * n
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+def bound_ms(flops, nbytes, peak=FP32_PEAK):
+    """The least time for the work: operations at ``peak``, the card's rate
+    for the operands' type, or bytes at the memory rate, the larger."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1134,23 +1159,55 @@ PAGED_SHAPES = ((4, 2, 32, 8, "float32"),       # qwen3-1.7b reduced
 BF16_LOGIT_RTOL = 3.5e-2
 
 
-def paged_case(torch, np, bs, n_heads, n_kv, hd, ps, dtype, seed,
-               stale_tail=False, pos=None, max_pages=5):
-    from repro_torch.kernels.paged_attention import ref
-    rows, pos, walked, n_pages = ref.random_layout(bs, ps, max_pages, 3,
-                                                   seed, pos)
-    arrs = ref.random_operands(rows, pos, walked, n_pages, n_heads=n_heads,
-                               n_kv=n_kv, hd=hd, page_size=ps, seed=seed + 1,
-                               stale_tail=stale_tail)
-    dt = getattr(torch, dtype)
-    ts = [torch.tensor(a, device="cuda").to(dt) for a in arrs]
-    return ts + [torch.tensor(rows, device="cuda"),
-                 torch.tensor(pos, device="cuda")], rows, pos
 
 
 def nan_equal(torch, a, b):
     return (torch.equal(a.isnan(), b.isnan())
             and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+def hold_paged(torch, np, name, op, plain_op, operands, rows, pos, ps,
+               dtype, what, errs, **kw):
+    """One launch of a paged decode kernel (K10 or K11, through its op)
+    against its plain version on the same inputs: a finite output within
+    PAGED_TOL and every walked page of both pools equal to the plain
+    version's, NaN for NaN.  Records the largest |err| in ``errs``."""
+    plain = [x.clone() for x in operands]
+    out, pool1, pool2 = op(*operands, page_size=ps, **kw)
+    want, want1, want2 = plain_op(*plain, page_size=ps, **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        fail(f"{name} {what}: non-finite output (read a poisoned position)")
+    g, w = out.float().cpu().numpy(), want.float().cpu().numpy()
+    np.testing.assert_allclose(g, w, err_msg=f"{name} {what}",
+                               **PAGED_TOL[dtype])
+    errs[dtype] = max(errs[dtype], float(np.abs(g - w).max()))
+    for got, exp in ((pool1, want1), (pool2, want2)):
+        for t in range(len(pos)):
+            pages = torch.as_tensor(rows[t, :pos[t] // ps + 1])
+            if not nan_equal(torch, got[pages], exp[pages]):
+                fail(f"{name} {what}: walked pages differ from the plain "
+                     f"version's")
+
+
+def other_slot_untouched(torch, name, op, operands, rows, pos, ps, **kw):
+    """A launch for slot 0 alone (of two) writes slot 0's new cells and
+    leaves every other byte of both pools as it was."""
+    *lead, page_rows, positions = operands
+    news, pools = lead[-4:-2], lead[-2:]
+    before = [p.clone() for p in pools]
+    op(*[x[:1].contiguous() for x in lead[:-2]], *pools,
+       page_rows[:1].contiguous(), positions[:1].contiguous(), page_size=ps,
+       **kw)
+    torch.cuda.synchronize()
+    cell = (int(rows[0, pos[0] // ps]), int(pos[0] % ps))
+    for pool, old, new in zip(pools, before, news):
+        if not torch.equal(pool[cell], new[0]):
+            fail(f"{name}: the new cell was not written")
+        pool[cell] = old[cell]
+        if not nan_equal(torch, pool, old):
+            fail(f"{name}: a launch for slot 0 changed another cell of the "
+                 f"pool")
 
 
 def phase_k10(torch, np):
@@ -1160,58 +1217,37 @@ def phase_k10(torch, np):
     errs = {"float32": 0.0, "bfloat16": 0.0}
 
     def check(operands, rows, pos, ps, dtype, what):
-        plain = [x.clone() for x in operands]
-        o, kp, vp = ops.paged_gqa_decode(*operands, page_size=ps)
-        ro, rk, rv = ref.paged_gqa_decode_ref(*plain, page_size=ps)
-        torch.cuda.synchronize()
-        if not torch.isfinite(o).all():
-            fail(f"K10 {what}: non-finite output (read a poisoned position)")
-        g, w = o.float().cpu().numpy(), ro.float().cpu().numpy()
-        np.testing.assert_allclose(g, w, err_msg=f"K10 {what}",
-                                   **PAGED_TOL[dtype])
-        errs[dtype] = max(errs[dtype], float(np.abs(g - w).max()))
-        for got, want in ((kp, rk), (vp, rv)):
-            for t in range(len(pos)):
-                pages = torch.as_tensor(rows[t, :pos[t] // ps + 1])
-                if not nan_equal(torch, got[pages], want[pages]):
-                    fail(f"K10 {what}: walked pages differ from the plain "
-                         f"version's")
+        hold_paged(torch, np, "K10", ops.paged_gqa_decode,
+                   ref.paged_gqa_decode_ref, operands, rows, pos, ps, dtype,
+                   what, errs)
 
     n = 0
     for bs in (1, 3, 8):
         for (h, hkv, hd, ps, dt) in PAGED_SHAPES:
-            ops_, rows, pos = paged_case(torch, np, bs, h, hkv, hd, ps, dt,
-                                         bs)
+            ops_, rows, pos = ref.random_case(bs, ps, getattr(torch, dt), bs,
+                                              "cuda", n_heads=h, n_kv=hkv,
+                                              hd=hd)
             check(ops_, rows, pos, ps, dt, f"bs {bs} H {h} Hkv {hkv} hd "
                   f"{hd} ps {ps} {dt}")
             n += 1
     for dt in ("float32", "bfloat16"):
         # workload (b)'s geometry: 8 slots of 40 pages, positions spread
         # over 256-319 (up to 40 pages walked), as tests/test_torch_gpu.py
-        ops_, rows, pos = paged_case(torch, np, 8, 16, 8, 128, 8, dt, 21,
-                                     pos=SERVE_DEPTH_POS, max_pages=40)
+        ops_, rows, pos = ref.random_case(8, 8, getattr(torch, dt), 21, "cuda",
+                                          pos=SERVE_DEPTH_POS, max_pages=40,
+                                          n_heads=16, n_kv=8, hd=128)
         check(ops_, rows, pos, 8, dt, f"serving depth {dt}")
         # stale non-finite tails
-        ops_, rows, pos = paged_case(torch, np, 4, 16, 8, 128, 8, dt, 11,
-                                     stale_tail=True, pos=[0, 7, 8, 13])
+        ops_, rows, pos = ref.random_case(4, 8, getattr(torch, dt), 11, "cuda",
+                                          stale_tail=True, pos=[0, 7, 8, 13],
+                                          n_heads=16, n_kv=8, hd=128)
         check(ops_, rows, pos, 8, dt, f"stale tail {dt}")
         n += 2
     # one slot's launch leaves the other slot's pages bitwise unchanged
-    ops_, rows, pos = paged_case(torch, np, 2, 16, 8, 128, 8, "bfloat16", 5,
-                                 pos=[12, 20])
-    q, kn, vn, kp, vp, pr, po = ops_
-    before = kp.clone(), vp.clone()
-    ops.paged_gqa_decode(q[:1].contiguous(), kn[:1].contiguous(),
-                         vn[:1].contiguous(), kp, vp, pr[:1].contiguous(),
-                         po[:1].contiguous(), page_size=8)
-    torch.cuda.synchronize()
-    cell = (int(rows[0, pos[0] // 8]), int(pos[0] % 8))
-    for pool, old, new in ((kp, before[0], kn), (vp, before[1], vn)):
-        if not torch.equal(pool[cell], new[0]):
-            fail("K10: the new cell was not written")
-        pool[cell] = old[cell]
-        if not nan_equal(torch, pool, old):
-            fail("K10: a launch for slot 0 changed another cell of the pool")
+    ops_, rows, pos = ref.random_case(2, 8, torch.bfloat16, 5, "cuda",
+                                      pos=[12, 20], n_heads=16, n_kv=8, hd=128)
+    other_slot_untouched(torch, "K10", ops.paged_gqa_decode, ops_, rows, pos,
+                         8)
     log(f"[k10] paged_gqa_decode vs plain on the card: {n + 1} cases (bs 1,"
         f" 3, 8 x {len(PAGED_SHAPES)} shapes, 8 slots at positions "
         f"{SERVE_DEPTH_POS[0]}-{SERVE_DEPTH_POS[-1]} of 40 pages, stale "
@@ -1219,6 +1255,18 @@ def phase_k10(torch, np):
         f"NaN unlisted pages, a second slot untouched); max |err| fp32 "
         f"{errs['float32']:.3e}, bf16 {errs['bfloat16']:.3e}")
     return errs
+
+
+def free_card(torch, most_gib=8.0):
+    """Give the card back the memory of models that were dropped (a dropped
+    service keeps no reference cycle, so its model is freed at once); fails
+    if more than ``most_gib`` GiB are still held, since a model held on
+    would leave the next one short of memory."""
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    if held > most_gib:
+        fail(f"{held:.2f} GiB still held on the card after a model was "
+             f"dropped")
 
 
 def tree_numel(tree):
@@ -1279,6 +1327,22 @@ def run_service(torch, np, params, cfg, work, slots, plen, new, path):
                 plain=plain, peak=peak, max_seq=max_seq)
 
 
+# the paged decode kernel each attention kind's decode path launches, by
+# cfg.mla: its launch-count key, its op in kernels/paged_attention/ops.py
+# (the plain version is the op's name + "_ref" in ref.py) and its CUDA
+# kernel's symbol as the profiler names it
+PAGED_KERNELS = {
+    False: dict(key="paged_gqa", op="paged_gqa_decode",
+                symbol="gqa_decode_kernel"),
+    True: dict(key="paged_mla", op="paged_mla_decode",
+               symbol="mla_decode_kernel")}
+
+
+def paged_kernel(cfg):
+    """The paged decode kernel the model's decode path launches."""
+    return PAGED_KERNELS[bool(cfg.mla)]
+
+
 def check_served(np, cfg, name, run, work, want_path):
     svc, hs = run["svc"], run["hs"]
     if svc.decode_path != want_path:
@@ -1303,10 +1367,12 @@ def check_served(np, cfg, name, run, work, want_path):
              f"{run['plain']}")
     ticks = svc.metrics.get("serve.decode_round_s").count
     if want_path == "kernel":
-        want = cfg.n_layers * ticks
-        if run["launches"]["paged_gqa"] != want or not want:
-            fail(f"serve ({name}): K10 launched {run['launches']} times, "
-                 f"wanted layers x decode ticks = {cfg.n_layers} x {ticks}")
+        want = {k: cfg.n_layers * ticks if k == paged_kernel(cfg)["key"] else 0
+                for k in run["launches"]}
+        if run["launches"] != want or not ticks:
+            fail(f"serve ({name}): paged kernels launched {run['launches']} "
+                 f"times, wanted {want} (layers x decode ticks = "
+                 f"{cfg.n_layers} x {ticks} of {paged_kernel(cfg)['key']})")
     return ticks
 
 
@@ -1328,7 +1394,7 @@ def serve_timings(np, name, run):
            "decode_round_device_ms_total": dev["sum"] * 1e3,
            "pages_attended": svc.stats["pages_attended"],
            "peak_gib": run["peak"] / 2 ** 30,
-           "k10_launches": run["launches"]["paged_gqa"]}
+           "kernel_launches": run["launches"][paged_kernel(svc.cfg)["key"]]}
     log(f"[serve-time] ({name}) {len(hs)} requests, {toks} tokens in "
         f"{out['wall_s']:.3f} s = {out['tok_per_s']:.1f} tok/s; TTFT median "
         f"{out['ttft_ms_median']:.1f} ms, p90 {out['ttft_ms_p90']:.1f} ms; "
@@ -1338,33 +1404,43 @@ def serve_timings(np, name, run):
         f"issuing it) and {out['decode_round_device_ms_mean']:.3f} ms on "
         f"the device (CUDA events around it; means of the service's "
         f"serve.decode_*_s histograms); peak memory "
-        f"{out['peak_gib']:.2f} GiB; K10 launches {out['k10_launches']}")
+        f"{out['peak_gib']:.2f} GiB; {paged_kernel(svc.cfg)['key']} launches "
+        f"{out['kernel_launches']}")
     return out
 
 
-def walk_one_page_short(q, k_new, v_new, k_pool, v_pool, page_rows, pos, *,
-                        page_size):
-    """A planted fault in K10's place: the cell is written, but the walk
-    stops after page pos // ps - 1 (the plain version at position ``cut``,
-    the last one of that page, fed the cell it already holds)."""
+def one_page_short(plain):
+    """A planted fault in a paged kernel's place (K10's or K11's operands):
+    the new cells are written, but the walk stops after page pos // ps - 1
+    (``plain`` at position ``cut``, the last one of that page, fed the cells
+    it already holds)."""
     from repro_torch.kernels.paged_attention import ref
-    ref.write_cell(k_pool, page_rows, pos, k_new, page_size)
-    ref.write_cell(v_pool, page_rows, pos, v_new, page_size)
-    cut = pos - pos % page_size - 1
-    pg = page_rows.long().gather(1, (cut.long() // page_size)[:, None])[:, 0]
-    off = cut.long() % page_size
-    o, _, _ = ref.paged_gqa_decode_ref(q, k_pool[pg, off], v_pool[pg, off],
-                                       k_pool, v_pool, page_rows, cut,
-                                       page_size=page_size)
-    return o, k_pool, v_pool
+
+    def op(*operands, page_size, **kw):
+        *queries, new1, new2, pool1, pool2, page_rows, pos = operands
+        ref.write_cell(pool1, page_rows, pos, new1, page_size)
+        ref.write_cell(pool2, page_rows, pos, new2, page_size)
+        cut = pos - pos % page_size - 1
+        pg = page_rows.long().gather(1, (cut.long() // page_size)[:, None])[
+            :, 0]
+        off = cut.long() % page_size
+        out, _, _ = plain(*queries, pool1[pg, off], pool2[pg, off], pool1,
+                          pool2, page_rows, cut, page_size=page_size, **kw)
+        return out, pool1, pool2
+
+    return op
 
 
-def teacher_forced(torch, np, params, cfg):
+def teacher_forced(torch, np, params, cfg, limit):
     """Kernel vs gather logits over TEACHER_STEPS decode steps fed the same
     tokens, from one prefill of 8 prompts of 256: the paged pool (pages
-    shuffled) through K10, a contiguous copy through the gather math; then
-    the paged steps again with the planted fault in K10's place."""
+    shuffled) through the paged kernel (K10 or K11), a contiguous copy
+    through the gather math; then the paged steps again with the planted
+    fault (the walk one page short) in the kernel's place.  Fails unless
+    every step's gap is within ``limit`` and every planted step's exceeds
+    it."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention import ref
     from repro_torch.models import serving
     bs, plen, ps = 8, 256, SERVE_PAGE
     n = -(-(plen + TEACHER_STEPS) // ps)
@@ -1375,8 +1451,7 @@ def teacher_forced(torch, np, params, cfg):
                                          (TEACHER_STEPS, bs, 1)),
                             device="cuda")
     _, cache, pos = serving.prefill(params, cfg, tokens)
-    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, n * ps - plen))
-             for k, v in cache.items()}
+    cache = serving.pad_seq(cache, n * ps - plen)
     rows = torch.as_tensor(rng.permutation(bs * n), device="cuda").reshape(
         bs, n)
     leaves = {}
@@ -1402,9 +1477,11 @@ def teacher_forced(torch, np, params, cfg):
     # the planted fault over the same steps (each step rewrites its cell
     # before reading, so the pool's later cells from the run above are
     # never read)
+    name = paged_kernel(cfg)["op"]
+    plain = getattr(ref, name + "_ref")
     planted, pos = [], pos0
-    real_op = pa_ops.paged_gqa_decode
-    pa_ops.paged_gqa_decode = walk_one_page_short
+    real_op = getattr(pa_ops, name)
+    setattr(pa_ops, name, one_page_short(plain))
     try:
         for s in range(TEACHER_STEPS):
             lf, _ = serving.decode_step_paged(params, cfg, leaves, rows,
@@ -1413,32 +1490,53 @@ def teacher_forced(torch, np, params, cfg):
             planted.append(float((lf.float() - lg).norm() / lg.norm()))
             pos = pos + 1
     finally:
-        pa_ops.paged_gqa_decode = real_op
-    log(f"[serve] bf16 kernel vs gather logits, {TEACHER_STEPS} "
+        setattr(pa_ops, name, real_op)
+    log(f"[serve] {cfg.name} bf16 kernel vs gather logits, {TEACHER_STEPS} "
         f"teacher-forced steps from 8 x 256 prompts: ‖Δ‖/‖logits‖ max "
-        f"{max(rels):.3e} (limit {BF16_LOGIT_RTOL}), median "
+        f"{max(rels):.3e} (limit {limit}), median "
         f"{float(np.median(rels)):.3e}; max|Δ|/max|logits| max "
         f"{max(maxs):.3e}; a planted fault (the walk one page short) vs "
         f"gather: ‖Δ‖/‖logits‖ min {min(planted):.3e}, median "
         f"{float(np.median(planted)):.3e}, max {max(planted):.3e}")
-    if not max(rels) <= BF16_LOGIT_RTOL:
-        fail(f"bf16 kernel vs gather logits {max(rels):.3e} > "
-             f"{BF16_LOGIT_RTOL}")
-    if not min(planted) > BF16_LOGIT_RTOL:
+    log(f"[serve] {cfg.name} per step, kernel vs gather: "
+        + " ".join(f"{r:.2e}" for r in rels)
+        + "; planted vs gather: " + " ".join(f"{r:.2e}" for r in planted))
+    if not max(rels) <= limit:
+        fail(f"bf16 kernel vs gather logits {max(rels):.3e} > {limit} at "
+             f"step {int(np.argmax(rels))}")
+    if not min(planted) > limit:
         fail(f"the logits check cannot see a walk one page short: its gap "
-             f"{min(planted):.3e} <= {BF16_LOGIT_RTOL}")
-    return {"max": max(rels), "planted_min": min(planted),
-            "planted_median": float(np.median(planted))}
+             f"{min(planted):.3e} <= {limit}")
+    return {"max": max(rels), "median": float(np.median(rels)),
+            "steps": rels, "planted_min": min(planted),
+            "planted_median": float(np.median(planted)),
+            "planted_steps": planted}
 
+
+def expert_product_us(torch, prof, n_experts):
+    """Device µs of the MoE expert products in a profile recorded with
+    shapes: the batched products whose operands both lead with the expert
+    axis ((E, C, d) x (E, d, f) and (E, C, f) x (E, f, d))."""
+    total = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = e.input_shapes or []
+        if (e.key == "aten::bmm" and len(shapes) >= 2 and shapes[0]
+                and shapes[1] and shapes[0][0] == n_experts
+                and shapes[1][0] == n_experts):
+            t = getattr(e, "device_time_total", None)    # older torch:
+            total += e.cuda_time_total if t is None else t  # cuda_time_total
+    return total
 
 
 def profile_ticks(torch, np, params, cfg, n_ticks=8):
     """Device busy share of steady decode ticks: workload (b)'s first 8
     requests admitted, then ``n_ticks`` service steps under torch.profiler
-    (CPU and CUDA activities).  Kernel time by name from key_averages();
-    the share is the kernels' summed device time over the window's wall
-    time, which the profiler itself lengthens (so the share is a lower
-    bound).  Returns None when the profiler reports no device time."""
+    (CPU and CUDA activities; shapes recorded for a MoE model, to find its
+    expert products).  Kernel time by name from
+    key_averages(); the share is the kernels' summed device time over the
+    window's wall time, which the profiler itself lengthens (so the share
+    is a lower bound).  Returns None when the profiler reports no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import GenerateService
     _, slots, plen, new = SERVE_WORKLOADS[1]
@@ -1451,8 +1549,8 @@ def profile_ticks(torch, np, params, cfg, n_ticks=8):
     svc.step()                          # admission, prefill, first tick
     svc.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(cfg.n_experts)) as prof:
         t0 = time.perf_counter()
         for _ in range(n_ticks):
             svc.step()
@@ -1468,41 +1566,58 @@ def profile_ticks(torch, np, params, cfg, n_ticks=8):
             "busy share not measured")
         return None
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    k10 = sum(v for k, v in kernels.items() if "gqa_decode_kernel" in k)
+    symbol = paged_kernel(cfg)["symbol"]
+    paged = sum(v for k, v in kernels.items() if symbol in k)
+    experts = (expert_product_us(torch, prof, cfg.n_experts)
+               if cfg.n_experts else 0.0)
     out = {"ticks": n_ticks, "wall_ms_per_tick": wall_us / n_ticks / 1e3,
            "device_ms_per_tick": busy / n_ticks / 1e3,
            "busy_share": busy / wall_us,
-           "k10_ms_per_tick": k10 / n_ticks / 1e3,
+           "kernel_ms_per_tick": paged / n_ticks / 1e3,
+           "kernel_share": paged / busy,
+           "expert_products_ms_per_tick": experts / n_ticks / 1e3,
+           "expert_products_share": experts / busy,
            "kernels_per_tick": sum(1 for e in prof.events()
                                    if e.device_type ==
                                    torch.autograd.DeviceType.CUDA) / n_ticks}
-    log(f"[serve-profile] workload (b), 8 slots at positions 258-{257 + n_ticks}"
-        f", {n_ticks} ticks under torch.profiler: {out['wall_ms_per_tick']:.3f}"
-        f" ms a tick on the host clock, kernels {out['device_ms_per_tick']:.3f}"
-        f" ms a tick on the device (busy share {out['busy_share']:.3f}), "
-        f"{out['kernels_per_tick']:.0f} kernels a tick, K10 "
-        f"{out['k10_ms_per_tick']:.3f} ms a tick; top kernels (ms a tick): "
+    log(f"[serve-profile] {cfg.name}, workload (b), 8 slots at positions "
+        f"258-{257 + n_ticks}, {n_ticks} ticks under torch.profiler: "
+        f"{out['wall_ms_per_tick']:.3f} ms a tick on the host clock, kernels "
+        f"{out['device_ms_per_tick']:.3f} ms a tick on the device (busy "
+        f"share {out['busy_share']:.3f}), {out['kernels_per_tick']:.0f} "
+        f"kernels a tick, {paged_kernel(cfg)['key']} "
+        f"{out['kernel_ms_per_tick']:.3f}"
+        f" ms a tick (share {out['kernel_share']:.3f}), "
+        + (f"MoE expert products {out['expert_products_ms_per_tick']:.3f} ms "
+           f"a tick (share {out['expert_products_share']:.3f}), "
+           if cfg.n_experts else "")
+        + "top kernels (ms a tick): "
         + ", ".join(f"{k[:48]} {v / n_ticks / 1e3:.3f}" for k, v in top))
     return out
 
-def phase_serve(torch, np):
-    """The serving path at full width: qwen3-1.7b as published (bf16, 28
-    layers) through GenerateService on decode_path "auto" (K10), the two
-    workloads, then the precision checks."""
-    import dataclasses
-    from repro_torch.configs import get_config
+def serve_path(torch, np, cfg, cfg32, limit, what):
+    """One model's serving path at full width, bf16, on the card: weights
+    from seed 0, GenerateService on decode_path "auto" (its paged kernel)
+    for the two workloads with their checks and timings, the teacher-forced
+    logits check against ``limit``, the profiler window; then the model is
+    freed and workload (a) runs token for token, kernel vs gather, in the
+    fp32 configuration ``cfg32``."""
     from repro_torch.models import lm
-    cfg = get_config(ARCH_SERVE)
+    tag = "serve" if cfg.name == ARCH_SERVE else "serve-mla"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
                             cfg)
     torch.cuda.synchronize()
     n_par = tree_numel(params)
-    log(f"[serve] {ARCH_SERVE} as published ({cfg.n_layers} layers, d "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
-        f"vocab {cfg.vocab}, {cfg.dtype}): {n_par:,} weights drawn on the "
-        f"card in {time.perf_counter() - t0:.2f} s (seed 0)")
-    out = {"launches": 0, "ticks": 0}
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] {what}: {n_par:,} weights drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s (seed 0), peak {init_peak:.2f} GiB"
+        f" while drawing")
+    kname = paged_kernel(cfg)["key"]
+    out = {"launches": 0, "ticks": 0, "weights": n_par,
+           "init_peak_gib": init_peak}
     for name, slots, plen, new in SERVE_WORKLOADS:
         work = serve_workload(np, cfg.vocab, slots, plen, new)
         run = run_service(torch, np, params, cfg, work, slots, plen, new,
@@ -1510,22 +1625,19 @@ def phase_serve(torch, np):
         ticks = check_served(np, cfg, name, run, work, "kernel")
         out[name] = serve_timings(np, name, run)
         out[name]["max_seq"] = run["max_seq"]
-        out["launches"] += run["launches"]["paged_gqa"]
+        out["launches"] += run["launches"][kname]
         out["ticks"] += ticks
-        log(f"[serve] ({name}) {slots} slots, prompt {plen}, up to {new} "
+        log(f"[{tag}] ({name}) {slots} slots, prompt {plen}, up to {new} "
             f"new tokens, {len(work)} requests, max_seq {run['max_seq']} "
             f"({run['max_seq'] // SERVE_PAGE} pages a slot): every request "
             f"done with its budget, pool empty, path kernel, degrade level "
-            f"0, retries 0, K10 launches {run['launches']['paged_gqa']} = "
-            f"{cfg.n_layers} layers x {ticks} ticks, no plain version")
+            f"0, retries 0, launches {run['launches']} ({kname} = "
+            f"{cfg.n_layers} layers x {ticks} ticks), no plain version")
         del run
-    out["bf16_logit_rel"] = teacher_forced(torch, np, params, cfg)
+    out["bf16_logit_rel"] = teacher_forced(torch, np, params, cfg, limit)
     out["profile"] = profile_ticks(torch, np, params, cfg)
     del params
-    torch.cuda.empty_cache()
-    # workload (a) token for token, kernel vs gather, in an fp32 copy of
-    # the same full-width configuration
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    free_card(torch)
     params32 = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
                               cfg32)
     name, slots, plen, new = SERVE_WORKLOADS[0]
@@ -1538,13 +1650,29 @@ def phase_serve(torch, np):
         streams[path] = [h.generated for h in run["hs"]]
         del run
     same = sum(a == b for a, b in zip(streams["kernel"], streams["gather"]))
-    log(f"[serve] fp32 copy, workload ({name}): kernel and gather streams "
-        f"equal token for token in {same} of {len(work)} requests")
+    log(f"[{tag}] fp32 copy ({cfg32.n_layers} layers), workload ({name}): "
+        f"kernel and gather streams equal token for token in {same} of "
+        f"{len(work)} requests")
     if same != len(work):
-        fail("fp32 kernel and gather streams differ")
+        fail(f"fp32 kernel and gather streams differ ({cfg.name})")
     del params32
-    torch.cuda.empty_cache()
+    free_card(torch)
     return out
+
+
+def phase_serve(torch, np):
+    """The serving path at full width: qwen3-1.7b as published (bf16, 28
+    layers) through GenerateService on decode_path "auto" (K10), the two
+    workloads, then the precision checks (fp32 at full depth)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH_SERVE)
+    return serve_path(
+        torch, np, cfg, dataclasses.replace(cfg, dtype="float32"),
+        BF16_LOGIT_RTOL,
+        f"{ARCH_SERVE} as published ({cfg.n_layers} layers, d {cfg.d_model},"
+        f" {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, vocab "
+        f"{cfg.vocab}, {cfg.dtype})")
 
 
 def phase_k10_timing(torch, np, errs, serve, card):
@@ -1627,7 +1755,7 @@ def phase_k10_timing(torch, np, errs, serve, card):
                   + 2 * 2 * bs * hkv * hd * 2           # new cells in, out
                   + bs * n_walk * 4 + bs * 4)           # page rows, pos
         flops = positions * h * 4 * hd                  # q.k and p.v
-        bms, by = bound_ms(flops, nbytes)
+        bms, by = bound_ms(flops, nbytes, BF16_PEAK)
         rows_out[name] = dict(ms=ms, enq=enq, pms=pms, lms=lms, bms=bms,
                               by=by, nbytes=nbytes)
         log(f"[k10-time] ({name}) bs {bs}, pos {pos_v} ({n_walk} pages "
@@ -1654,6 +1782,237 @@ def phase_k10_timing(torch, np, errs, serve, card):
                        "over the window gathered beforehand",
             "shape": "bs 8, pos 288 (37 pages), H 16, Hkv 8, hd 128, ps 8, "
                      "bf16",
+            "ms_a": a["ms"], "plain_ms_a": a["pms"], "bound_ms_a": a["bms"],
+            "library_ms_a": a["lms"],
+            "shape_a": "bs 4, pos 20 (3 pages)",
+            "decode_ticks": serve["ticks"]}
+
+
+# ---------------------------------------------------------------------------
+# slice 4: serving deepseek-v3-671b (MoE + MLA) with K11
+# ---------------------------------------------------------------------------
+
+ARCH_MLA = "deepseek-v3-671b"   # as published: d 7168, 128 heads, q_lora
+#   1536, kv_lora 512, rope 64, nope 128, v 128, 256 routed experts top-8 + 1
+#   shared, moe_d_ff 2048, d_ff 18432, vocab 129,280, bf16
+MLA_LAYERS = 5        # its 3 dense and first 2 MoE layers: 53.2 GB in bf16
+#                       (each MoE layer 257 experts, 22.6 GB); 61 cannot fit
+MLA_FP32_LAYERS = (2, 1)   # the fp32 copy: 1 dense + 1 MoE layer, 55.8 GB
+# (H, lat, rope, page, dtype, scale): deepseek-v3-671b --reduced (H 4, lat
+# 32, rope 16, scale (nope 32 + rope 16)^-0.5), the reference's property
+# test (lat 16, rope 8, scale (lat + rope)^-0.5) and the published widths
+# (scale (nope 128 + rope 64)^-0.5), page 8 and 16, fp32 and bf16.  The
+# tolerances are K10's (PAGED_TOL): fp32 the reference's kernel-vs-oracle
+# one; bf16 one ulp of the output, since both compute in float from the
+# same bf16 operands and round once.
+MLA_SHAPES = ((4, 32, 16, 8, "float32", 48 ** -0.5),
+              (4, 32, 16, 16, "bfloat16", 48 ** -0.5),
+              (4, 16, 8, 8, "float32", 24 ** -0.5),
+              (128, 512, 64, 8, "float32", 192 ** -0.5),
+              (128, 512, 64, 16, "float32", 192 ** -0.5),
+              (128, 512, 64, 8, "bfloat16", 192 ** -0.5),
+              (128, 512, 64, 16, "bfloat16", 192 ** -0.5))
+MLA_SCALE = 192 ** -0.5
+# deepseek kernel vs gather logits over the teacher-forced bf16 steps, every
+# step's ‖Δ‖/‖logits‖, as for qwen3.  On an H100 the largest step is 4.43e-2
+# (median 2.51e-2; the inputs are seeded, so the steps repeat run to run) and
+# the planted fault (the walk one page short) 9.97e-2 at its least step; the
+# limit sits between them.  A step where the two paths' rounding swaps one of
+# a token's top 8 experts of 256 on a near tie would spike alone: the steps
+# are printed one by one to tell that from a fault.
+MLA_BF16_LOGIT_RTOL = 6.5e-2
+
+
+
+
+def phase_k11(torch, np):
+    """K11 against its plain version on the card, the cases of
+    tests/test_torch_gpu.py; returns max |err| per storage type."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+
+    def check(operands, rows, pos, ps, dtype, scale, what):
+        hold_paged(torch, np, "K11", ops.paged_mla_decode,
+                   ref.paged_mla_decode_ref, operands, rows, pos, ps, dtype,
+                   what, errs, scale=scale)
+
+    n = 0
+    for bs in (1, 3, 8):
+        for (h, lat, rope, ps, dt, scale) in MLA_SHAPES:
+            ops_, rows, pos = ref.random_case(bs, ps, getattr(torch, dt), bs,
+                                              "cuda", mla=True, n_heads=h,
+                                              lat=lat, rope=rope)
+            check(ops_, rows, pos, ps, dt, scale, f"bs {bs} H {h} lat {lat} "
+                  f"rope {rope} ps {ps} {dt}")
+            n += 1
+    for dt in ("float32", "bfloat16"):
+        for ps in (8, 16):
+            # workload (b)'s depth: 8 slots at positions 256-319, up to 40
+            # pages of 8 walked (20 of 16)
+            ops_, rows, pos = ref.random_case(8, ps, getattr(torch, dt), 21,
+                                              "cuda", mla=True,
+                                              pos=SERVE_DEPTH_POS,
+                                              max_pages=320 // ps, n_heads=128,
+                                              lat=512, rope=64)
+            check(ops_, rows, pos, ps, dt, MLA_SCALE,
+                  f"serving depth ps {ps} {dt}")
+        # stale non-finite tails (NaN latents, +inf RoPE keys after pos)
+        ops_, rows, pos = ref.random_case(4, 8, getattr(torch, dt), 11, "cuda",
+                                          mla=True, stale_tail=True,
+                                          pos=[0, 7, 8, 13], n_heads=128,
+                                          lat=512, rope=64)
+        check(ops_, rows, pos, 8, dt, MLA_SCALE, f"stale tail {dt}")
+        n += 3
+    # one slot's launch leaves the other slot's pages bitwise unchanged
+    ops_, rows, pos = ref.random_case(2, 8, torch.bfloat16, 5, "cuda",
+                                      mla=True, pos=[12, 20], n_heads=128,
+                                      lat=512, rope=64)
+    other_slot_untouched(torch, "K11", ops.paged_mla_decode, ops_, rows, pos,
+                         8, scale=MLA_SCALE)
+    log(f"[k11] paged_mla_decode vs plain on the card: {n + 1} cases (bs 1, "
+        f"3, 8 x {len(MLA_SHAPES)} shapes: H 4 / lat 32 / rope 16, lat 16 / "
+        f"rope 8, H 128 / lat 512 / rope 64, page 8 and 16, fp32 and bf16; 8 "
+        f"slots at positions {SERVE_DEPTH_POS[0]}-{SERVE_DEPTH_POS[-1]}, "
+        f"page 8 and 16; stale non-finite tails; NaN unlisted pages; a second"
+        f" slot untouched); max |err| fp32 {errs['float32']:.3e}, bf16 "
+        f"{errs['bfloat16']:.3e}")
+    return errs
+
+
+def phase_serve_mla(torch, np):
+    """The serving path for MoE + MLA at full width: deepseek-v3-671b cut
+    to 5 layers (bf16) through GenerateService on decode_path "auto" (K11),
+    the two workloads, then the precision checks (bf16 teacher-forced
+    logits; fp32 streams token for token in a 1 dense + 1 MoE copy, since 5
+    layers in fp32 would not fit)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(ARCH_MLA), n_layers=MLA_LAYERS)
+    n32, nd32 = MLA_FP32_LAYERS
+    return serve_path(
+        torch, np, cfg,
+        dataclasses.replace(cfg, dtype="float32", n_layers=n32,
+                            first_dense_layers=nd32),
+        MLA_BF16_LOGIT_RTOL,
+        f"{ARCH_MLA} at full width, {cfg.n_layers} layers "
+        f"({cfg.first_dense_layers} dense, "
+        f"{cfg.n_layers - cfg.first_dense_layers} MoE of {cfg.n_experts} + "
+        f"{cfg.n_shared_experts} experts, top {cfg.experts_per_tok}), d "
+        f"{cfg.d_model}, {cfg.n_heads} heads, kv_lora {cfg.kv_lora_rank}, "
+        f"rope {cfg.qk_rope_dim}, vocab {cfg.vocab}, {cfg.dtype}")
+
+
+def phase_k11_timing(torch, np, errs, serve, card):
+    """K11 per launch at workload (b)'s shape in the middle of its decode
+    (8 slots at position 288, 37 of 40 pages walked, bf16, full width), over
+    28 distinct layer pools in one CUDA graph (82 MB, more than the 50 MB
+    L2, as a tick's weight stream leaves it), beside its bound, its plain
+    version and the library yardstick; and at workload (a)'s."""
+    from repro_torch.kernels.paged_attention import kernel as pak
+    from repro_torch.kernels.paged_attention import ref
+    import torch.nn.functional as F
+    L, h, lat, rope, ps = 28, 128, 512, 64, SERVE_PAGE
+    rng = np.random.default_rng(14)
+    rows_out = {}
+    for name, bs, pos_v, max_pages in (("b", 8, 288, 40), ("a", 4, 20, 5)):
+        n_pages = bs * max_pages
+        dt = torch.bfloat16
+
+        def rnd(*shape):
+            return torch.tensor(rng.standard_normal(shape) * 0.5,
+                                dtype=torch.float32, device="cuda").to(dt)
+
+        cps = [rnd(n_pages, ps, lat) for _ in range(L)]
+        rps = [rnd(n_pages, ps, rope) for _ in range(L)]
+        qe, qr = rnd(bs, h, lat), rnd(bs, h, rope)
+        cn, rn = rnd(bs, lat), rnd(bs, rope)
+        rows = torch.as_tensor(rng.permutation(n_pages).reshape(
+            bs, max_pages), dtype=torch.int32, device="cuda")
+        pos = torch.full((bs,), pos_v, dtype=torch.int32, device="cuda")
+        ctx = torch.empty_like(qe)
+
+        def tick():
+            for i in range(L):
+                pak.paged_mla(qe, qr, cn, rn, cps[i], rps[i], rows, pos, ctx,
+                              MLA_SCALE)
+
+        ms = median_of(lambda: graph_ms(torch, tick, reps=2)) / L
+        enq = median_of(lambda: events_ms(torch, tick, 5)) / L
+        cp0, rp0 = cps[0].clone(), rps[0].clone()
+        pms = median_of(lambda: events_ms(
+            torch, lambda: ref.paged_mla_decode_ref(
+                qe, qr, cn, rn, cp0, rp0, rows, pos, page_size=ps,
+                scale=MLA_SCALE), 10))
+        # the timed launch's output against the plain version's on the
+        # same inputs (cp0, rp0 hold the new cell like cps[0], rps[0])
+        want = ref.paged_mla_decode_ref(qe, qr, cn, rn, cp0, rp0, rows, pos,
+                                        page_size=ps, scale=MLA_SCALE)[0]
+        pak.paged_mla(qe, qr, cn, rn, cps[0], rps[0], rows, pos, ctx,
+                      MLA_SCALE)
+        np.testing.assert_allclose(ctx.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   err_msg=f"K11 at the timed shape ({name})",
+                                   **PAGED_TOL["bfloat16"])
+        # library yardstick: F.scaled_dot_product_attention with one KV
+        # head shared by the 128 query heads, q = [q_eff, q_rope], k = [c,
+        # r], v = c over the window gathered beforehand (not timed), the new
+        # cell already in place; never called by the port
+        n_walk = pos_v // ps + 1
+        win = n_walk * ps
+        rws = rows[:, :n_walk].long()
+        cw = cps[0][rws].reshape(bs, 1, win, lat)
+        kw = torch.cat([cw, rps[0][rws].reshape(bs, 1, win, rope)], dim=-1)
+        q4 = torch.cat([qe, qr], dim=-1)[:, :, None, :]
+        mask = (torch.arange(win, device="cuda")[None, :]
+                <= pos[:, None].long())[:, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(q4, kw, cw, attn_mask=mask,
+                                                  scale=MLA_SCALE,
+                                                  enable_gqa=True)
+
+        lms = median_of(lambda: graph_ms(torch, lib, reps=20))
+        got = lib()[:, :, 0].float()
+        torch.cuda.synchronize()
+        lerr = float((got - ctx.float()).abs().max())
+        if not lerr <= 2 ** -6:
+            fail(f"K11 yardstick disagrees with the kernel: {lerr:.3e}")
+        positions = bs * (pos_v + 1)
+        nbytes = (positions * (lat + rope) * 2          # latent rows walked
+                  + bs * h * (lat + rope) * 2           # q_eff, q_rope in
+                  + bs * h * lat * 2                    # ctx out
+                  + 2 * bs * (lat + rope) * 2           # new cells in, out
+                  + bs * n_walk * 4 + bs * 4)           # page rows, pos
+        flops = positions * h * (lat + rope + lat) * 2  # scores and context
+        bms, by = bound_ms(flops, nbytes, BF16_PEAK)
+        rows_out[name] = dict(ms=ms, enq=enq, pms=pms, lms=lms, bms=bms,
+                              by=by, nbytes=nbytes, flops=flops)
+        log(f"[k11-time] ({name}) bs {bs}, pos {pos_v} ({n_walk} pages "
+            f"walked), H {h}, lat {lat}, rope {rope}, ps {ps}, bf16, {L} "
+            f"layer pools: {ms:.5f} ms a launch on the device (CUDA graph, "
+            f"median of 3), {enq:.5f} ms a launch from Python; bound "
+            f"{bms:.5f} ms ({by}: {flops} operations at 989 TFLOP/s bf16, "
+            f"{nbytes} bytes at 3.35 TB/s); plain {pms:.4f} ms; library "
+            f"(F.scaled_dot_product_attention, enable_gqa, over the window "
+            f"gathered beforehand) {lms:.5f} ms, max |Δ| {lerr:.2e}; {card}")
+        del cps, rps
+    b, a = rows_out["b"], rows_out["a"]
+    return {"name": "paged_mla", "route": "cuda",
+            "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                      "paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:233",
+            "launches": serve["launches"],
+            "max_abs_err": max(errs.values()),
+            "max_abs_err_fp32": errs["float32"],
+            "max_abs_err_bf16": errs["bfloat16"],
+            "ms": b["ms"], "launch_from_python_ms": b["enq"],
+            "plain_ms": b["pms"], "bound_ms": b["bms"], "bound_by": b["by"],
+            "library_ms": b["lms"],
+            "library": "F.scaled_dot_product_attention(enable_gqa=True), q "
+                       "[q_eff, q_rope] (bs,128,1,576), k [c, r] (bs,1,W,576)"
+                       ", v c, over the window gathered beforehand",
+            "shape": "bs 8, pos 288 (37 pages), H 128, lat 512, rope 64, ps "
+                     "8, bf16",
             "ms_a": a["ms"], "plain_ms_a": a["pms"], "bound_ms_a": a["bms"],
             "library_ms_a": a["lms"],
             "shape_a": "bs 4, pos 20 (3 pages)",
@@ -1692,6 +2051,14 @@ def main():
     rows.append(phase_k10_timing(torch, np, k10_errs, serve, card))
     log("[serve-json] " + json.dumps(
         {k: serve[k] for k in ("a", "b", "bf16_logit_rel", "profile")}))
+    del serve
+    free_card(torch)
+    k11_errs = phase_k11(torch, np)
+    serve_mla = phase_serve_mla(torch, np)
+    rows.append(phase_k11_timing(torch, np, k11_errs, serve_mla, card))
+    log("[serve-mla-json] " + json.dumps(
+        {k: serve_mla[k] for k in ("weights", "init_peak_gib", "a", "b",
+                                   "bf16_logit_rel", "profile")}))
     leaked = sorted(k for k in sys.modules if k == "jax"
                     or k.startswith("jax.") or k == "repro"
                     or k.startswith("repro."))

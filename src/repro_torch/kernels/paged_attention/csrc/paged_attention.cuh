@@ -1,7 +1,7 @@
-// Storage-type helpers and the warp reduction of the paged GQA decode
-// kernel (K10, paged_attention.cu).  The pools, q, the new K/V cells and
-// the output share one storage type, float or bf16; everything inside the
-// kernel is float.
+// Storage-type helpers and the warp reductions of the paged decode kernels
+// (K10 GQA and K11 MLA, paged_attention.cu).  The pools, the queries, the
+// new cells and the output share one storage type, float or bf16;
+// everything inside the kernels is float.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,6 +10,11 @@
 #define PA_THREADS 128      // blockDim: four warps per (slot, KV head)
 #define PA_ITEMS 8          // accumulators a thread holds: n_rep * hd <= 1024
 #define PA_MAX_HD 256       // the wrappers refuse wider heads
+
+#define MLA_WARPS 8         // K11: query heads a block serves, a warp each
+#define MLA_CHUNK 32        // K11: positions staged at once, a score a lane
+#define MLA_MAX_LAT 512     // K11: latent width, 16 accumulators a lane
+#define MLA_MAX_ROPE 64     // K11: RoPE width, 2 query values a lane
 
 template <typename T>
 __device__ __forceinline__ float pa_to_float(T x);
@@ -43,5 +48,13 @@ __device__ __forceinline__ float pa_warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Largest of v over the 32 lanes of a warp; every lane gets it.
+__device__ __forceinline__ float pa_warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }

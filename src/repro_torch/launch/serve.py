@@ -1,11 +1,12 @@
-"""Serving entry points of the port (dense family), on the card by default.
+"""Serving entry points of the port (dense and MoE families, GQA or MLA),
+on the card by default.
 
 Continuous batching (``--continuous``): the ``repro_torch.serve``
 service — a paged block pool, admission lowered as a QuickSched conflict
 round, and engine-backed batched decode with per-step join/leave; on the
-card its decode walks the pool with K10.  ``--new-tokens`` is the
-*maximum* budget; per-request budgets are drawn ragged so requests retire
-mid-stream.
+card its decode walks the pool with K10 (GQA) or K11 (MLA).
+``--new-tokens`` is the *maximum* budget; per-request budgets are drawn
+ragged so requests retire mid-stream.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --continuous --batch 4 --prompt-len 8 --new-tokens 32
@@ -134,8 +135,7 @@ def _static_main(args) -> None:
         logits, cache, pos = serving.prefill(params, cfg, tokens)
         _sync(dev)
     # pad the prompt-length cache out to max_seq
-    cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, args.new_tokens))
-             for k, v in cache.items()}
+    cache = serving.pad_seq(cache, args.new_tokens)
     print(f"prefill {args.batch}×{args.prompt_len}: "
           f"{time.perf_counter() - t0:.2f}s")
     tok = torch.argmax(logits, -1)[:, None]
@@ -182,7 +182,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--decode-path", default="auto",
                     choices=["auto", "kernel", "bounded", "gather"],
                     help="continuous mode: decode round function — auto "
-                         "takes the K10 kernel on an sm_90 card and the "
+                         "takes the K10/K11 kernel on an sm_90 card and the "
                          "bounded gather elsewhere; kernel/bounded/gather "
                          "force a path")
     ap.add_argument("--temperature", type=float, default=0.0,

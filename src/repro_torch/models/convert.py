@@ -1,12 +1,12 @@
 """Parameters from the reference's layout to the port's.
 
 ``params_from_reference(tree, cfg)`` takes the reference's parameter tree
-(``repro.models.lm.init_params`` for the dense family, with every leaf
-turned into a numpy array by the caller) and returns the port's tree of
-tensors: the same nested keys, the same stacked ``(L, ...)`` layout, the
-same dtypes.  This module imports nothing of ``repro`` or jax: the tests
-hand it numpy arrays, so the port and the reference run on identical
-weights.
+(``repro.models.lm.init_params`` for the dense and MoE families, GQA or
+MLA, with every leaf turned into a numpy array by the caller) and returns
+the port's tree of tensors: the same nested keys, the same stacked
+``(L, ...)`` layout, the same dtypes.  This module imports nothing of
+``repro`` or jax: the tests hand it numpy arrays, so the port and the
+reference run on identical weights.
 """
 
 from __future__ import annotations
@@ -32,23 +32,57 @@ def _convert(tree: Mapping, device) -> Dict:
                 else _tensor(v, device)) for k, v in tree.items()}
 
 
+def _attn_shapes(cfg) -> Dict[str, tuple]:
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    if cfg.mla:
+        lat, qk = cfg.kv_lora_rank, cfg.qk_nope_dim + cfg.qk_rope_dim
+        return {"wq_a": (d, cfg.q_lora_rank),
+                "q_norm/scale": (cfg.q_lora_rank,),
+                "wq_b": (cfg.q_lora_rank, h * qk),
+                "wkv_a": (d, lat + cfg.qk_rope_dim),
+                "kv_norm/scale": (lat,),
+                "wkv_b": (lat, h * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                "wo": (h * cfg.v_head_dim, d)}
+    shapes = {"wq": (d, h * hd), "wk": (d, cfg.n_kv_heads * hd),
+              "wv": (d, cfg.n_kv_heads * hd), "wo": (h * hd, d)}
+    if cfg.qk_norm:
+        shapes.update({"q_norm/scale": (hd,), "k_norm/scale": (hd,)})
+    return shapes
+
+
+def _layer_shapes(cfg, moe: bool) -> Dict[str, tuple]:
+    d, f = cfg.d_model, cfg.moe_d_ff
+    shapes = {"attn_norm/scale": (d,), "mlp_norm/scale": (d,)}
+    shapes.update({f"attn/{k}": v for k, v in _attn_shapes(cfg).items()})
+    if not moe:
+        ffn = {"mlp/w_gate": (d, cfg.d_ff), "mlp/w_up": (d, cfg.d_ff),
+               "mlp/w_down": (cfg.d_ff, d)}
+    else:
+        e, fs = cfg.n_experts, f * cfg.n_shared_experts
+        ffn = {"moe/router": (d, e), "moe/w_gate": (e, d, f),
+               "moe/w_up": (e, d, f), "moe/w_down": (e, f, d)}
+        if cfg.n_shared_experts:
+            ffn.update({"moe/shared/w_gate": (d, fs),
+                        "moe/shared/w_up": (d, fs),
+                        "moe/shared/w_down": (fs, d)})
+    shapes.update(ffn)
+    return shapes
+
+
 def _expected_shapes(cfg) -> Dict[str, tuple]:
-    d, hd, L = cfg.d_model, cfg.hd, cfg.n_layers
-    shapes = {"embed/tok": (cfg.vocab, d), "final_norm/scale": (d,),
-              "layers/attn_norm/scale": (L, d),
-              "layers/attn/wq": (L, d, cfg.n_heads * hd),
-              "layers/attn/wk": (L, d, cfg.n_kv_heads * hd),
-              "layers/attn/wv": (L, d, cfg.n_kv_heads * hd),
-              "layers/attn/wo": (L, cfg.n_heads * hd, d),
-              "layers/mlp_norm/scale": (L, d),
-              "layers/mlp/w_gate": (L, d, cfg.d_ff),
-              "layers/mlp/w_up": (L, d, cfg.d_ff),
-              "layers/mlp/w_down": (L, cfg.d_ff, d)}
+    d = cfg.d_model
+    shapes = {"embed/tok": (cfg.vocab, d), "final_norm/scale": (d,)}
     if not cfg.tie_embeddings:
         shapes["embed/head"] = (d, cfg.vocab)
-    if cfg.qk_norm:
-        shapes["layers/attn/q_norm/scale"] = (L, hd)
-        shapes["layers/attn/k_norm/scale"] = (L, hd)
+    if cfg.family == "dense":
+        stacks = (("layers", cfg.n_layers, False),)
+    else:
+        nd = cfg.first_dense_layers
+        stacks = ((("dense_layers", nd, False),) if nd else ()) + (
+            ("moe_layers", cfg.n_layers - nd, True),)
+    for key, n, moe in stacks:
+        shapes.update({f"{key}/{k}": (n,) + v
+                       for k, v in _layer_shapes(cfg, moe).items()})
     return shapes
 
 
@@ -64,7 +98,7 @@ def _flat(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def params_from_reference(tree: Mapping, cfg,
                           device: Optional[torch.device] = None) -> Dict:
-    """The reference's dense parameter tree (numpy leaves) as the port's
+    """The reference's parameter tree (numpy leaves) as the port's
     tensors on ``device`` (the CPU by default).  Raises if a key or a
     shape differs from what ``cfg`` implies."""
     check_family(cfg, "params_from_reference")

@@ -12,16 +12,21 @@ Changes from the reference:
   reference returned an updated copy);
 * attention outside the paged decode kernel stays plain ``torch.matmul``
   and softmax, as the reference left it to XLA; the fused library
-  attention waits for K12's slice.
+  attention waits for K12's slice;
+* ``dense_init`` draws a stack larger than ``DRAW_CHUNK`` float32 values
+  in slices of whole matrices, so a full-width expert stack (256 x 7168 x
+  2048) never has its float32 draw resident at once.
 
 Scores and softmax are float32 whatever the storage type, as the
 reference's ``preferred_element_type=float32``; matrix products of bf16
 operands are bf16 (PyTorch accumulates them in float32).  The SSM, MLA,
-MoE and cross-attention layers belong to later slices.
+MoE layers are ``mla.py`` and ``moe.py``; the SSM and cross-attention
+layers belong to later slices.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -37,13 +42,32 @@ def torch_dtype(cfg) -> torch.dtype:
 
 # --- init: every draw on the generator's device, stacked over ``lead`` ----------
 
+# float32 values drawn at once (4 GiB): a larger stack is drawn in slices.
+# Every stack of qwen3-1.7b and deepseek-v3-671b's dense layers is smaller
+# and is drawn whole; a full-width expert stack (3.8e9 values) is not.
+DRAW_CHUNK = 1 << 30
+
+
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
                dtype: torch.dtype) -> torch.Tensor:
     """N(0, 1/d_in) weights of ``shape (..., d_in, d_out)``, drawn in float32
-    on ``gen``'s device and stored in ``dtype``."""
-    w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return w.mul_((1.0 / shape[-2]) ** 0.5).to(dtype)
+    on ``gen``'s device and stored in ``dtype``.  A stack of matrices with
+    more than ``DRAW_CHUNK`` values is drawn a slice of whole matrices at a
+    time into the ``dtype`` result, so the float32 draw never needs more
+    than ``DRAW_CHUNK`` values (one matrix at least)."""
+    scale = (1.0 / shape[-2]) ** 0.5
+    if len(shape) < 3 or math.prod(shape) <= DRAW_CHUNK:
+        w = torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    mats = out.view(-1, shape[-2], shape[-1])
+    step = max(1, DRAW_CHUNK // (shape[-2] * shape[-1]))
+    for i in range(0, mats.shape[0], step):
+        part = mats[i:i + step]
+        part.copy_(torch.randn(part.shape, generator=gen, device=gen.device,
+                               dtype=torch.float32).mul_(scale))
+    return out
 
 
 def rmsnorm_init(d: int, lead: Tuple[int, ...], device) -> Params:

@@ -1,34 +1,37 @@
-"""LM assembly for the dense family: init / forward / logits.  The port of
-``repro/models/lm.py``'s dense parts.
+"""LM assembly for the dense and MoE families: init / forward / logits.
+The port of ``repro/models/lm.py``'s dense and MoE parts.
 
 Layer stacks keep the reference's parameter-stacked layout (a leading L
-axis on every leaf of ``params["layers"]``); the reference's ``lax.scan``
-over them (``models/scan_util.py``) is a Python loop over
-:func:`layer_params` here.  No remat: the port serves, it does not train
-yet.  ``init_params`` draws every weight with the caller's
-``torch.Generator``, on the generator's device and in ``cfg.dtype``, so a
-full-width model is never built on the host and copied.
+axis on every leaf of ``params["layers"]``, or of ``params["dense_layers"]``
+and ``params["moe_layers"]`` for the MoE family); the reference's
+``lax.scan`` over them (``models/scan_util.py``) is a Python loop over
+:func:`layers_of`.  Attention is GQA or, where ``cfg.mla``, MLA
+(``mla.py``); the FFN is the SwiGLU MLP or, on MoE layers, ``moe.py``.
+No remat: the port serves, it does not train yet.  ``init_params`` draws
+every weight with the caller's ``torch.Generator``, on the generator's
+device and in ``cfg.dtype``, so a full-width model is never built on the
+host and copied.
 
-Other families (MoE and MLA, SSM, hybrid, enc-dec, VLM) raise a
-``ValueError`` naming the slice that brings them (:func:`check_family`);
-they never run the dense code.
+Other families (SSM, hybrid, enc-dec, VLM) raise a ``ValueError`` naming
+the slice that brings them (:func:`check_family`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .layers import (attention, attention_init, dense_init, mlp, mlp_init,
                      rmsnorm, rmsnorm_init, torch_dtype)
 
 Params = Dict[str, object]
 
+FAMILIES = ("dense", "moe")
 # the ROADMAP slice that ports each family the port does not run yet
 LATER_SLICES = {
-    "moe": "the MoE+MLA serving slice (with K11)",
-    "mla": "the MoE+MLA serving slice (with K11)",
     "ssm": "the SSM/hybrid/enc-dec/VLM model slice",
     "hybrid": "the SSM/hybrid/enc-dec/VLM model slice",
     "encdec": "the SSM/hybrid/enc-dec/VLM model slice",
@@ -37,14 +40,14 @@ LATER_SLICES = {
 
 
 def check_family(cfg, what: str) -> None:
-    """Raise unless ``cfg`` is the dense (non-MLA) family, naming the
-    slice that ports it."""
-    fam = "mla" if cfg.mla else cfg.family
-    if fam != "dense":
-        later = LATER_SLICES.get(fam, "a later slice")
+    """Raise unless ``cfg`` is of a family the port runs (dense, or MoE
+    with GQA or MLA attention), naming the slice that ports it."""
+    if cfg.family not in FAMILIES:
+        later = LATER_SLICES.get(cfg.family, "a later slice")
         raise ValueError(
-            f"{what}: the port runs the dense family only; {cfg.name!r} is "
-            f"{fam!r}, which comes with {later} (ROADMAP.md, Queue 1)")
+            f"{what}: the port runs the families {FAMILIES}; {cfg.name!r} "
+            f"is {cfg.family!r}, which comes with {later} (ROADMAP.md, "
+            f"Queue 1)")
 
 
 def layer_params(stack: Params, i: int) -> Params:
@@ -60,62 +63,115 @@ def n_layers(stack: Params) -> int:
     return leaf.shape[0]
 
 
-def layers_of(params: Params):
-    """The per-layer parameter views of the dense stack, in order."""
-    stack = params["layers"]
-    return [layer_params(stack, i) for i in range(n_layers(stack))]
+def layers_of(params: Params) -> List[Tuple[Params, bool]]:
+    """``(layer params, is_moe)`` for every layer in order: the dense
+    stack, or the MoE family's leading dense layers then its MoE layers."""
+    out = []
+    for key, is_moe in (("layers", False), ("dense_layers", False),
+                        ("moe_layers", True)):
+        if key in params:
+            stack = params[key]
+            out += [(layer_params(stack, i), is_moe)
+                    for i in range(n_layers(stack))]
+    return out
 
 
 # =============================================================================
 # init
 # =============================================================================
 
+def _attn_init(gen: torch.Generator, cfg, lead: Tuple[int, ...]) -> Params:
+    return (mla_mod.mla_init(gen, cfg, lead) if cfg.mla
+            else attention_init(gen, cfg, lead))
+
+
+def _layer_stack_init(gen: torch.Generator, cfg, n: int,
+                      moe: bool) -> Params:
+    d, dev, lead = cfg.d_model, gen.device, (n,)
+    p = {"attn_norm": rmsnorm_init(d, lead, dev),
+         "attn": _attn_init(gen, cfg, lead),
+         "mlp_norm": rmsnorm_init(d, lead, dev)}
+    if moe:
+        p["moe"] = moe_mod.moe_init(gen, cfg, lead)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, torch_dtype(cfg), lead)
+    return p
+
+
 def init_params(gen: torch.Generator, cfg) -> Params:
     """Random weights for ``cfg`` on ``gen``'s device, in ``cfg.dtype``
-    (norm scales float32), in the reference's layout.  The draws differ
-    from the reference's ``jax.random`` ones; a test that compares the two
-    converts the reference's parameters instead (``models.convert``)."""
+    (norm scales and the MoE router float32), in the reference's layout.
+    The draws differ from the reference's ``jax.random`` ones; a test that
+    compares the two converts the reference's parameters instead
+    (``models.convert``)."""
     check_family(cfg, "init_params")
     dt, d, dev = torch_dtype(cfg), cfg.d_model, gen.device
-    lead = (cfg.n_layers,)
     embed = {"tok": torch.randn((cfg.vocab, d), generator=gen, device=dev,
                                 dtype=torch.float32).mul_(d ** -0.5).to(dt)}
     if not cfg.tie_embeddings:
         embed["head"] = dense_init(gen, (d, cfg.vocab), dt)
-    return {
-        "embed": embed,
-        "final_norm": rmsnorm_init(d, (), dev),
-        "layers": {
-            "attn_norm": rmsnorm_init(d, lead, dev),
-            "attn": attention_init(gen, cfg, lead),
-            "mlp_norm": rmsnorm_init(d, lead, dev),
-            "mlp": mlp_init(gen, d, cfg.d_ff, dt, lead),
-        },
-    }
+    p = {"embed": embed, "final_norm": rmsnorm_init(d, (), dev)}
+    if cfg.family == "dense":
+        p["layers"] = _layer_stack_init(gen, cfg, cfg.n_layers, moe=False)
+    else:
+        nd = cfg.first_dense_layers
+        if nd:
+            p["dense_layers"] = _layer_stack_init(gen, cfg, nd, moe=False)
+        p["moe_layers"] = _layer_stack_init(gen, cfg, cfg.n_layers - nd,
+                                            moe=True)
+    return p
 
 
 # =============================================================================
 # forward
 # =============================================================================
 
-def _dense_block(p: Params, cfg, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    x = x + attention(p["attn"], cfg,
-                      rmsnorm(p["attn_norm"], x, cfg.norm_eps), positions)
-    return x + mlp(p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
+def attend(p: Params, cfg, hn: torch.Tensor, positions: torch.Tensor,
+           return_cache: bool = False):
+    """Pre-normed causal self-attention of one layer, GQA or MLA; with
+    ``return_cache`` also its cache entries (``{k, v}`` or ``{c_kv,
+    k_rope}``, the layout of ``serving.init_cache``)."""
+    if cfg.mla:
+        a, (c_kv, k_rope) = mla_mod.mla_attention(p, cfg, hn, positions,
+                                                  return_latent=True)
+        kv = {"c_kv": c_kv, "k_rope": k_rope}
+    else:
+        a, (k, v) = attention(p, cfg, hn, positions, return_kv=True)
+        kv = {"k": k, "v": v}
+    return (a, kv) if return_cache else a
+
+
+def ffn(p: Params, cfg, hn: torch.Tensor,
+        is_moe: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The SwiGLU MLP or, on a MoE layer, the experts: (out, the MoE aux
+    loss, None on a dense layer)."""
+    if is_moe:
+        return moe_mod.moe_apply(p["moe"], cfg, hn)
+    return mlp(p["mlp"], hn), None
+
+
+def _block(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+           is_moe: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    x = x + attend(p["attn"], cfg, rmsnorm(p["attn_norm"], x, cfg.norm_eps),
+                   positions)
+    y, aux = ffn(p, cfg, rmsnorm(p["mlp_norm"], x, cfg.norm_eps), is_moe)
+    return x + y, aux
 
 
 def forward(params: Params, cfg,
             tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) → (hidden (B,S,d), aux loss 0)."""
+    """tokens (B,S) → (hidden (B,S,d), the MoE layers' summed aux loss)."""
     check_family(cfg, "forward")
     x = params["embed"]["tok"][tokens.long()]
     positions = torch.arange(x.shape[1], device=x.device).expand(
         x.shape[:2])
-    for lp in layers_of(params):
-        x = _dense_block(lp, cfg, x, positions)
+    aux = torch.zeros((), device=x.device)
+    for lp, is_moe in layers_of(params):
+        x, a = _block(lp, cfg, x, positions, is_moe)
+        if a is not None:
+            aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, torch.zeros((), device=x.device)
+    return x, aux
 
 
 def logits_fn(params: Params, cfg, hidden: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,23 @@
-"""Serving paths of the dense family: cache init, prefill, single-token
-decode against a contiguous cache or straight against the paged block
-pool, and token selection.  The port of ``repro/models/serving.py``'s
-dense parts.
+"""Serving paths of the dense and MoE families: cache init, prefill,
+single-token decode against a contiguous cache or straight against the
+paged block pool, and token selection.  The port of
+``repro/models/serving.py``'s attention-family parts.
 
-Cache layout (L = layers, B = batch, S = max_seq): ``k``, ``v`` each
-``(L, B, S, Hkv, hd)``.  The pool leaves of ``serve.BlockPool`` are the same
-cache evaluated at ``batch = n_pages, max_seq = page_size``, so their
-second axis is the page id.
+Cache layout (L = layers, B = batch, S = max_seq):
+
+* GQA (dense, and MoE with GQA): ``k``, ``v`` each ``(L, B, S, Hkv, hd)``;
+* MLA (deepseek): ``c_kv`` ``(L, B, S, lat)`` and ``k_rope``
+  ``(L, B, S, rope)`` — the compressed latent and the shared RoPE key.
+
+The pool leaves of ``serve.BlockPool`` are the same cache evaluated at
+``batch = n_pages, max_seq = page_size``, so their second axis is the page
+id.  Layers run in order over ``lm.layers_of`` (the MoE family's leading
+dense layers, then its MoE layers); cache index ``i`` is layer ``i``.
 
 Decode updates its cache in place: the contiguous path writes the new
-K/V at ``pos``, the paged path has K10 write the new cell of the pool.
-Other families raise (``lm.check_family``).
+entries at ``pos``, the paged path has the kernel (K10 for GQA, K11 for
+MLA) write the new cell of the pool.  Other families raise
+(``lm.check_family``).
 """
 
 from __future__ import annotations
@@ -21,10 +28,15 @@ import torch
 
 from repro_torch.kernels.paged_attention import ops as paged_ops
 
-from .layers import _qkv, attention, attention_decode, mlp, rmsnorm, torch_dtype
-from .lm import check_family, layers_of, logits_fn
+from . import mla as mla_mod
+from .layers import _qkv, attention_decode, rmsnorm, torch_dtype
+from .lm import attend, check_family, ffn, layers_of, logits_fn
 
 Params = Dict[str, object]
+
+
+def _layer(cache: Params, i: int) -> Params:
+    return {k: v[i] for k, v in cache.items()}
 
 
 # =============================================================================
@@ -34,10 +46,23 @@ Params = Dict[str, object]
 def init_cache(cfg, batch: int, max_seq: int,
                device: torch.device) -> Params:
     check_family(cfg, "init_cache")
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    dt = torch_dtype(cfg)
+    L, dt = cfg.n_layers, torch_dtype(cfg)
+    if cfg.mla:
+        return {k: torch.zeros((L, batch, max_seq, w), dtype=dt,
+                               device=device)
+                for k, w in (("c_kv", cfg.kv_lora_rank),
+                             ("k_rope", cfg.qk_rope_dim))}
+    shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def pad_seq(cache: Params, extra: int) -> Params:
+    """Each leaf ``(L, B, S, ...)`` padded with ``extra`` zero positions
+    on the sequence axis."""
+    return {k: torch.nn.functional.pad(v, [0, 0] * (v.dim() - 3)
+                                       + [0, extra])
+            for k, v in cache.items()}
 
 
 # =============================================================================
@@ -45,24 +70,26 @@ def init_cache(cfg, batch: int, max_seq: int,
 # =============================================================================
 
 def prefill(params: Params, cfg, tokens: torch.Tensor):
-    """tokens (B,S) → (last-token logits (B,V), cache
-    ``{k, v: (L,B,S,Hkv,hd)}``, next_pos (B,) int32)."""
+    """tokens (B,S) → (last-token logits (B,V), the cache of
+    :func:`init_cache`'s layout at ``max_seq = S``, next_pos (B,) int32)."""
     check_family(cfg, "prefill")
     b, s = tokens.shape
     x = params["embed"]["tok"][tokens.long()]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    ks, vs = [], []
-    for lp in layers_of(params):
-        hn = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        a, (k, v) = attention(lp["attn"], cfg, hn, positions, return_kv=True)
+    caches = []
+    for lp, is_moe in layers_of(params):
+        a, kv = attend(lp["attn"], cfg,
+                       rmsnorm(lp["attn_norm"], x, cfg.norm_eps), positions,
+                       return_cache=True)
         x = x + a
-        x = x + mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x, cfg.norm_eps))
-        ks.append(k)
-        vs.append(v)
+        y, _ = ffn(lp, cfg, rmsnorm(lp["mlp_norm"], x, cfg.norm_eps), is_moe)
+        x = x + y
+        caches.append(kv)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_fn(params, cfg, x[:, -1])
     next_pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}, next_pos
+    return logits, {k: torch.stack([c[k] for c in caches])
+                    for k in caches[0]}, next_pos
 
 
 # =============================================================================
@@ -72,15 +99,20 @@ def prefill(params: Params, cfg, tokens: torch.Tensor):
 def decode_step(params: Params, cfg, cache: Params, tokens: torch.Tensor,
                 pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
     """tokens (B,1), pos (B,) → (logits (B,V), cache).  Writes each
-    layer's new K/V into ``cache`` at ``pos`` in place."""
+    layer's new cache entries at ``pos`` in place."""
     check_family(cfg, "decode_step")
     x = params["embed"]["tok"][tokens.long()]
-    for i, lp in enumerate(layers_of(params)):
+    for i, (lp, is_moe) in enumerate(layers_of(params)):
         hn = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        a, _ = attention_decode(lp["attn"], cfg, hn,
-                                (cache["k"][i], cache["v"][i]), pos)
+        cl = _layer(cache, i)
+        if cfg.mla:
+            a, _ = mla_mod.mla_decode(lp["attn"], cfg, hn, cl, pos)
+        else:
+            a, _ = attention_decode(lp["attn"], cfg, hn, (cl["k"], cl["v"]),
+                                    pos)
         x = x + a
-        x = x + mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], x, cfg.norm_eps))
+        y, _ = ffn(lp, cfg, rmsnorm(lp["mlp_norm"], x, cfg.norm_eps), is_moe)
+        x = x + y
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x[:, 0]), cache
 
@@ -91,36 +123,51 @@ def decode_step_paged(params: Params, cfg, leaves: Params,
                       page_size: int) -> Tuple[torch.Tensor, Params]:
     """One decode step straight against the block pool: tokens (B,1),
     page_rows (B, max_pages), pos (B,) → (logits (B,V), leaves).  Per
-    layer, K10 (``kernels/paged_attention``) walks each slot's pages and
-    writes the new token's K/V into its ``(page, offset)`` cell in place —
-    no gather, no scatter.  The non-cache halves are those of
+    layer, the paged-attention kernel (``kernels/paged_attention``: K10
+    for GQA, K11 for MLA) walks each slot's pages and writes the new
+    token's cache cell into its ``(page, offset)`` place in place — no
+    gather, no scatter.  The non-cache halves are those of
     :func:`decode_step`."""
     check_family(cfg, "decode_step_paged")
     x = params["embed"]["tok"][tokens.long()]
     page_rows = page_rows.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()
-    for i, lp in enumerate(layers_of(params)):
-        x = _paged_decode_block(lp, cfg, x, leaves["k"][i], leaves["v"][i],
-                                page_rows, pos, page_size)
+    for i, (lp, is_moe) in enumerate(layers_of(params)):
+        x = _paged_decode_block(lp, cfg, x, _layer(leaves, i), page_rows,
+                                pos, page_size, is_moe)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x[:, 0]), leaves
 
 
-def _paged_decode_block(lp: Params, cfg, h: torch.Tensor,
-                        k_pool: torch.Tensor, v_pool: torch.Tensor,
+def _paged_decode_block(lp: Params, cfg, h: torch.Tensor, leaf: Params,
                         page_rows: torch.Tensor, pos: torch.Tensor,
-                        page_size: int) -> torch.Tensor:
-    """One decoder layer against its pool slices ``(P, ps, Hkv, hd)`` —
-    the paged twin of a :func:`decode_step` layer."""
+                        page_size: int, is_moe: bool) -> torch.Tensor:
+    """One decoder layer against its pool slices (``(P, ps, Hkv, hd)`` or
+    ``(P, ps, lat)`` / ``(P, ps, rope)``) — the paged twin of a
+    :func:`decode_step` layer."""
     b = h.shape[0]
     hn = rmsnorm(lp["attn_norm"], h, cfg.norm_eps)
     p = lp["attn"]
-    q, k, v = _qkv(p, cfg, hn, pos[:, None])
-    o, _, _ = paged_ops.paged_gqa_decode(
-        q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
-        k_pool, v_pool, page_rows, pos, page_size=page_size)
+    if cfg.mla:
+        q_nope, q_rope = mla_mod._mla_q(p, cfg, hn, pos[:, None])
+        c_new, r_new = mla_mod._mla_kv_latent(p, cfg, hn, pos[:, None])
+        w_uk, w_uv = mla_mod.absorbed_weights(p, cfg)
+        q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope, w_uk)
+        ctx, _, _ = paged_ops.paged_mla_decode(
+            q_eff[:, 0].contiguous(), q_rope[:, 0].contiguous(),
+            c_new[:, 0].contiguous(), r_new[:, 0].contiguous(),
+            leaf["c_kv"], leaf["k_rope"], page_rows, pos,
+            page_size=page_size,
+            scale=(cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5)
+        o = torch.einsum("bhl,lhv->bhv", ctx.to(h.dtype), w_uv)
+    else:
+        q, k, v = _qkv(p, cfg, hn, pos[:, None])
+        o, _, _ = paged_ops.paged_gqa_decode(
+            q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
+            leaf["k"], leaf["v"], page_rows, pos, page_size=page_size)
     h = h + o.to(h.dtype).reshape(b, 1, -1) @ p["wo"]
-    return h + mlp(lp["mlp"], rmsnorm(lp["mlp_norm"], h, cfg.norm_eps))
+    y, _ = ffn(lp, cfg, rmsnorm(lp["mlp_norm"], h, cfg.norm_eps), is_moe)
+    return h + y
 
 
 # =============================================================================

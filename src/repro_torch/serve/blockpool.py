@@ -33,7 +33,8 @@ never masks a real conflict (property-tested in
 
 Port note: a copy of ``repro.serve.blockpool`` on the port's ``core``.
 The leaves are tensors on the pool's ``device`` (the service's), updated
-in place by prefill and decode; only the dense family is paged so far.
+in place by prefill and decode; the dense and MoE families (GQA or MLA
+leaves) are paged so far.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Continuous-batching generate service on the device-resident scheduler.
 
-The port of ``repro/serve/service.py`` for the dense GQA family.  A
-persistent service: an admission queue feeding a fixed set of batch slots,
-requests joining and leaving mid-stream.  The QuickSched machinery *is*
+The port of ``repro/serve/service.py`` for the attention families: dense
+GQA, and MoE with GQA or MLA attention.  A persistent service: an
+admission queue feeding a fixed set of batch slots, requests joining and
+leaving mid-stream.  The QuickSched machinery *is*
 the serving path:
 
 * **Admission is a conflict round.**  Arriving requests take pages from
@@ -20,11 +21,12 @@ the serving path:
   every slot.  Which round function ``decode_path="auto"`` takes depends
   on the service's device:
 
-  - ``kernel`` — K10 (``kernels/paged_attention``) walks each slot's page
-    table in-kernel with an online softmax over only the pages the slot
-    occupies and writes the new K/V cell in place — no gather, no scatter.
-    Always the path on the card (it raises on a card K10 is not built
-    for); on the CPU the op runs its plain version;
+  - ``kernel`` — the paged decode kernel (``kernels/paged_attention``:
+    K10 for GQA, K11 for MLA) walks each slot's page table in-kernel with
+    an online softmax over only the pages the slot occupies and writes the
+    new cache cell in place — no gather, no scatter.  Always the path on
+    the card (it raises on a card the kernels are not built for); on the
+    CPU the op runs its plain version;
   - ``bounded`` — the gather path bounded to the
     ``max(pos)//page_size + 1`` pages the round walks (the CPU default);
   - ``gather`` — the full ``max_seq`` window: the conformance oracle the
@@ -46,10 +48,10 @@ function, a slot whose retry trips too is preempted and re-admitted, and
 repeated faults degrade the round function down the ladder
 (kernel → bounded → gather) with exponential backoff.  A seeded
 :class:`~repro_torch.serve.faults.FaultPlan` makes every path reachable.
-The ladder answers non-finite logits only: a K10 build or launch error
-raises out of :meth:`step`, it is never degraded around.  Nor is a K10
-round on the card whose logits turn non-finite without an injected fault:
-the kernel reports a bad position or page id by writing NaN, so the
+The ladder answers non-finite logits only: a K10 or K11 build or launch
+error raises out of :meth:`step`, it is never degraded around.  Nor is a
+kernel round on the card whose logits turn non-finite without an injected
+fault: the kernel reports a bad position or page id by writing NaN, so the
 service raises :class:`KernelFault` there instead of recomputing the slot
 on the plain path.  Each degrade on the card is logged as a warning.
 
@@ -67,13 +69,16 @@ What the port changes:
 * the service runs on ``device`` — ``cuda`` unless the caller asks for the
   CPU, and it raises without a card rather than run on the CPU quietly.
 
-Only the dense family is served in this slice; other families raise a
-``ValueError`` naming the slice that brings them.
+The dense and MoE families are served (the pool leaves, the gather and
+scatter of the reference paths and preemption are the same for either
+cache layout); other families raise a ``ValueError`` naming the slice that
+brings them.
 """
 
 from __future__ import annotations
 
 import functools
+import weakref
 import time
 import warnings
 from collections import deque
@@ -89,7 +94,7 @@ from repro_torch.core.graph import QSched
 from repro_torch.core.plan import BatchSpec, lower
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import serving as serving_mod
-from repro_torch.models.lm import LATER_SLICES
+from repro_torch.models.lm import FAMILIES, LATER_SLICES
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import MetricsRegistry
 
@@ -99,7 +104,7 @@ from .faults import FaultPlan
 TT_DECODE = 1       # task type of the decode family
 ENG_DECODE = 1      # engine descriptor row etype for a decode item
 
-SUPPORTED_FAMILIES = ("dense",)
+SUPPORTED_FAMILIES = FAMILIES      # dense, and moe with GQA or MLA attention
 DECODE_PATHS = ("auto", "kernel", "bounded", "gather")
 # capability ladder, fastest first — the degrade walk moves right
 DECODE_LADDER = ("kernel", "bounded", "gather")
@@ -126,9 +131,10 @@ class QueueFull(RuntimeError):
 
 
 class KernelFault(RuntimeError):
-    """A K10 round on the card gave non-finite logits for slots no fault
-    was injected into: a bad position or page id, or a non-finite model.
-    Raised instead of recomputing the slots on the plain path."""
+    """A kernel round (K10 or K11) on the card gave non-finite logits for
+    slots no fault was injected into: a bad position or page id, or a
+    non-finite model.  Raised instead of recomputing the slots on the plain
+    path."""
 
     def __init__(self, msg: str, *, slots: Sequence[int]):
         super().__init__(msg)
@@ -266,12 +272,25 @@ def _scatter_cells(leaves: Dict, cache: Dict, rows: torch.Tensor,
 
 def _gather_window(leaves: Dict, rows: torch.Tensor,
                    page_size: int) -> Dict:
-    """A contiguous cache (L, bs, n * page_size, Hkv, hd) copied from the
-    pages ``rows`` (bs, n) of the pool."""
+    """A contiguous cache (L, bs, n * page_size, ...) copied from the
+    pages ``rows`` (bs, n) of the pool, whatever the leaf's cell shape."""
     bs, n = rows.shape
     return {k: leaf[:, rows].reshape((leaf.shape[0], bs, n * page_size)
                                      + leaf.shape[3:])
             for k, leaf in leaves.items()}
+
+
+def _weak(method: Callable) -> Callable:
+    """``method`` (bound to a service) called through a weak reference:
+    the registry and engine hooks a service keeps then refer back to it
+    without a cycle, so a dropped service — and the model and pool it
+    holds — is freed at once, not when the cycle collector next runs."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args, **kwargs):
+        return ref()(*args, **kwargs)
+
+    return call
 
 
 def _make_decode_round_fn(cfg, page_size: int, sampling: SamplingParams,
@@ -328,9 +347,9 @@ def _make_paged_decode_round_fn(cfg, page_size: int,
                                 guard: bool) -> Callable:
     """The paged-attention round function (``decode_path="kernel"``): hand
     the pool leaves, page-table rows and descriptor positions straight to
-    ``serving.decode_step_paged``, whose K10 launches walk each slot's
-    pages and write the new cell in place — no gather, no scatter, no
-    ``max_seq``-shaped intermediate."""
+    ``serving.decode_step_paged``, whose K10 or K11 launches walk each
+    slot's pages and write the new cell in place — no gather, no scatter,
+    no ``max_seq``-shaped intermediate."""
 
     def decode_round(desc, schedule, statics, buffers):
         del schedule
@@ -375,12 +394,12 @@ class GenerateService:
                  guard: bool = True,
                  faults: Optional[FaultPlan] = None,
                  device: Any = None):
-        fam = "mla" if cfg.mla else cfg.family
-        if fam not in SUPPORTED_FAMILIES:
+        if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(
                 f"GenerateService supports families {SUPPORTED_FAMILIES} "
-                f"in the port, not {fam!r} ({cfg.name}): it comes with "
-                f"{LATER_SLICES.get(fam, 'a later slice')} (ROADMAP.md)")
+                f"in the port, not {cfg.family!r} ({cfg.name}): it comes "
+                f"with {LATER_SLICES.get(cfg.family, 'a later slice')} "
+                f"(ROADMAP.md)")
         if decode_path not in DECODE_PATHS:
             raise ValueError(
                 f"decode_path must be one of {DECODE_PATHS}, "
@@ -400,8 +419,8 @@ class GenerateService:
         self.cfg = cfg
         self.sampling = sampling or SamplingParams()
         self.guard = bool(guard)
-        # on the card the decode attention is K10, never a plain path in
-        # its place: a card it is not built for raises here
+        # on the card the decode attention is K10 or K11, never a plain
+        # path in its place: a card they are not built for raises here
         if decode_path == "auto":
             decode_path = ("kernel" if self.device.type == "cuda"
                            else "bounded")
@@ -443,10 +462,10 @@ class GenerateService:
         self.decode_batch_sizes_seen: set = set()
 
         self.registry = {
-            TT_PREFILL: BatchSpec(run_one=self._run_prefill,
-                                  run_batch=self._run_prefill_batch),
-            TT_DECODE: BatchSpec(run_one=self._no_host_decode,
-                                 encode=self._encode_decode),
+            TT_PREFILL: BatchSpec(run_one=_weak(self._run_prefill),
+                                  run_batch=_weak(self._run_prefill_batch)),
+            TT_DECODE: BatchSpec(run_one=_weak(self._no_host_decode),
+                                 encode=_weak(self._encode_decode)),
         }
         # degrade ladder: the selected path plus everything below it; the
         # last rung is always the gather oracle — also the retry path
@@ -502,9 +521,9 @@ class GenerateService:
             arg_width=2,
             round_fn=make(self.cfg, self.pool.page_size, self.sampling,
                           self.guard),
-            statics=functools.partial(self._statics_for, path),
-            buffers=self._buffers,
-            writeback=self._writeback,
+            statics=functools.partial(_weak(self._statics_for), path),
+            buffers=_weak(self._buffers),
+            writeback=_weak(self._writeback),
             row_access=_decode_row_access,
         )
 
@@ -804,23 +823,28 @@ class GenerateService:
         np_p = self.pool.pages_needed(plen)
         pad_to = np_p * ps - plen
         sampling = self.sampling
+        # what the entry point updates, taken here and not through self: it
+        # is kept in self._prefill_fns, and a reference back would make a
+        # cycle that holds the model after the service is dropped
+        params, leaves = self.params, self.pool.leaves
+        pt_buf, tok_buf, pos_buf, rid_buf = (self._pt, self._tok, self._pos,
+                                             self._rid)
 
         def prefill_entry(tokens, page_ids, pt_rows, slots, rids):
-            logits, cache, _ = serving_mod.prefill(self.params, cfg, tokens)
-            for k, leaf in self.pool.leaves.items():
-                c = cache[k]                         # (L, nb, plen, ...)
-                c = torch.nn.functional.pad(
-                    c, (0, 0, 0, 0, 0, pad_to))
+            logits, cache, _ = serving_mod.prefill(params, cfg, tokens)
+            cache = serving_mod.pad_seq(cache, pad_to)  # (L, nb, np_p*ps, ...)
+            for k, leaf in leaves.items():
+                c = cache[k]
                 c = c.reshape((c.shape[0], nb, np_p, ps) + c.shape[3:])
                 leaf[:, page_ids] = c.to(leaf.dtype)
-            self._rid[slots] = rids
+            rid_buf[slots] = rids
             positions = torch.full_like(rids, plen)
             tok0 = serving_mod.sample_tokens(
                 logits, sampling.temperature, sampling.top_k, sampling.seed,
                 rids, positions)
-            self._pt[slots] = pt_rows
-            self._tok[slots] = tok0
-            self._pos[slots] = plen
+            pt_buf[slots] = pt_rows
+            tok_buf[slots] = tok0
+            pos_buf[slots] = plen
             return tok0
 
         return prefill_entry
@@ -832,10 +856,10 @@ class GenerateService:
         flags afterwards, retries any tripped slot once on the gather
         round function (restoring the slot's pre-round token / position /
         request id from clones taken before the round), and preempts slots
-        whose retry trips too.  A K10 round on the card that trips a slot
-        no fault was injected into raises :class:`KernelFault`.  Returns
-        the slots whose tokens this tick are trustworthy, and on the card
-        the CUDA events around the round (else None)."""
+        whose retry trips too.  A kernel round on the card that trips a
+        slot no fault was injected into raises :class:`KernelFault`.
+        Returns the slots whose tokens this tick are trustworthy, and on
+        the card the CUDA events around the round (else None)."""
         # the round updates the slot state in place, so the pre-round
         # values a retry restores must be copies
         prev = ((self._tok.clone(), self._pos.clone(), self._rid.clone())
@@ -868,7 +892,8 @@ class GenerateService:
         organic = [s for s in bad if s not in self._armed]
         if organic and path == "kernel" and self.device.type == "cuda":
             raise KernelFault(
-                f"K10 gave non-finite logits for slots {organic} with no "
+                f"the paged decode kernel gave non-finite logits for slots "
+                f"{organic} with no "
                 f"fault injected (a position or page id out of range, or a "
                 f"non-finite model); not recomputing them on the plain path",
                 slots=organic)

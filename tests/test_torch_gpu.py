@@ -18,6 +18,8 @@ PyTorch's blocked reductions).  Barnes-Hut's
 modes sum in different orders (a leaf's COM sources in one launch or in
 rows of 8), so they agree within 1e-4 per particle, relative, with each
 other and with the CPU plain path (the reference's cross-mode tolerance).
+The paged decode kernels K10 (GQA) and K11 (MLA) are held to
+``PAGED_TOL``: the reference's in fp32, one output ulp in bf16.
 """
 
 import numpy as np
@@ -34,6 +36,7 @@ from repro_torch.core import lower  # noqa: E402
 from repro_torch.kernels.nbody import kernel as nb_kernel  # noqa: E402
 from repro_torch.kernels.nbody import ops as nb_ops  # noqa: E402
 from repro_torch.kernels.nbody import ref as nb_ref  # noqa: E402
+from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 from repro_torch.kernels.qr_tile import kernel, ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -239,23 +242,10 @@ PAGED_SHAPES = [(4, 2, 32, 8, torch.float32),        # qwen3-1.7b reduced
                 (16, 8, 128, 16, torch.bfloat16)]
 
 
-def paged_case(bs, n_heads, n_kv, hd, ps, dtype, seed, device,
-               stale_tail=False, max_pages=5, pos=None):
-    from repro_torch.kernels.paged_attention import ref as pa_ref
-    rows, pos, walked, n_pages = pa_ref.random_layout(bs, ps, max_pages, 3,
-                                                      seed, pos)
-    arrs = pa_ref.random_operands(rows, pos, walked, n_pages,
-                                  n_heads=n_heads, n_kv=n_kv, hd=hd,
-                                  page_size=ps, seed=seed + 1,
-                                  stale_tail=stale_tail)
-    ts = [torch.tensor(a, device=device).to(dtype) for a in arrs]
-    return ts + [torch.tensor(rows, device=device),
-                 torch.tensor(pos, device=device)], rows, pos
 
 
 def paged_check(operands, rows, pos, ps):
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention import ref as pa_ref
     q = operands[0]
     plain = [x.clone() for x in operands]
     n0 = pa_ops.LAUNCHES["paged_gqa"]
@@ -278,7 +268,8 @@ def paged_check(operands, rows, pos, ps):
 @pytest.mark.parametrize("n_heads,n_kv,hd,ps,dtype", PAGED_SHAPES)
 def test_paged_gqa_kernel_matches_plain_on_card(cuda, bs, n_heads, n_kv, hd,
                                                 ps, dtype):
-    ops_, rows, pos = paged_case(bs, n_heads, n_kv, hd, ps, dtype, bs, cuda)
+    ops_, rows, pos = pa_ref.random_case(bs, ps, dtype, bs, cuda,
+                                         n_heads=n_heads, n_kv=n_kv, hd=hd)
     paged_check(ops_, rows, pos, ps)
 
 
@@ -288,8 +279,8 @@ def test_paged_gqa_kernel_matches_plain_at_serving_depth(cuda, dtype):
     at positions spread over 256-319 (288 among them), up to 40 pages
     walked a slot."""
     pos = [256, 263, 264, 277, 288, 300, 311, 319]
-    ops_, rows, pos = paged_case(8, 16, 8, 128, 8, dtype, 21, cuda,
-                                 max_pages=40, pos=pos)
+    ops_, rows, pos = pa_ref.random_case(8, 8, dtype, 21, cuda, max_pages=40,
+                                         pos=pos, n_heads=16, n_kv=8, hd=128)
     paged_check(ops_, rows, pos, 8)
 
 
@@ -299,8 +290,10 @@ def test_paged_gqa_kernel_skips_stale_nonfinite_tail(cuda, dtype):
     and NaN values after pos: the result stays finite and equal to the
     plain version, at pos 0, ps - 1, ps and mid-page."""
     ps = 8
-    ops_, rows, pos = paged_case(4, 16, 8, 128, ps, dtype, 11, cuda,
-                                 stale_tail=True, pos=[0, ps - 1, ps, 13])
+    ops_, rows, pos = pa_ref.random_case(4, ps, dtype, 11, cuda,
+                                         stale_tail=True,
+                                         pos=[0, ps - 1, ps, 13], n_heads=16,
+                                         n_kv=8, hd=128)
     paged_check(ops_, rows, pos, ps)
 
 
@@ -309,8 +302,9 @@ def test_paged_gqa_kernel_leaves_other_slots_pages_bitwise(cuda):
     nothing of slot 1's pages (or any other byte of the pools)."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     ps = 8
-    ops_, rows, pos = paged_case(2, 16, 8, 128, ps, torch.bfloat16, 5, cuda,
-                                 pos=[12, 20])
+    ops_, rows, pos = pa_ref.random_case(2, ps, torch.bfloat16, 5, cuda,
+                                         pos=[12, 20], n_heads=16, n_kv=8,
+                                         hd=128)
     q, kn, vn, kp, vp, pr, po = ops_
     k0, v0 = kp.clone(), vp.clone()
     pa_ops.paged_gqa_decode(q[:1].contiguous(), kn[:1].contiguous(),
@@ -330,8 +324,8 @@ def test_paged_gqa_kernel_out_of_range_gives_nan(cuda):
     signal) and writes nothing."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     ps = 8
-    ops_, rows, pos = paged_case(2, 4, 2, 32, ps, torch.float32, 9, cuda,
-                                 pos=[3, 9])
+    ops_, rows, pos = pa_ref.random_case(2, ps, torch.float32, 9, cuda,
+                                         pos=[3, 9], n_heads=4, n_kv=2, hd=32)
     q, kn, vn, kp, vp, pr, po = ops_
     po[1] = pr.shape[1] * ps
     k0 = kp.clone()
@@ -349,8 +343,8 @@ def test_paged_gqa_kernel_bad_page_id_writes_nothing(cuda):
     writes no cell of it: every listed id is checked before the write."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     ps = 8
-    ops_, rows, pos = paged_case(2, 4, 2, 32, ps, torch.float32, 9, cuda,
-                                 pos=[3, 20])
+    ops_, rows, pos = pa_ref.random_case(2, ps, torch.float32, 9, cuda,
+                                         pos=[3, 20], n_heads=4, n_kv=2, hd=32)
     q, kn, vn, kp, vp, pr, po = ops_
     pr[1, 0] = kp.shape[0]
     k0 = kp.clone()
@@ -408,7 +402,8 @@ def test_service_on_card_injected_fault_walks_the_ladder(cuda):
 
 def test_paged_gqa_ops_check_operands(cuda):
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    ops_, _, _ = paged_case(1, 4, 2, 32, 8, torch.float32, 1, cuda)
+    ops_, _, _ = pa_ref.random_case(1, 8, torch.float32, 1, cuda, n_heads=4,
+                                    n_kv=2, hd=32)
     bad = list(ops_)
     bad[3] = bad[3].to(torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
@@ -419,3 +414,122 @@ def test_paged_gqa_ops_check_operands(cuda):
         pa_ops.paged_gqa_decode(*bad, page_size=8)
     with pytest.raises(ValueError, match="shapes"):
         pa_ops.paged_gqa_decode(*ops_, page_size=4)
+
+
+# --- K11: paged MLA decode ---------------------------------------------------
+
+# (H, lat, rope, page, dtype, scale): deepseek-v3-671b --reduced, the
+# reference property test's widths, and the published widths
+MLA_SHAPES = [(4, 32, 16, 8, torch.float32, 48 ** -0.5),
+              (4, 16, 8, 16, torch.bfloat16, 24 ** -0.5),
+              (128, 512, 64, 8, torch.float32, 192 ** -0.5),
+              (128, 512, 64, 16, torch.bfloat16, 192 ** -0.5)]
+
+
+
+
+def mla_check(operands, rows, pos, ps, scale):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    q = operands[0]
+    plain = [x.clone() for x in operands]
+    n0 = pa_ops.LAUNCHES["paged_mla"]
+    ctx, cp, rp = pa_ops.paged_mla_decode(*operands, page_size=ps,
+                                          scale=scale)
+    torch.cuda.synchronize()
+    assert pa_ops.LAUNCHES["paged_mla"] == n0 + 1
+    rc, rcp, rrp = pa_ref.paged_mla_decode_ref(*plain, page_size=ps,
+                                               scale=scale)
+    assert ctx.dtype == q.dtype and ctx.shape == q.shape
+    assert torch.isfinite(ctx).all(), "the kernel read a poisoned position"
+    assert_allclose(ctx.float().cpu().numpy(), rc.float().cpu().numpy(),
+                    **PAGED_TOL[q.dtype])
+    for got, want in ((cp, rcp), (rp, rrp)):   # the walked pages, bitwise
+        for t in range(len(pos)):
+            pages = torch.as_tensor(rows[t, :pos[t] // ps + 1])
+            assert torch.equal(got[pages].isnan(), want[pages].isnan())
+            assert torch.equal(got[pages].nan_to_num(),
+                               want[pages].nan_to_num())
+
+
+@pytest.mark.parametrize("bs", [1, 3, 8])
+@pytest.mark.parametrize("n_heads,lat,rope,ps,dtype,scale", MLA_SHAPES)
+def test_paged_mla_kernel_matches_plain_on_card(cuda, bs, n_heads, lat, rope,
+                                                ps, dtype, scale):
+    ops_, rows, pos = pa_ref.random_case(bs, ps, dtype, bs, cuda, mla=True,
+                                         n_heads=n_heads, lat=lat, rope=rope)
+    mla_check(ops_, rows, pos, ps, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_mla_kernel_matches_plain_at_serving_depth(cuda, dtype, ps):
+    """Workload (b) of chip_smoke.py's deepseek phase at full width: 8
+    slots of 320 positions at positions spread over 256-319, with stale
+    non-finite tails after each slot's position."""
+    pos = [256, 263, 264, 277, 288, 300, 311, 319]
+    ops_, rows, pos = pa_ref.random_case(8, ps, dtype, 21, cuda, mla=True,
+                                         max_pages=320 // ps, pos=pos,
+                                         stale_tail=True, n_heads=128, lat=512,
+                                         rope=64)
+    mla_check(ops_, rows, pos, ps, 192 ** -0.5)
+
+
+def test_paged_mla_kernel_bad_page_id_writes_nothing(cuda):
+    """A page id outside the pool among a slot's walked pages gives NaN
+    for that slot's heads and writes neither of its cells."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    ops_, rows, pos = pa_ref.random_case(2, 8, torch.float32, 9, cuda,
+                                         mla=True, pos=[3, 20], n_heads=128,
+                                         lat=512, rope=64)
+    qe, qr, cn, rn, cp, rp, pr, po = ops_
+    pr[1, 0] = cp.shape[0]
+    c0, r0 = cp.clone(), rp.clone()
+    ctx, _, _ = pa_ops.paged_mla_decode(qe, qr, cn, rn, cp, rp, pr, po,
+                                        page_size=8, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ctx[0]).all() and torch.isnan(ctx[1]).all()
+    for pool, old, width in ((cp, c0, 512), (rp, r0, 64)):
+        changed = ~((pool == old) | (pool.isnan() & old.isnan()))
+        assert int(changed.sum()) == width      # slot 0's cell only
+
+
+def test_paged_mla_ops_check_operands(cuda):
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    ops_, _, _ = pa_ref.random_case(1, 8, torch.float32, 1, cuda, mla=True,
+                                    n_heads=4, lat=32, rope=16)
+    bad = list(ops_)
+    bad[4] = bad[4].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        pa_ops.paged_mla_decode(*bad, page_size=8, scale=0.1)
+    with pytest.raises(ValueError, match="shapes"):
+        pa_ops.paged_mla_decode(*ops_, page_size=4, scale=0.1)
+    wide = pa_ref.random_case(1, 8, torch.float32, 1, cuda, mla=True,
+                              n_heads=4, lat=544, rope=16)[0]
+    with pytest.raises(ValueError, match="latent width up to 512"):
+        pa_ops.paged_mla_decode(*wide, page_size=8, scale=0.1)
+
+
+def test_deepseek_service_on_card_takes_k11_and_raises_on_its_fault(cuda):
+    """deepseek-v3-671b --reduced on the card: "auto" is the kernel path,
+    each tick launches K11 once a layer and no plain version; a bad page id
+    makes K11 write NaN and the service raises KernelFault."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import lm
+    from repro_torch.serve import GenerateService, KernelFault
+    cfg = get_config("deepseek-v3-671b").reduced()
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    svc = GenerateService(params, cfg, max_batch=2, max_seq=32, page_size=8,
+                          device=cuda)
+    assert svc.decode_path == "kernel"
+    for i in range(2):
+        svc.submit(np.arange(8, dtype=np.int32) + i, 8)
+    pa_ops.reset_counts()
+    svc.step()                      # admission, prefill and one decode tick
+    assert pa_ops.LAUNCHES == {"paged_gqa": 0, "paged_mla": cfg.n_layers}
+    assert not any(pa_ops.PLAIN_CALLS.values())
+    svc._pt[1, 0] = svc.pool.n_pages
+    with pytest.raises(KernelFault) as err:
+        svc.step()
+    assert err.value.slots == [1]
+    assert svc.stats["retries"] == 0

@@ -177,7 +177,7 @@ def test_auto_path_and_unsupported_family(model):
     assert _service(tp, tcfg).decode_path == "bounded"   # no card here
     with pytest.raises(ValueError, match="decode_path"):
         _service(tp, tcfg, decode_path="warp")
-    for arch, later in (("deepseek-v3-671b", "MoE\\+MLA"),
+    for arch, later in (("whisper-tiny", "enc-dec"),
                         ("falcon-mamba-7b", "SSM")):
         with pytest.raises(ValueError, match=later):
             tserve.GenerateService(tp, tconfigs.get_config(arch).reduced(),
@@ -196,6 +196,38 @@ def test_round_timings_in_the_service_metrics(model):
     assert ticks == 4        # prefill yields the first token, 4 ticks the rest
     assert svc.metrics.get("serve.decode_round_s").count == ticks
     assert svc.metrics.get("serve.decode_device_s").count == 0
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_dropped_service_frees_its_model_at_once(model, path):
+    """A service keeps no reference cycle (its registry, engine hooks and
+    prefill entry points refer back to it only weakly), so dropping it
+    frees the model and pool it holds at once, with the cycle collector
+    off: a second model can then take the memory on the card."""
+    import gc
+    import weakref
+    _, _, tcfg, tp = model
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+
+    params = clone(tp)
+    svc = _service(params, tcfg, decode_path=path)
+    for i in range(2):
+        svc.submit(np.arange(8, dtype=np.int32) + i, 4)
+    svc.run_until_complete()
+    weights = weakref.ref(params["embed"]["tok"])
+    pool = weakref.ref(next(iter(svc.pool.leaves.values())))
+    dropped = weakref.ref(svc)
+    del params
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        del svc
+        assert dropped() is None and weights() is None and pool() is None
+    finally:
+        if was_on:
+            gc.enable()
 
 
 # --- block pool and fault plan ------------------------------------------------------
@@ -458,6 +490,6 @@ def test_launcher_runs_on_the_cpu_when_asked(mode, capsys):
     assert "greedy continuations" in out
     if mode:
         assert "terminal states: {'done': 6}" in out
-    with pytest.raises(ValueError, match="MoE\\+MLA"):
-        launch_serve.main(["--arch", "deepseek-v3-671b", "--reduced",
+    with pytest.raises(ValueError, match="enc-dec"):
+        launch_serve.main(["--arch", "whisper-tiny", "--reduced",
                            "--device", "cpu"] + mode)
