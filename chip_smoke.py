@@ -12,7 +12,9 @@ source, all at once) and drives the port's paths.  The tiled QR (paper
 and at the paper's 1M particles in engine mode; and continuous-batching
 serving through ``repro_torch.serve.GenerateService`` of qwen3-1.7b as
 published (bf16, 28 layers) and of deepseek-v3-671b (MoE + MLA) at full
-width cut to its first 5 layers (bf16), random weights from seed 0.
+width cut to its first 5 layers (bf16), random weights from seed 0; the
+pipelined value-and-grad through ``repro_torch.pipeline`` at (S, M, Bt, D)
+= (8, 64, 32, 2048) in all four modes; and the flash-attention op.
 Phases, each fatal when it fails:
 
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
@@ -83,9 +85,37 @@ Phases, each fatal when it fails:
     a limit that every step of a planted fault exceeds); workload (a)
     token for token in an fp32 copy of 1 dense + 1 MoE layer;
 17. K11 timings at the path's shapes (28 layer pools in a CUDA graph)
-    beside its bound (operations), its plain version and
+    beside its bound (bytes), its plain version and
     F.scaled_dot_product_attention with one shared KV head (the yardstick,
-    never called by the port).
+    never called by the port);
+18. K9 (the pipeline F/B/U walk) against its plain walk on the card at
+    (S, M, Bt, D) in (3, 6, 4, 8), (8, 64, 4, 32) (the reference's widths),
+    S, M or Bt = 1, D = 40 and 100: every state buffer within rtol 1e-5,
+    atol 1e-6 (the reference's pipeline tolerance); at (8, 64, 32, 2048),
+    (2, 3, 40, 600) and (3, 2, 65, 513), where the reductions split and
+    Bt spans row tiles, every buffer within 1e-5 relative (Frobenius),
+    a limit the plain walk under TF32 must fail; two runs bitwise equal;
+19. the pipeline path at (8, 64, 32, 2048), fp32, weights N(0, 1/D) from
+    seed 0: pipelined_value_and_grad_plan in the four modes, each against a
+    float64 autograd of the monolithic loss (loss and every gradient leaf
+    within 1e-5 relative, a limit the sequential mode under TF32 must
+    fail), K9 launched once per non-empty phase (143), no plain version,
+    two engine runs bitwise equal;
+20. pipeline timings: each mode's wall time, the K9 walk beside its bound
+    and beside K9 rebuilt with one reduction split a tile (what split-K
+    gains), the plain walk, and the float32 autograd of the monolithic
+    loss as context (no single PyTorch call computes K9's function);
+21. K12 (flash attention) against its plain version on the card: fp32 and
+    bf16, causal and not, (BH, S, hd) in (4, 128, 64), (4, 256, 64), (4,
+    512, 64), (2, 128, 32), (2, 256, 128), blocks 64 and 128 (80 cases),
+    the op on a ragged S = 100, v = ones; then the op itself once at (B,
+    S, H, hd) = (1, 4096, 16, 128), causal, bf16, launching K12 and no
+    plain version;
+22. K12 timings there beside its bound (operations at the bf16 rate), its
+    plain version and F.scaled_dot_product_attention (the yardstick, never
+    called by the port); the op's output there against the plain version,
+    every row within 2e-2 relative, a limit an output without the last 64
+    keys must fail.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -94,6 +124,7 @@ nothing of jax and nothing of the JAX package ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -214,16 +245,12 @@ def phase_device(torch):
 
 def phase_build():
     from repro_torch import _build
-    from repro_torch.kernels.nbody import kernel as nb_kernel
-    from repro_torch.kernels.paged_attention import kernel as pa_kernel
-    from repro_torch.kernels.qr_tile import kernel
+    mods = kernel_modules()
     t0 = time.perf_counter()
-    _build.build([kernel.SOURCE, nb_kernel.SOURCE,       # in parallel
-                  pa_kernel.SOURCE])
-    kernel.lib()
-    nb_kernel.lib()
-    pa_kernel.lib()
-    log(f"[build] qr_tile.cu, nbody.cu and paged_attention.cu built (nvcc, "
+    _build.build([k.SOURCE for k in mods])       # one nvcc each, in parallel
+    for k in mods:
+        k.lib()
+    log(f"[build] {', '.join(k.SOURCE.name for k in mods)} built (nvcc, "
         f"sm_90a) and loaded in {time.perf_counter() - t0:.2f} s into "
         f"{_build.build_dir()}")
 
@@ -1274,19 +1301,24 @@ def tree_numel(tree):
                for v in tree.values())
 
 
-def reset_all_counts():
+def kernel_modules():
+    """Every kernel binding of the port (each with LAUNCHES, PLAIN_CALLS,
+    reset_counts, SOURCE and lib)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.nbody import kernel as nb_kernel
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.pipe_walk import kernel as pw_kernel
     from repro_torch.kernels.qr_tile import kernel as qr_kernel
-    for k in (qr_kernel, nb_kernel, pa_kernel):
+    return (qr_kernel, nb_kernel, pa_kernel, pw_kernel, fa_kernel)
+
+
+def reset_all_counts():
+    for k in kernel_modules():
         k.reset_counts()
 
 
 def plain_calls():
-    from repro_torch.kernels.nbody import kernel as nb_kernel
-    from repro_torch.kernels.paged_attention import kernel as pa_kernel
-    from repro_torch.kernels.qr_tile import kernel as qr_kernel
-    return {k: v for m in (qr_kernel, nb_kernel, pa_kernel)
+    return {k: v for m in kernel_modules()
             for k, v in m.PLAIN_CALLS.items() if v}
 
 
@@ -2019,6 +2051,540 @@ def phase_k11_timing(torch, np, errs, serve, card):
             "decode_ticks": serve["ticks"]}
 
 
+# ---------------------------------------------------------------------------
+# the pipelined value-and-grad (K9) and flash attention (K12)
+# ---------------------------------------------------------------------------
+
+PIPE_FULL = (8, 64, 32, 2048)   # (S, M, Bt, D): the reference bench's FULL
+#                                 schedule (benchmarks/engine_dispatch.py),
+#                                 qwen3-1.7b's hidden width, 32 rows a micro
+PIPE_SHAPES = ((3, 6, 4, 8), (8, 64, 4, 32),        # the reference's widths
+               (1, 3, 4, 8), (3, 1, 4, 8), (2, 3, 1, 8),   # S, M, Bt = 1
+               (2, 4, 4, 40), (3, 2, 5, 100))              # D off the tile
+PIPE_TOL = dict(rtol=1e-5, atol=1e-6)   # the reference's pipeline tolerance
+#                   (tests/test_backends.py:224-227), K9 vs its plain walk
+PIPE_WIDE = (PIPE_FULL, (2, 3, 40, 600), (3, 2, 65, 513))   # D >= 512: F
+#                   and cot_in tiles of 3 to 8 reduction splits, the last
+#                   ragged; Bt 40 and 65: two and three row tiles
+K9_REL_TOL = 1e-5   # K9 vs its plain walk at PIPE_WIDE, each state buffer,
+#                   ‖Δ‖_F / ‖plain‖_F.  Elementwise, PIPE_TOL fails there on
+#                   acts near 0 (|Δ| 1.7e-6: the splits and cuBLAS sum 2,048
+#                   terms in other orders).  On an H100 (700 W) the worst
+#                   buffer read 9.7e-7 (gW at full width) and the plain walk
+#                   under TF32, a lower-precision control this phase runs
+#                   again, 2.8e-4 at least: the limit sits between them
+PIPE_REL_TOL = 1e-5   # each mode vs a float64 autograd of the monolithic
+#                   loss, loss and each gradient leaf, relative (Frobenius).
+#                   n·u = 2048 · 2⁻²⁴ ≈ 1.2e-4 is only the ceiling for fp32
+#                   dot products over 2,048 terms; on an H100 (700 W) the
+#                   worst leaf read 9.2e-7 and the sequential mode under
+#                   TF32, a control this phase runs again, 9.6e-4
+FA_SHAPES = ((4, 128, 64), (4, 256, 64), (4, 512, 64), (2, 128, 32),
+             (2, 256, 128))   # hd 128 at blocks 128: the timed shape's build
+FA_TOL = {"float32": dict(atol=2e-5, rtol=1e-4),   # the reference's
+          "bfloat16": dict(atol=2e-2, rtol=2e-2)}  # (test_kernels_flash.py)
+FA_ROW_TOL = 2e-2   # K12 vs plain at the timed shape, bf16: the worst row's
+#                   ‖Δ‖₂ / ‖plain‖₂ over hd, about five bf16 roundings
+#                   (2⁻⁸ each).  |o| falls as 0.5/√(keys a row sees), so
+#                   the reference's absolute 2e-2 would pass a kernel that
+#                   lost late key tiles.  On an H100 (700 W) the kernel read
+#                   1.9e-3 (blocks 128) and 2.1e-3 (64); an output without
+#                   the last 64 keys, a planted fault this phase computes
+#                   again, 0.15
+FA_TIMED = (1, 4096, 16, 128)   # (B, S, H, hd): qwen3-1.7b's query heads and
+#                                 width, the reference kernel's 4,096 keys
+
+
+def pipe_table(S, M):
+    """The port's lowered pipeline table for (S, M), as the engine lowers
+    it."""
+    from repro_torch import engine
+    from repro_torch.pipeline import exec as pexec
+    from repro_torch.pipeline import lower_pipeline_plan
+    sched, _, plan = lower_pipeline_plan(S, M, per_stage_window=True)
+    reg = pexec._PipeRunner([pexec.dense_stage] * S, pexec.mse_loss,
+                            [{}] * S, [{}] * M).registry()
+    return engine.lower_tables(plan, sched, reg,
+                               arg_width=engine.PIPE_ARG_WIDTH,
+                               row_access=engine.pipe_row_access)
+
+
+def pipe_inputs(torch, S, M, Bt, D, seed):
+    """Stage weights N(0, 1/D) (tanh stays unsaturated), b = 0, x and y
+    N(0, 1), float32 on the card, from an explicit generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    params = [{"w": randn(D, D, scale=D ** -0.5),
+               "b": torch.zeros(D, device="cuda")} for _ in range(S)]
+    micro = [{"x": randn(Bt, D), "y": randn(Bt, D)} for _ in range(M)]
+    return params, micro
+
+
+def pipe_state(torch, S, M, Bt, D, seed):
+    """(table, statics, a factory of zeroed state) for the walk."""
+    from repro_torch.pipeline import exec as pexec
+    params, micro = pipe_inputs(torch, S, M, Bt, D, seed)
+    hooks = pexec._engine_hooks(params, micro, (S, M, Bt, D), {},
+                                torch.device("cuda"))
+    return pipe_table(S, M), hooks.statics(), hooks.buffers
+
+
+PIPE_BUFS = ("acts", "cots", "gw", "gb", "loss")
+
+
+def k9_runs(torch, shape):
+    """Two K9 walks and the plain walk of one shape, from fresh state;
+    fails if the two K9 walks differ in a bit."""
+    from repro_torch import engine
+    S, M, Bt, D = shape
+    tab, statics, fresh = pipe_state(torch, S, M, Bt, D, seed=S + D)
+    desc = torch.as_tensor(tab.desc, device="cuda")
+    bounds = tuple(int(b) for b in tab.phase_offsets)
+    runs = []
+    for _ in range(2):
+        bufs = fresh()
+        engine.pipe_round_fn(1.0 / M)(desc, bounds, statics, bufs)
+        runs.append(bufs)
+
+    def plain():
+        bufs = fresh()
+        engine.pipe_walk_plain(tab.desc, bounds, statics, bufs, 1.0 / M)
+        torch.cuda.synchronize()
+        return bufs
+
+    for name, got, again in zip(PIPE_BUFS, *runs):
+        if not torch.equal(got, again):
+            fail(f"K9 at {shape}: two runs differ in {name}")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"K9 at {shape}: non-finite {name}")
+    return runs[0], plain
+
+
+def buf_gaps(torch, got, want):
+    """{buffer: ‖got − want‖_F / ‖want‖_F}."""
+    return {n: float((g.double() - w.double()).norm() / w.double().norm())
+            for n, g, w in zip(PIPE_BUFS, got, want)}
+
+
+def phase_k9(torch, np):
+    """K9 against the plain walk on the card, two runs bitwise equal: every
+    buffer elementwise at the reference's shapes, and by norm at PIPE_WIDE,
+    where the plain walk under TF32 must fail the same limit."""
+    worst = 0.0
+    for shape in PIPE_SHAPES:
+        got, plain = k9_runs(torch, shape)
+        for name, g, w in zip(PIPE_BUFS, got, plain()):
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+            np.testing.assert_allclose(g, w, err_msg=f"K9 {name} at "
+                                       f"{shape}", **PIPE_TOL)
+            worst = max(worst, float(np.abs(g - w).max()))
+    wide = {}
+    for shape in PIPE_WIDE:
+        got, plain = k9_runs(torch, shape)
+        want = plain()
+        gaps = buf_gaps(torch, got, want)
+        worst = max([worst] + [float((g - w).abs().max())
+                               for g, w in zip(got, want)])
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = buf_gaps(torch, plain(), want)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if max(gaps.values()) > K9_REL_TOL:
+            fail(f"K9 at {shape} vs its plain walk: {gaps} (bound "
+                 f"{K9_REL_TOL})")
+        if not max(control.values()) > K9_REL_TOL:
+            fail(f"the plain walk under TF32 at {shape} passes the bound "
+                 f"{K9_REL_TOL}: {control}")
+        wide[shape] = (max(gaps.values()), max(control.values()))
+        del got, want
+    log(f"[k9] K9 matches its plain walk on every state buffer at (S, M, "
+        f"Bt, D) in {PIPE_SHAPES}, rtol {PIPE_TOL['rtol']} atol "
+        f"{PIPE_TOL['atol']}, and in {PIPE_WIDE} within {K9_REL_TOL} "
+        f"relative a buffer (worst buffer, the plain walk under TF32): "
+        + ", ".join(f"{k} ({a:.2e}, {b:.2e})" for k, (a, b) in wide.items())
+        + f"; max |err| {worst:.3e}; two runs bitwise equal")
+    return worst, wide
+
+
+def pipe_f64(torch, params, micro):
+    """Loss and gradients of the unpipelined loss, float64 autograd."""
+    ps = [{k: v.double().requires_grad_() for k, v in p.items()}
+          for p in params]
+    total = 0.0
+    for mb in micro:
+        h = mb["x"].double()
+        for p in ps:
+            h = torch.tanh(h @ p["w"] + p["b"])
+        total = total + torch.mean((h - mb["y"].double()) ** 2)
+    total = total / len(micro)
+    total.backward()
+    return float(total.detach()), [{k: p[k].grad for k in ("w", "b")}
+                                   for p in ps]
+
+
+def pipe_gap(torch, loss, grads, want_loss, want_grads):
+    """(loss relative gap, worst leaf's relative Frobenius gap)."""
+    lrel = abs(float(loss) - want_loss) / abs(want_loss)
+    grel = max(float(torch.linalg.norm(g[k].double() - w[k])
+                     / torch.linalg.norm(w[k]))
+               for g, w in zip(grads, want_grads) for k in ("w", "b"))
+    return lrel, grel
+
+
+def run_pipe(torch, pipe, params, micro, mode):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.pipelined_value_and_grad_plan(
+        [pipe.dense_stage] * len(params), pipe.mse_loss, params, micro,
+        mode=mode)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_pipe(torch, np):
+    """The pipeline path at full width in the four modes, each against a
+    float64 autograd of the monolithic loss; the engine bitwise repeatable,
+    K9 launched once per non-empty phase, no plain version."""
+    from repro_torch import pipeline as pipe
+    from repro_torch.kernels.pipe_walk import kernel as pw_kernel
+    S, M, Bt, D = PIPE_FULL
+    params, micro = pipe_inputs(torch, S, M, Bt, D, seed=0)
+    want_loss, want_grads = pipe_f64(torch, params, micro)
+    norms = [float(torch.linalg.norm(g["w"])) for g in want_grads]
+    if not all(np.isfinite(n) and n > 0 for n in norms):
+        fail(f"vacuous float64 gradients: ‖gW_s‖ {norms}")
+    tab = pipe_table(S, M)
+    phases = int((np.diff(tab.phase_offsets) > 0).sum())
+    reset_all_counts()
+    outs, gaps, firsts = {}, {}, {}
+    for mode in MODES:
+        outs[mode], firsts[mode] = run_pipe(torch, pipe, params, micro, mode)
+        gaps[mode] = pipe_gap(torch, *outs[mode], want_loss, want_grads)
+    launches = pw_kernel.LAUNCHES["pipe_walk"]
+    plain = plain_calls()
+    if plain:
+        fail(f"a plain version ran on the card: {plain}")
+    if launches != phases:
+        fail(f"pipe_walk launched {launches} times, the plan has {phases} "
+             f"non-empty phases")
+    for mode, (lrel, grel) in gaps.items():
+        if not (lrel < PIPE_REL_TOL and grel < PIPE_REL_TOL):
+            fail(f"{mode}: loss gap {lrel:.3e}, worst gradient leaf "
+                 f"{grel:.3e} against float64 (bound {PIPE_REL_TOL})")
+    again, _ = run_pipe(torch, pipe, params, micro, "engine")
+    first = outs["engine"]
+    if not (torch.equal(again[0], first[0]) and all(
+            torch.equal(a[k], b[k]) for a, b in zip(again[1], first[1])
+            for k in ("w", "b"))):
+        fail("two engine runs differ")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:   # the control: a lower-precision run the limit must refuse
+        control = pipe_gap(torch, *run_pipe(torch, pipe, params, micro,
+                                            "sequential")[0],
+                           want_loss, want_grads)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not max(control) > PIPE_REL_TOL:
+        fail(f"the sequential mode under TF32 passes the bound "
+             f"{PIPE_REL_TOL}: {control}")
+    log(f"[pipe] (S, M, Bt, D) = {PIPE_FULL}, fp32: {tab.nr_items} rows, "
+        f"{tab.nr_rounds} rounds, {phases} phases; float64 loss "
+        f"{want_loss:.6f}, ‖gW_s‖ {min(norms):.3e}..{max(norms):.3e}; gap "
+        f"to float64 (loss, worst leaf; bound {PIPE_REL_TOL}): "
+        + ", ".join(f"{m} ({a:.2e}, {b:.2e})" for m, (a, b) in gaps.items())
+        + f"; sequential under TF32 (the control) ({control[0]:.2e}, "
+        f"{control[1]:.2e}); pipe_walk launches {launches} (one a non-empty "
+        f"phase), no plain version; two engine runs bitwise equal; first "
+        f"runs s: "
+        + ", ".join(f"{m} {t:.3f}" for m, t in firsts.items()))
+    return {"launches": launches, "phases": phases, "rows": tab.nr_items,
+            "gaps": gaps, "control": control, "params": params,
+            "micro": micro}
+
+
+def walk_cost(tab, S, M, Bt, D):
+    """Operations of the walk's rows, the bytes the function must move
+    (each input and the state read once, the state written once), and the
+    bytes this walk moves row by row (W_s re-read each row, gW_s read and
+    written by each B row)."""
+    et, first = tab.desc[:, 0], tab.desc[:, 5] > 0
+    n_f, n_u = int((et == 0).sum()), int((et == 2).sum())
+    n_b = int((et == 1).sum())
+    n_cot = int(((et == 1) & ~first).sum())
+    prod = 2 * Bt * D * D                 # one (Bt, D) x (D, D) product
+    flops = ((n_f + n_b + n_cot) * prod + n_f * 3 * Bt * D
+             + n_b * 4 * Bt * D + n_u * (D * D + D))
+    slab, wd = Bt * D * 4, D * D * 4
+    inputs = S * wd + S * D * 4 + 2 * M * slab          # w, b, x, y
+    state = 2 * S * M * slab + S * wd + S * D * 4 + M * 4
+    must = inputs + 2 * state
+    rows = (n_f * (wd + 3 * slab) + n_b * (wd + 2 * wd + 4 * slab)
+            + n_u * 2 * wd)
+    return flops, must, rows
+
+
+@contextlib.contextmanager
+def k9_one_split():
+    """K9 rebuilt with one reduction split a tile (KSPLIT 4096 for the
+    shipped 256) in place of the shipped library, for the split-K
+    comparison; the shipped library is back on exit."""
+    from repro_torch import _build
+    from repro_torch.kernels.pipe_walk import kernel as pw_kernel
+    text = pw_kernel.SOURCE.read_text()
+    line = f"constexpr int KSPLIT = {pw_kernel.KSPLIT};"
+    if line not in text:
+        fail(f"{pw_kernel.SOURCE} has no line {line!r}")
+    src = _build.build_dir() / "variants" / "pipe_walk_one_split.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text.replace(line, "constexpr int KSPLIT = 4096;"))
+    saved = pw_kernel.SOURCE, pw_kernel.KSPLIT, pw_kernel._LIB
+    pw_kernel.SOURCE, pw_kernel.KSPLIT, pw_kernel._LIB = src, 4096, None
+    try:
+        pw_kernel.lib()
+        yield
+    finally:
+        pw_kernel.SOURCE, pw_kernel.KSPLIT, pw_kernel._LIB = saved
+
+
+def phase_pipe_timing(torch, np, k9_err, k9_wide, run, card):
+    """Each mode's wall time, the walk alone beside its bound, the plain
+    walk, and the float32 autograd of the monolithic loss as context."""
+    from repro_torch import engine
+    from repro_torch import pipeline as pipe
+    S, M, Bt, D = PIPE_FULL
+    params, micro = run["params"], run["micro"]
+    walls = {m: median_of(lambda: run_pipe(torch, pipe, params, micro,
+                                           m)[1]) for m in MODES}
+    tab, statics, fresh = pipe_state(torch, S, M, Bt, D, seed=0)
+    desc = torch.as_tensor(tab.desc, device="cuda")
+    bounds = tuple(int(b) for b in tab.phase_offsets)
+    walk = engine.pipe_round_fn(1.0 / M)
+
+    def walk_once():
+        bufs = fresh()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        walk(desc, bounds, statics, bufs)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    walk_once()
+    ms = median_of(walk_once)
+    with k9_one_split():
+        walk_once()
+        ms_one = median_of(walk_once)
+
+    def plain_once():
+        bufs = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.pipe_walk_plain(tab.desc, bounds, statics, bufs, 1.0 / M)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_once()
+    plain_ms = median_of(plain_once)
+    ps = [{k: v.clone().requires_grad_() for k, v in p.items()}
+          for p in params]
+
+    def autograd32():
+        total = 0.0
+        for mb in micro:
+            h = mb["x"]
+            for p in ps:
+                h = torch.tanh(h @ p["w"] + p["b"])
+            total = total + torch.mean((h - mb["y"]) ** 2)
+        return torch.autograd.grad(total / M, [t for p in ps
+                                               for t in p.values()])
+
+    ctx_ms = median_of(lambda: events_ms(torch, autograd32, 3))
+    flops, must, rows = walk_cost(tab, S, M, Bt, D)
+    bms, by = bound_ms(flops, must)
+    log(f"[pipe-time] (S, M, Bt, D) = {PIPE_FULL}, fp32; wall s (median of "
+        f"3): " + ", ".join(f"{m} {t:.4f}" for m, t in walls.items())
+        + f"; K9 walk {ms:.3f} ms ({run['launches']} launches, CUDA events, "
+        f"median of 3; {ms_one:.3f} ms with one reduction split a tile), "
+        f"bound {bms:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP "
+        f"at 67 TFLOP/s fp32, {must / 1e9:.3f} GB to move at 3.35 TB/s; "
+        f"the walk's row-by-row traffic, {rows / 1e9:.1f} GB, would take "
+        f"{rows / HBM_RATE * 1e3:.2f} ms); plain walk {plain_ms:.2f} ms; "
+        f"float32 autograd of the monolithic loss (context, not a "
+        f"yardstick) {ctx_ms:.3f} ms; {card}")
+    return {"name": "pipe_walk", "route": "cuda",
+            "source": "src/repro_torch/kernels/pipe_walk/csrc/pipe_walk.cu",
+            "replaces": "src/repro/engine/megakernel.py:427",
+            "launches": run["launches"], "max_abs_err": k9_err,
+            "rel_err_vs_plain": {str(k): v[0] for k, v in k9_wide.items()},
+            "rel_err_tf32_control": {str(k): v[1]
+                                     for k, v in k9_wide.items()},
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "ms_one_split": ms_one,
+            "library": "none: no single PyTorch call computes the pipelined "
+                       "F/B/U walk",
+            "row_traffic_ms": rows / HBM_RATE * 1e3,
+            "autograd_fp32_ms": ctx_ms,
+            "wall_s": walls,
+            "gaps_vs_float64": {m: list(g) for m, g in run["gaps"].items()},
+            "gap_tf32_control": list(run["control"]),
+            "shape": "S 8, M 64, Bt 32, D 2048, fp32, a whole plan"}
+
+
+def phase_k12(torch, np):
+    """K12 against its plain version on the card."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(12)
+    n = 0
+    for (bh, s, hd), dt, causal, bq, bk in itertools.product(
+            FA_SHAPES, ("float32", "bfloat16"), (True, False), (64, 128),
+            (64, 128)):
+        if s % bq or s % bk:
+            continue
+        q, k, v = (torch.randn(bh, s, hd, generator=g, device="cuda")
+                   .mul(0.5).to(getattr(torch, dt)) for _ in range(3))
+        got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                 block_k=bk)
+        want = fref.attention_ref(q, k, v, causal=causal)
+        gf, wf = got.float().cpu().numpy(), want.float().cpu().numpy()
+        np.testing.assert_allclose(gf, wf, err_msg=f"K12 {dt} causal "
+                                   f"{causal} {(bh, s, hd)} ({bq}, {bk})",
+                                   **FA_TOL[dt])
+        errs[dt] = max(errs[dt], float(np.abs(gf - wf).max()))
+        n += 1
+    q, k, v = (torch.randn(2, 100, 3, 32, generator=g, device="cuda") * 0.5
+               for _ in range(3))
+    got = fops.flash_attention_bshd(q, k, v, block_q=64, block_k=64)
+    np.testing.assert_allclose(got.cpu().numpy(), fops.attention_ref_bshd(
+        q, k, v).cpu().numpy(), err_msg="K12 ragged S = 100",
+        **FA_TOL["float32"])
+    ones = {}
+    for dt in ("float32", "bfloat16"):
+        qd, kd = (t.transpose(1, 2)[0, :, :64].to(getattr(torch, dt))
+                  .contiguous() for t in (q, k))
+        o = fa.flash_attention(qd, kd, torch.ones_like(qd), block_q=64,
+                               block_k=64)
+        ones[dt] = float((o.float() - 1.0).abs().max())
+        if not ones[dt] <= 1e-5:
+            fail(f"K12 with v = ones, {dt}: max |o - 1| {ones[dt]:.3e}")
+    torch.cuda.synchronize()
+    log(f"[k12] K12 matches its plain version in {n} cases ((BH, S, hd) in "
+        f"{FA_SHAPES}, fp32 and bf16, causal and not, blocks 64 and 128), "
+        f"fp32 atol 2e-5 rtol 1e-4, bf16 2e-2: max |err| {errs}; the op on "
+        f"a ragged S = 100 matches; v = ones gives max |o - 1| {ones}")
+    return errs
+
+
+def phase_k12_path(torch):
+    """The op's own entry point, once, at the timed shape: the counts show
+    it launched K12 and no plain version."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops as fops
+    B, S, H, hd = FA_TIMED
+    g = torch.Generator(device="cuda").manual_seed(4096)
+    q, k, v = (torch.randn(B, S, H, hd, generator=g, device="cuda")
+               .mul(0.5).bfloat16() for _ in range(3))
+    reset_all_counts()
+    o = fops.flash_attention_bshd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = fa.LAUNCHES["flash_attention"]
+    if launches != 1 or plain_calls():
+        fail(f"flash_attention_bshd: {launches} launches, plain "
+             f"{plain_calls()}")
+    if o.shape != q.shape or not bool(torch.isfinite(o).all()):
+        fail("flash_attention_bshd: bad output")
+    log(f"[k12-path] flash_attention_bshd at (B, S, H, hd) = {FA_TIMED}, "
+        f"causal, bf16: one K12 launch, no plain version")
+    return launches, (q, k, v, o)
+
+
+def row_gap(got, want):
+    """The worst row's ‖got − want‖₂ / ‖want‖₂ over the last axis."""
+    d = got.float() - want.float()
+    return float((d.norm(dim=-1) / want.float().norm(dim=-1)).max())
+
+
+def phase_k12_timing(torch, np, errs, launches, qkvo, card):
+    """K12 at the timed shape beside its bound, its plain version and
+    F.scaled_dot_product_attention (the yardstick, never called by the
+    port)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref as fref
+    B, S, H, hd = FA_TIMED
+    q, k, v, o = (t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
+                  for t in qkvo)
+    ms = {}
+    for bq, bk in ((128, 128), (64, 64)):
+        ms[bq, bk] = median_of(lambda: events_ms(
+            torch, lambda: fa.flash_attention(q, k, v, block_q=bq,
+                                              block_k=bk), 5))
+    plain = median_of(lambda: events_ms(
+        torch, lambda: fref.attention_ref(q, k, v), 3))
+    want = fref.attention_ref(q, k, v)
+    err = float((o.float() - want.float()).abs().max())
+    rows = {"128": row_gap(o, want),
+            "64": row_gap(fa.flash_attention(q, k, v, block_q=64,
+                                             block_k=64), want)}
+    # the planted fault: the output of a kernel that lost the last 64 keys
+    fault = row_gap(fref.attention_ref(q, k[:, :-64], v[:, :-64]), want)
+    if not (err <= FA_TOL["bfloat16"]["atol"]
+            and max(rows.values()) <= FA_ROW_TOL):
+        fail(f"K12 at the timed shape vs plain: max |err| {err:.3e}, worst "
+             f"row {rows} (bound {FA_ROW_TOL})")
+    if not fault > FA_ROW_TOL:
+        fail(f"an output without the last 64 keys passes the bound "
+             f"{FA_ROW_TOL}: worst row {fault:.3e}")
+    q4, k4, v4 = (t.reshape(B, H, S, hd) for t in (q, k, v))
+
+    def lib():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    lms = median_of(lambda: events_ms(torch, lib, 20))
+    lerr = float((lib().reshape(B * H, S, hd).float() - o.float())
+                 .abs().max())
+    torch.cuda.synchronize()
+    if not lerr <= FA_TOL["bfloat16"]["atol"]:
+        fail(f"K12 yardstick disagrees with the kernel: {lerr:.3e}")
+    pairs = B * H * S * (S + 1) // 2            # causal (query, key) pairs
+    flops = pairs * 4 * hd                      # q·k and p·v
+    nbytes = 4 * B * H * S * hd * 2             # q, k, v in; o out (bf16)
+    bms, by = bound_ms(flops, nbytes, BF16_PEAK)
+    main = ms[128, 128]
+    log(f"[k12-time] (B, S, H, hd) = {FA_TIMED}, causal, bf16: "
+        f"{main:.4f} ms at blocks (128, 128), {ms[64, 64]:.4f} ms at (64, "
+        f"64) (CUDA events, median of 3); bound {bms:.5f} ms ({by}: "
+        f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, {nbytes / 1e6:.1f} "
+        f"MB at 3.35 TB/s); plain {plain:.3f} ms; library "
+        f"(F.scaled_dot_product_attention, is_causal) {lms:.4f} ms, max "
+        f"|Δ| {lerr:.2e}; kernel vs plain: max |err| {err:.2e}, worst row "
+        f"(blocks 128, 64) {rows['128']:.2e}, {rows['64']:.2e} (bound "
+        f"{FA_ROW_TOL}; without the last 64 keys {fault:.2e}); {card}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+            "launches": launches, "max_abs_err": max(errs.values()),
+            "max_abs_err_fp32": errs["float32"],
+            "max_abs_err_bf16": errs["bfloat16"],
+            "row_rel_err_timed": rows, "row_rel_err_planted_fault": fault,
+            "ms": main, "ms_blocks_64": ms[64, 64], "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lms,
+            "library": "F.scaled_dot_product_attention(is_causal=True), "
+                       "(1, 16, 4096, 128) bf16",
+            "shape": "B 1, S 4096, H 16, hd 128, causal, bf16, blocks "
+                     "(128, 128)"}
+
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -2059,6 +2625,17 @@ def main():
     log("[serve-mla-json] " + json.dumps(
         {k: serve_mla[k] for k in ("weights", "init_peak_gib", "a", "b",
                                    "bf16_logit_rel", "profile")}))
+    del serve_mla
+    free_card(torch)
+    k9_err, k9_wide = phase_k9(torch, np)
+    pipe_run = phase_pipe(torch, np)
+    rows.append(phase_pipe_timing(torch, np, k9_err, k9_wide, pipe_run,
+                                  card))
+    del pipe_run
+    k12_errs = phase_k12(torch, np)
+    k12_launches, qkvo = phase_k12_path(torch)
+    rows.append(phase_k12_timing(torch, np, k12_errs, k12_launches, qkvo,
+                                 card))
     leaked = sorted(k for k in sys.modules if k == "jax"
                     or k.startswith("jax.") or k == "repro"
                     or k.startswith("repro."))

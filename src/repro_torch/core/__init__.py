@@ -1,9 +1,10 @@
 """QuickSched core: task-based parallelism with dependencies and conflicts.
 
 The port's copy of ``repro.core``: the scheduler, the plan lowering, the
-host executors and the backend registry, with nothing of ``repro``
-imported.  ``simulator``, ``static_sched`` and ``weights`` are not on the
-tiled-QR path and are not ported yet (ROADMAP.md, Queue 1).
+host executors, the backend registry and the discrete-event simulator
+(which the pipeline's schedule synthesis runs on), with nothing of
+``repro`` imported.  ``static_sched`` and ``weights`` are on no ported
+path and are not ported yet (ROADMAP.md, Queue 1, item 3b).
 """
 
 from .graph import (
@@ -21,6 +22,8 @@ from .locks import SeqLockManager, ThreadedLockManager, make_lock_manager
 from .plan import (BatchSpec, ExecutionPlan, PlanRound, TypedBatch,
                    clear_plan_cache, color_phases, lower, plan_cache_info)
 from .queue import TaskQueue
+from .simulator import (SimResult, TimelineEvent, replay_item_times,
+                        replay_round_times, scaling_curve, simulate)
 from .executors import SequentialExecutor, ThreadedExecutor, registry_fun
 from .backends import (Backend, BackendUnsupported, EngineHooks,
                        available_backends, get_backend, register_backend,
@@ -30,6 +33,8 @@ __all__ = [
     "QSched", "Task", "Resource", "TaskQueue", "CompiledGraph",
     "FLAG_NONE", "FLAG_VIRTUAL", "TASK_NONE", "RES_NONE", "OWNER_NONE",
     "SeqLockManager", "ThreadedLockManager", "make_lock_manager",
+    "SimResult", "TimelineEvent", "simulate", "scaling_curve",
+    "replay_round_times", "replay_item_times",
     "BatchSpec", "ExecutionPlan", "PlanRound", "TypedBatch",
     "lower", "clear_plan_cache", "color_phases", "plan_cache_info",
     "SequentialExecutor", "ThreadedExecutor", "registry_fun",

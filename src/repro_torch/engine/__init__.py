@@ -3,19 +3,20 @@
 Lower a prepared plan into ragged CSR task tables with write-colored
 sub-phases (``descriptors``), walk them with the family's CUDA kernel
 (``megakernel``), and drive the whole plan from one call with the state
-updated in place (``runner``).  Two families are ported: the tiled QR
-walks one launch per phase, Barnes-Hut one launch per launch group
-(``descriptors.launch_groups``).  The pipeline walk is still to be ported
-(ROADMAP.md).
+updated in place (``runner``).  All three families are ported: the tiled
+QR and the pipeline F/B/U walks launch once per phase, Barnes-Hut once
+per launch group (``descriptors.launch_groups``).
 """
 
 from .descriptors import (LaunchGroups, TaskTable, count_host_dispatches,
                           launch_groups, lower_tables, table_from_arrays)
 from .megakernel import (BH_ARG_WIDTH, BH_COM_INNER, BH_COM_LEAF,
                          BH_MAX_CHILDREN, BH_NOOP, BH_PC, BH_PP, BH_SELF,
+                         PIPE_ARG_WIDTH, PIPE_B, PIPE_F, PIPE_NOOP, PIPE_U,
                          QR_ARG_WIDTH, QR_GEQRF, QR_LARFT, QR_NOOP,
                          QR_SSRFT, QR_TSQRF, bh_round_fn, bh_row_access,
-                         bh_row_keys, bh_walk_plain, qr_round_fn,
+                         bh_row_keys, bh_walk_plain, pipe_round_fn,
+                         pipe_row_access, pipe_walk_plain, qr_round_fn,
                          qr_row_access, qr_walk_plain)
 from .runner import execute_plan
 
@@ -24,9 +25,11 @@ __all__ = [
     "count_host_dispatches", "table_from_arrays",
     "qr_round_fn", "qr_row_access", "qr_walk_plain",
     "bh_round_fn", "bh_row_access", "bh_row_keys", "bh_walk_plain",
+    "pipe_round_fn", "pipe_row_access", "pipe_walk_plain",
     "execute_plan",
     "QR_GEQRF", "QR_LARFT", "QR_TSQRF", "QR_SSRFT", "QR_NOOP",
     "QR_ARG_WIDTH",
     "BH_COM_LEAF", "BH_COM_INNER", "BH_SELF", "BH_PP", "BH_PC", "BH_NOOP",
     "BH_ARG_WIDTH", "BH_MAX_CHILDREN",
+    "PIPE_F", "PIPE_B", "PIPE_U", "PIPE_NOOP", "PIPE_ARG_WIDTH",
 ]

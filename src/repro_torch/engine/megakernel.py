@@ -1,7 +1,7 @@
 """The task-table walks of the port's engine: the counterparts of
-``repro/engine/megakernel.py``'s QR and Barnes-Hut families
-(``qr_round_fn`` / ``bh_round_fn`` → ``_grid_walk`` + ``_qr_kernel`` /
-``_bh_kernel``).
+``repro/engine/megakernel.py``'s three families (``qr_round_fn`` /
+``bh_round_fn`` / ``pipe_round_fn`` → ``_grid_walk`` + ``_qr_kernel`` /
+``_bh_kernel`` / ``_pipe_kernel``).
 
 A lowered plan is a ragged table of rows ``[etype, args...]`` split into
 write-colored phases (``descriptors.lower_tables``).  The Pallas walks
@@ -22,6 +22,11 @@ launch run concurrently, so each family states what it keeps in order:
   bucketed by write key in table order.  One launch per group, one block
   per bucket, the bucket's rows in table order
   (``kernels/nbody/csrc``): at most one launch per round.
+* **Pipeline** (the canonical dense F/B/U family) launches once per
+  phase, as QR does: a row writes several keys (``act``/``cot``/``loss``
+  on F, ``gw``/``gb``/``cot`` on B), so launch groups, which want one
+  write key a row, do not apply.  A phase holds at most S rows, so each
+  row is split into tiles, one block a tile (``kernels/pipe_walk/csrc``).
 
 State stacks are updated in place, so the walks have no copy-in and no
 copy-out.  On CPU tensors each round function runs its plain walk, which
@@ -43,6 +48,8 @@ import torch
 
 from repro_torch.kernels.nbody import kernel as nb_kernel
 from repro_torch.kernels.nbody import ref as nb_ref
+from repro_torch.kernels.pipe_walk import kernel as pw_kernel
+from repro_torch.kernels.pipe_walk import ref as pw_ref
 from repro_torch.kernels.qr_tile import kernel, ref
 from repro_torch.kernels.qr_tile.ops import check_tiles
 
@@ -58,6 +65,12 @@ QR_ARG_WIDTH = 3       # rows: [etype, slot0, slot1, slot2] (tile indices)
 BH_MAX_CHILDREN = 8    # octree fan-out; COM_INNER rows carry 8 child cells
 # and ragged PC source lists chunk into rows of 8 cells (pad = zero-mass)
 BH_ARG_WIDTH = 1 + BH_MAX_CHILDREN   # rows: [etype, write, a0..a7]
+
+# Pipeline F/B/U engine types; PIPE_NOOP is the clamp branch.  Rows:
+# [etype, stage, micro, in_slot, out_slot, first, last] where the slots are
+# flat (stage, micro) indices into the stacked activation/cotangent slabs.
+PIPE_F, PIPE_B, PIPE_U, PIPE_NOOP = range(4)
+PIPE_ARG_WIDTH = 6
 
 
 def qr_row_access(row: Sequence[int]) -> Tuple[Tuple, Tuple]:
@@ -317,5 +330,157 @@ def bh_round_fn(eps: float):
                 nb_kernel.bh_walk(desc, ptr, b0, b1, xs, ms, acc, com,
                                   cmass, eps * eps)
         return acc, com, cmass
+
+    return round_fn
+
+
+# ---------------------------------------------------------------------------
+# pipeline F/B/U family (the canonical uniform dense stage, see
+# repro_torch.pipeline.exec: stage = tanh(x @ w + b), loss = mean squared
+# error)
+# ---------------------------------------------------------------------------
+
+def pipe_row_access(row: Sequence[int]) -> Tuple[Tuple, Tuple]:
+    """Pipeline keyspace: ``("act"|"cot", slot)`` activation/cotangent
+    slabs, ``("gw"|"gb", stage)`` grad buffers, ``("loss", micro)`` loss
+    rows.  Stage parameters and microbatch inputs are statics."""
+    et, s, m, a_in, a_out = row[0], row[1], row[2], row[3], row[4]
+    if et == PIPE_F:
+        return ((("act", a_in), ("cot", a_out), ("loss", m)),
+                (("act", a_out), ("cot", a_out), ("loss", m)))
+    if et == PIPE_B:
+        return ((("act", a_in), ("act", a_out), ("cot", a_out),
+                 ("gw", s), ("gb", s), ("cot", a_in)),
+                (("gw", s), ("gb", s), ("cot", a_in)))
+    if et == PIPE_U:
+        return ((("gw", s), ("gb", s)), (("gw", s), ("gb", s)))
+    return (), ()
+
+
+def _pipe_plain_row(row: Sequence[int], statics, buffers, inv_m: float,
+                    inv_numel: float) -> None:
+    et, s, m, a_in, a_out, first, last = (int(v) for v in row[:7])
+    w, b, x, y = statics
+    acts, cots, gw, gb, loss = buffers
+    inp = x[m] if first else acts[a_in]    # a_in == a_out on stage 0
+    if et == PIPE_F:      # acts[s,m] = tanh(in @ w_s + b_s); last: loss+seed
+        h = pw_ref.fwd_ref(inp, w[s], b[s])
+        acts[a_out] = h
+        if last:
+            loss[m, 0], cots[a_out] = pw_ref.loss_seed_ref(h, y[m],
+                                                           inv_numel)
+    elif et == PIPE_B:    # grads[s] += vjp; cotangent flows to stage s-1
+        dgw, dgb, cot_in = pw_ref.bwd_ref(inp, acts[a_out], cots[a_out],
+                                          w[s], bool(first))
+        gw[s] += dgw
+        gb[s] += dgb
+        if cot_in is not None:
+            cots[a_in] = cot_in
+    elif et == PIPE_U:    # microbatch averaging; the optimizer is the caller's
+        gw[s], gb[s] = pw_ref.upd_ref(gw[s], gb[s], inv_m)
+    # PIPE_NOOP and anything out of range: no-op
+
+
+def pipe_walk_plain(desc, phase_bounds: Sequence[int], statics, buffers,
+                    inv_m: float) -> None:
+    """The plain walk: apply rows ``phase_bounds[0]:phase_bounds[-1]`` of
+    ``desc`` phase by phase (each phase's rows in table order) through the
+    plain row functions (``kernels/pipe_walk/ref.py``), updating the
+    buffers in place.  Works on any device; the round function takes it
+    only for CPU tensors."""
+    acts = buffers[0]
+    inv_numel = 1.0 / (acts.shape[1] * acts.shape[2])
+    rows = torch.as_tensor(desc).cpu().tolist()
+    for q in range(int(phase_bounds[0]), int(phase_bounds[-1])):
+        _pipe_plain_row(rows[q], statics, buffers, inv_m, inv_numel)
+
+
+def _check_pipe_table(desc: np.ndarray, phase_bounds: Sequence[int],
+                      n_stages: int, n_micro: int) -> None:
+    """Refuse a table the walk would run out of bounds on: ascending
+    phase bounds inside the table, and every F/B/U row's stage, micro and
+    slots inside the state."""
+    bounds = [int(v) for v in phase_bounds]
+    if bounds != sorted(bounds) or bounds[0] < 0 or bounds[-1] > len(desc):
+        raise ValueError(f"phase bounds {bounds[0]}..{bounds[-1]} do not "
+                         f"index the {len(desc)} rows of the table")
+    if desc.ndim != 2 or desc.shape[1] < 1 + PIPE_ARG_WIDTH:
+        raise ValueError(f"pipeline rows need {1 + PIPE_ARG_WIDTH} columns, "
+                         f"got shape {desc.shape}")
+    d = desc[(desc[:, 0] >= PIPE_F) & (desc[:, 0] <= PIPE_U)].astype(np.int64)
+    if not len(d):
+        return
+    lims = (n_stages, n_micro, n_stages * n_micro, n_stages * n_micro)
+    for col, lim in enumerate(lims, start=1):
+        if d[:, col].min() < 0 or d[:, col].max() >= lim:
+            raise ValueError(f"table column {col} outside [0, {lim}): the "
+                             f"state has {n_stages} stages, {n_micro} "
+                             f"microbatches")
+
+
+def _check_pipe_state(desc, statics, buffers) -> None:
+    """Validate the walk's operands for a launch."""
+    w, b, x, y = statics
+    acts, cots, gw, gb, loss = buffers
+    S, D = b.shape
+    M, Bt = x.shape[:2]
+    shapes = {"w": (w, (S, D, D)), "b": (b, (S, D)), "x": (x, (M, Bt, D)),
+              "y": (y, (M, Bt, D)), "acts": (acts, (S * M, Bt, D)),
+              "cots": (cots, (S * M, Bt, D)), "gw": (gw, (S, D, D)),
+              "gb": (gb, (S, D)), "loss": (loss, (M, 1))}
+    for name, (t, shape) in shapes.items():
+        if (t.device != acts.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 {shape} "
+                             f"tensor on {acts.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if (desc.device != acts.device or desc.dtype != torch.int32
+            or not desc.is_contiguous()):
+        raise ValueError("desc must be a contiguous int32 table on the "
+                         "state's device")
+
+
+def pipe_round_fn(inv_m: float):
+    """Walk executor for the pipeline family:
+    ``(desc, phase_bounds, (w, b, x, y), (acts, cots, gw, gb, loss)) ->
+    buffers``, updated in place.  ``w``/``b`` are (S, D, D)/(S, D)
+    stage-parameter stacks, ``x``/``y`` (M, Bt, D) microbatch
+    inputs/targets (read only); the state is the stacked stage-activation
+    (``acts``) and cotangent (``cots``) slabs — flat (S·M, Bt, D), slot =
+    stage·M + micro — the grad-accumulation buffers ``gw``/``gb`` and the
+    per-micro ``loss`` (M, 1).  ``inv_m`` = 1/M is the U rows' microbatch
+    averaging.
+
+    On CUDA tensors: one ``pipe_walk`` launch per non-empty phase, in
+    order, on the current stream (``desc`` must be the device copy, int32
+    contiguous; one host copy of it gives the tile offsets).  On CPU
+    tensors: ``pipe_walk_plain``."""
+    inv_m = float(inv_m)
+
+    def round_fn(desc, phase_bounds, statics, buffers):
+        w, b, x, y = statics
+        acts = buffers[0]
+        host = torch.as_tensor(desc).cpu().numpy()
+        _check_pipe_table(host, phase_bounds, w.shape[0], x.shape[0])
+        if acts.device.type == "cpu":
+            pw_kernel.count(pw_kernel.PLAIN_CALLS, "pipe_walk")
+            pipe_walk_plain(desc, phase_bounds, statics, buffers, inv_m)
+            return buffers
+        _check_pipe_state(desc, statics, buffers)
+        M, bt, dim = x.shape
+        offs = pw_kernel.tile_offsets(host, bt, dim)
+        d_offs = torch.as_tensor(offs, device=acts.device)
+        bounds = [int(p) for p in phase_bounds]
+        rows = max((p1 - p0 for p0, p1 in zip(bounds, bounds[1:])),
+                   default=0)
+        scratch = pw_kernel.scratch(M, max(rows, 1), bt, dim, acts.device)
+        inv_numel = 1.0 / (bt * dim)
+        for p0, p1 in zip(bounds, bounds[1:]):
+            ntiles = int(offs[p1]) - int(offs[p0])
+            if ntiles > 0:
+                pw_kernel.pipe_walk(desc, d_offs, p0, p1, int(offs[p0]),
+                                    ntiles, statics, buffers, scratch, inv_m,
+                                    inv_numel)
+        return buffers
 
     return round_fn

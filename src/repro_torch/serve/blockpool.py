@@ -41,6 +41,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch import resolve_device
 from repro_torch.core.graph import QSched
 from repro_torch.core.plan import ExecutionPlan, color_phases, lower
 
@@ -60,8 +61,9 @@ class BlockPool:
     ``cfg`` is optional: without it the pool is a pure allocator +
     admission planner (what the property suite drives); with it the pool
     also owns the paged cache leaves — ``serving.init_cache`` evaluated at
-    ``batch=n_pages, max_seq=page_size`` on ``device``, so every leaf's
-    second axis is the page id:
+    ``batch=n_pages, max_seq=page_size`` on ``device`` (``cuda`` unless
+    the caller asks for the CPU, as at every entry point of the port;
+    without a card it raises), so every leaf's second axis is the page id:
 
     * attention families (dense/moe incl. MLA): seq-paged leaves
       ``(L, n_pages, page_size, ...)``;
@@ -70,7 +72,7 @@ class BlockPool:
     """
 
     def __init__(self, n_pages: int, page_size: int, cfg: Any = None,
-                 bank_size: int = 8, device: Any = "cpu"):
+                 bank_size: int = 8, device: Any = None):
         if n_pages <= 0 or page_size <= 0:
             raise ValueError("n_pages and page_size must be positive")
         self.n_pages = n_pages
@@ -82,7 +84,7 @@ class BlockPool:
             from repro_torch.models import serving
             self.leaves = serving.init_cache(cfg, batch=n_pages,
                                              max_seq=page_size,
-                                             device=device)
+                                             device=resolve_device(device))
 
         # persistent hierarchical resource forest (paper §3.2): pool root
         # → banks → pages.  ``page_res[p]`` is page p's resource id; the

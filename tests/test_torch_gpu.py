@@ -19,7 +19,14 @@ modes sum in different orders (a leaf's COM sources in one launch or in
 rows of 8), so they agree within 1e-4 per particle, relative, with each
 other and with the CPU plain path (the reference's cross-mode tolerance).
 The paged decode kernels K10 (GQA) and K11 (MLA) are held to
-``PAGED_TOL``: the reference's in fp32, one output ulp in bf16.
+``PAGED_TOL``: the reference's in fp32, one output ulp in bf16.  The
+pipeline walk K9 is held to its plain walk on every state buffer at the
+reference's pipeline tolerance (rtol 1e-5, atol 1e-6,
+tests/test_backends.py) and is bitwise repeatable; the four pipeline modes
+on the card to a float64 ``torch.autograd`` of the monolithic loss at the
+same tolerance.  Flash attention K12 is held to its plain version at the
+reference's tolerance (tests/test_kernels_flash.py): atol 2e-5, rtol 1e-4
+in fp32, 2e-2 in bf16.
 """
 
 import numpy as np
@@ -533,3 +540,176 @@ def test_deepseek_service_on_card_takes_k11_and_raises_on_its_fault(cuda):
         svc.step()
     assert err.value.slots == [1]
     assert svc.stats["retries"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the pipeline walk (K9) and flash attention (K12)
+# ---------------------------------------------------------------------------
+
+PIPE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def pipe_case(S, M, Bt, D, seed, device):
+    from repro_torch import pipeline as pipe
+    rng = np.random.default_rng(seed)
+    params = [{"w": rng.standard_normal((D, D)) / np.sqrt(D),
+               "b": rng.standard_normal(D) * 0.1} for _ in range(S)]
+    micro = [{"x": rng.standard_normal((Bt, D)),
+              "y": rng.standard_normal((Bt, D))} for _ in range(M)]
+    return pipe.pipeline_inputs(params, micro, device=device)
+
+
+def pipe_walk_state(S, M, Bt, D, seed, device):
+    from repro_torch.pipeline import exec as pexec
+    from repro_torch.pipeline import lower_pipeline_plan
+    params, micro = pipe_case(S, M, Bt, D, seed, device)
+    sched, _, plan = lower_pipeline_plan(S, M, per_stage_window=True)
+    reg = pexec._PipeRunner([pexec.dense_stage] * S, pexec.mse_loss,
+                            params, micro).registry()
+    tab = engine.lower_tables(plan, sched, reg,
+                              arg_width=engine.PIPE_ARG_WIDTH,
+                              row_access=engine.pipe_row_access)
+    hooks = pexec._engine_hooks(params, micro, (S, M, Bt, D), {}, device)
+    return tab, hooks.statics(), hooks.buffers
+
+
+@pytest.mark.parametrize("S,M,Bt,D", [(3, 6, 4, 8), (8, 64, 4, 32),
+                                      (1, 3, 4, 40), (3, 1, 1, 100),
+                                      (2, 4, 33, 65)])
+def test_pipe_walk_matches_plain_walk_on_card(cuda, S, M, Bt, D):
+    from repro_torch.kernels.pipe_walk import kernel as pw_kernel
+    tab, statics, fresh = pipe_walk_state(S, M, Bt, D, S + M + D, cuda)
+    desc = torch.as_tensor(tab.desc, device=cuda)
+    bounds = tuple(int(b) for b in tab.phase_offsets)
+    runs = []
+    for _ in range(2):
+        pw_kernel.reset_counts()
+        bufs = fresh()
+        engine.pipe_round_fn(1.0 / M)(desc, bounds, statics, bufs)
+        torch.cuda.synchronize()
+        assert pw_kernel.LAUNCHES["pipe_walk"] == int(
+            (np.diff(tab.phase_offsets) > 0).sum())
+        assert pw_kernel.PLAIN_CALLS["pipe_walk"] == 0
+        runs.append(bufs)
+    plain = fresh()
+    engine.pipe_walk_plain(tab.desc, bounds, statics, plain, 1.0 / M)
+    for got, again, want in zip(runs[0], runs[1], plain):
+        assert torch.equal(got, again)
+        assert bool(torch.isfinite(got).all())
+        assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **PIPE_TOL)
+
+
+# K9 vs its plain walk where the F and cot_in reductions split (D >= 512:
+# 3 splits, the last ragged) and Bt spans row tiles (40, 65): each buffer
+# by norm, as chip_smoke.py holds the full width (elementwise, acts near 0
+# differ by ~1e-6 from the other summation order); the plain walk under
+# TF32 reads 2.8e-4 and more there on an H100
+K9_REL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("S,M,Bt,D", [(2, 3, 40, 600), (3, 2, 65, 513)])
+def test_pipe_walk_split_tiles_match_plain_walk_on_card(cuda, S, M, Bt, D):
+    tab, statics, fresh = pipe_walk_state(S, M, Bt, D, S + M + D, cuda)
+    desc = torch.as_tensor(tab.desc, device=cuda)
+    bounds = tuple(int(b) for b in tab.phase_offsets)
+    runs = []
+    for _ in range(2):
+        bufs = fresh()
+        engine.pipe_round_fn(1.0 / M)(desc, bounds, statics, bufs)
+        runs.append(bufs)
+
+    def plain():
+        bufs = fresh()
+        engine.pipe_walk_plain(tab.desc, bounds, statics, bufs, 1.0 / M)
+        return bufs
+
+    def rel(got, want):
+        return max(float((g.double() - w.double()).norm()
+                         / w.double().norm()) for g, w in zip(got, want))
+
+    want = plain()
+    for got, again in zip(*runs):
+        assert torch.equal(got, again)
+    assert rel(runs[0], want) <= K9_REL_TOL
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = plain()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert rel(control, want) > K9_REL_TOL
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_pipeline_modes_on_card_match_float64_autograd(cuda, mode):
+    from repro_torch import pipeline as pipe
+    S, M, Bt, D = 3, 6, 4, 8
+    params, micro = pipe_case(S, M, Bt, D, 2, cuda)
+    loss, grads = pipe.pipelined_value_and_grad_plan(
+        [pipe.dense_stage] * S, pipe.mse_loss, params, micro, mode=mode)
+    ps = [{k: v.double().requires_grad_() for k, v in p.items()}
+          for p in params]
+    total = 0.0
+    for mb in micro:
+        h = mb["x"].double()
+        for p in ps:
+            h = torch.tanh(h @ p["w"] + p["b"])
+        total = total + torch.mean((h - mb["y"].double()) ** 2)
+    total = total / M
+    total.backward()
+    assert loss.device.type == "cuda"
+    assert abs(float(loss) - float(total.detach())) < 1e-6
+    for g, p in zip(grads, ps):
+        for k in ("w", "b"):
+            assert_allclose(g[k].double().cpu().numpy(),
+                            p[k].grad.cpu().numpy(), **PIPE_TOL)
+
+
+FA_CASES = [(4, 128, 64, 64, 64), (4, 256, 64, 128, 64),
+            (4, 512, 64, 128, 128), (2, 128, 32, 64, 128),
+            (2, 256, 16, 64, 64), (1, 256, 128, 128, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,hd,bq,bk", FA_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda, bh, s, hd, bq, bk, dtype,
+                                            causal):
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as far
+    g = torch.Generator(device=cuda).manual_seed(s + hd)
+    q, k, v = (torch.randn(bh, s, hd, generator=g, device=cuda) * 0.5
+               for _ in range(3))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    fa.reset_counts()
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert fa.PLAIN_CALLS["flash_attention"] == 0
+    want = far.attention_ref(q, k, v, causal=causal)
+    tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
+           else dict(atol=2e-5, rtol=1e-4))
+    assert got.dtype == dtype
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    **tol)
+
+
+def test_flash_op_on_card_pads_and_sums_to_one(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fa, ops as fops
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 100, 3, 32, generator=g, device=cuda) * 0.5
+               for _ in range(3))
+    got = fops.flash_attention_bshd(q, k, v, block_q=64, block_k=64)
+    want = fops.attention_ref_bshd(q, k, v)
+    assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5,
+                    rtol=1e-4)
+    ones = fa.flash_attention(q[0].transpose(0, 1)[:, :64].contiguous(),
+                              k[0].transpose(0, 1)[:, :64].contiguous(),
+                              torch.ones(3, 64, 32, device=cuda),
+                              block_q=64, block_k=64)
+    assert_allclose(ones.cpu().numpy(), np.ones((3, 64, 32)), atol=1e-5)
+    with pytest.raises(ValueError, match="hd in"):
+        fa.flash_attention(*(torch.zeros(1, 64, 48, device=cuda)
+                             for _ in range(3)), block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(*(torch.zeros(1, 64, 32, device=cuda,
+                                         dtype=torch.float16)
+                             for _ in range(3)), block_q=64, block_k=64)

@@ -29,7 +29,7 @@ bad = sorted(k for k in sys.modules
              if k == 'jax' or k.startswith('jax.') or k == 'repro'
              or k.startswith('repro.'))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 60 else 0)
+sys.exit(1 if bad or len(names) < 70 else 0)
 """
 
 
@@ -62,7 +62,14 @@ def test_every_module_imports_here():
             "repro_torch.serve", "repro_torch.serve.blockpool",
             "repro_torch.serve.faults", "repro_torch.serve.service",
             "repro_torch.serve.traffic", "repro_torch.obs.export",
-            "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.launch.serve", "repro_torch.core.simulator",
+            "repro_torch.pipeline", "repro_torch.pipeline.qsched_pipeline",
+            "repro_torch.pipeline.exec", "repro_torch.pipeline.convert",
+            "repro_torch.kernels.pipe_walk.kernel",
+            "repro_torch.kernels.pipe_walk.ref",
+            "repro_torch.kernels.flash_attention.kernel",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref"} <= set(names)
 
 
 def test_tf32_is_off():
@@ -115,6 +122,20 @@ def test_service_and_launcher_default_to_cuda_and_raise_without_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             launch_serve.main(["--arch", "qwen3-1.7b", "--reduced"] + extra)
     assert all(v == 0 for v in pa_kernel.PLAIN_CALLS.values())
+
+
+def test_blockpool_with_cache_defaults_to_cuda_and_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import get_config
+    from repro_torch.serve import BlockPool
+    cfg = get_config("qwen3-1.7b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BlockPool(4, 8, cfg=cfg)
+    pool = BlockPool(4, 8, cfg=cfg, device="cpu")
+    assert pool.leaves and all(
+        t.device.type == "cpu" for t in pool.leaves.values())
+    assert BlockPool(4, 8).leaves is None      # a pure allocator: no tensors
 
 
 def test_resolve_device():
