@@ -10,9 +10,10 @@ source, all at once) and drives the port's paths.  The tiled QR (paper
 ``repro_torch.apps.qr.run_qr``; the Barnes-Hut tree code (§4.2) through
 ``repro_torch.apps.barneshut.solve`` at 100k particles in all four modes
 and at the paper's 1M particles in engine mode; and continuous-batching
-serving through ``repro_torch.serve.GenerateService`` of qwen3-1.7b as
-published (bf16, 28 layers) and of deepseek-v3-671b (MoE + MLA) at full
-width cut to its first 5 layers (bf16), random weights from seed 0; the
+serving through ``repro_torch.serve.GenerateService`` of qwen3-1.7b and
+starcoder2-7b as published (bf16, 28 and 32 layers) and of
+deepseek-v3-671b (MoE + MLA) at full width cut to its first 5 layers
+(bf16), random weights from seed 0; the
 pipelined value-and-grad through ``repro_torch.pipeline`` at (S, M, Bt, D)
 = (8, 64, 32, 2048) in all four modes; and the flash-attention op.
 Phases, each fatal when it fails:
@@ -52,9 +53,13 @@ Phases, each fatal when it fails:
     single PyTorch call computes softened gravity, so they have no
     library yardstick);
 12. K10 (paged GQA decode) against its plain version on the card: the
-    reduced and the published widths, page 8 and 16, fp32 and bf16, bs 1,
-    3 and 8, NaN unlisted pages, stale non-finite tails, a second slot's
-    pages bitwise untouched;
+    reduced and the published widths of qwen3-1.7b (16/8 heads) and
+    starcoder2-7b (36/4), page 8 and 16, fp32 and bf16, bs 1, 3 and 8,
+    n_rep 16 (32/2) and hd 20 (rows not on 16 bytes); 8 slots at
+    positions 256-319 (up to 40 pages) at
+    both head shapes; NaN unlisted pages, stale non-finite tails, two
+    launches bitwise equal (the split walk merges in a fixed order), a
+    second slot's pages bitwise untouched;
 13. the serving path at full width on decode_path "auto", the launcher's
     workload (a: 4 slots, prompt 8, up to 32 new tokens, 12 requests) and
     one that walks and reuses 40 pages a slot (b: 8 slots, prompt 256, up
@@ -66,9 +71,16 @@ Phases, each fatal when it fails:
     kernel vs gather logits over 16 teacher-forced steps; workload (a)
     token for token, kernel vs gather, in an fp32 copy of the config;
 14. K10 timings at the path's shapes (one launch on each of 28 layer
-    pools in a CUDA graph) beside its bound, its plain version and
+    pools in a CUDA graph), and at (b)'s with starcoder2-7b's heads,
+    beside its bound, its plain version and
     F.scaled_dot_product_attention over the window gathered beforehand
-    (the yardstick, never called by the port).
+    (the yardstick, never called by the port);
+14a. with qwen3 freed, starcoder2-7b as published (bf16, 32 layers, 36/4
+    heads of 128, 10.1e9 weights) through GenerateService on "auto" (K10)
+    for workload (a): every request done, the pool empty, path "kernel",
+    K10 launched layers x ticks times, no plain version; its wall time and
+    tok/s; bf16 kernel vs gather logits over 16 teacher-forced steps
+    within the qwen3 limit, a planted fault above it at every step;
 15. K11 (paged MLA decode) against its plain version on the card: H 4 /
     lat 32 / rope 16 (--reduced), lat 16 / rope 8, and H 128 / lat 512 /
     rope 64 (published), page 8 and 16, fp32 and bf16, bs 1, 3 and 8; 8
@@ -107,15 +119,16 @@ Phases, each fatal when it fails:
     loss as context (no single PyTorch call computes K9's function);
 21. K12 (flash attention) against its plain version on the card: fp32 and
     bf16, causal and not, (BH, S, hd) in (4, 128, 64), (4, 256, 64), (4,
-    512, 64), (2, 128, 32), (2, 256, 128), blocks 64 and 128 (80 cases),
-    the op on a ragged S = 100, v = ones; then the op itself once at (B,
-    S, H, hd) = (1, 4096, 16, 128), causal, bf16, launching K12 and no
-    plain version;
+    512, 64), (2, 128, 32), (2, 256, 128), blocks 64 and 128, and
+    FA_WIDE: hd 48, 50, 112, 256, caller blocks 32, 96 and 256, Sq != Sk
+    (116 cases); the op on a ragged S = 100, v = ones; then the op itself
+    once at (B, S, H, hd) = (1, 4096, 16, 128), causal, bf16, launching
+    K12 and no plain version;
 22. K12 timings there beside its bound (operations at the bf16 rate), its
     plain version and F.scaled_dot_product_attention (the yardstick, never
     called by the port); the op's output there against the plain version,
     every row within 2e-2 relative, a limit an output without the last 64
-    keys must fail.
+    keys must fail; then at hd 112 (zamba2-7b's width), held the same way.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -1170,7 +1183,14 @@ PAGED_SHAPES = ((4, 2, 32, 8, "float32"),       # qwen3-1.7b reduced
                 (16, 8, 128, 8, "float32"),     # qwen3-1.7b as published
                 (16, 8, 128, 16, "float32"),
                 (16, 8, 128, 8, "bfloat16"),
-                (16, 8, 128, 16, "bfloat16"))
+                (16, 8, 128, 16, "bfloat16"),
+                (36, 4, 128, 8, "float32"),     # starcoder2-7b as published:
+                (36, 4, 128, 16, "float32"),    # H/Hkv 9, H/Hkv x hd 1,152
+                (36, 4, 128, 8, "bfloat16"),
+                (36, 4, 128, 16, "bfloat16"),
+                (32, 2, 128, 8, "bfloat16"),    # n_rep 16: four head groups
+                (8, 2, 20, 8, "bfloat16"))      # rows not on 16 bytes: the
+#                                                 element-wise loads
 # kernel vs gather logits over teacher-forced bf16 decode steps, per step
 # ‖Δ‖₂/‖logits‖₂.  The two paths round differently: K10 keeps the attention
 # in float and rounds its output to bf16 once; the gather path rounds the
@@ -1259,27 +1279,41 @@ def phase_k10(torch, np):
             n += 1
     for dt in ("float32", "bfloat16"):
         # workload (b)'s geometry: 8 slots of 40 pages, positions spread
-        # over 256-319 (up to 40 pages walked), as tests/test_torch_gpu.py
-        ops_, rows, pos = ref.random_case(8, 8, getattr(torch, dt), 21, "cuda",
-                                          pos=SERVE_DEPTH_POS, max_pages=40,
-                                          n_heads=16, n_kv=8, hd=128)
-        check(ops_, rows, pos, 8, dt, f"serving depth {dt}")
+        # over 256-319 (up to 40 pages walked), as tests/test_torch_gpu.py,
+        # at qwen3-1.7b's and starcoder2-7b's heads
+        for h, hkv in ((16, 8), (36, 4)):
+            ops_, rows, pos = ref.random_case(8, 8, getattr(torch, dt), 21,
+                                              "cuda", pos=SERVE_DEPTH_POS,
+                                              max_pages=40, n_heads=h,
+                                              n_kv=hkv, hd=128)
+            check(ops_, rows, pos, 8, dt, f"serving depth H {h} Hkv {hkv} "
+                  f"{dt}")
         # stale non-finite tails
         ops_, rows, pos = ref.random_case(4, 8, getattr(torch, dt), 11, "cuda",
                                           stale_tail=True, pos=[0, 7, 8, 13],
                                           n_heads=16, n_kv=8, hd=128)
         check(ops_, rows, pos, 8, dt, f"stale tail {dt}")
-        n += 2
+        n += 3
+    # the splits merge in a fixed order: two launches, bitwise equal
+    ops_, rows, pos = ref.random_case(8, 8, torch.bfloat16, 21, "cuda",
+                                      pos=SERVE_DEPTH_POS, max_pages=40,
+                                      n_heads=36, n_kv=4, hd=128)
+    outs = [ops.paged_gqa_decode(*[x.clone() for x in ops_], page_size=8)[0]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(outs[0], outs[1]):
+        fail("K10: two launches on the same inputs differ")
     # one slot's launch leaves the other slot's pages bitwise unchanged
     ops_, rows, pos = ref.random_case(2, 8, torch.bfloat16, 5, "cuda",
                                       pos=[12, 20], n_heads=16, n_kv=8, hd=128)
     other_slot_untouched(torch, "K10", ops.paged_gqa_decode, ops_, rows, pos,
                          8)
-    log(f"[k10] paged_gqa_decode vs plain on the card: {n + 1} cases (bs 1,"
-        f" 3, 8 x {len(PAGED_SHAPES)} shapes, 8 slots at positions "
-        f"{SERVE_DEPTH_POS[0]}-{SERVE_DEPTH_POS[-1]} of 40 pages, stale "
-        f"non-finite tails, "
-        f"NaN unlisted pages, a second slot untouched); max |err| fp32 "
+    log(f"[k10] paged_gqa_decode vs plain on the card: {n + 2} cases (bs 1,"
+        f" 3, 8 x {len(PAGED_SHAPES)} shapes (H, Hkv, hd, ps, dtype) "
+        f"{PAGED_SHAPES}, 8 slots at positions "
+        f"{SERVE_DEPTH_POS[0]}-{SERVE_DEPTH_POS[-1]} of 40 pages at H/Hkv "
+        f"16/8 and 36/4, stale non-finite tails, NaN unlisted pages, two "
+        f"launches bitwise equal, a second slot untouched); max |err| fp32 "
         f"{errs['float32']:.3e}, bf16 {errs['bfloat16']:.3e}")
     return errs
 
@@ -1707,18 +1741,67 @@ def phase_serve(torch, np):
         f"{cfg.vocab}, {cfg.dtype})")
 
 
+ARCH_SC2 = "starcoder2-7b"   # as published: bf16, 32 layers, d 4608, 36/4
+#   heads of 128 (H/Hkv x hd = 1,152), d_ff 18432, vocab 49,152: 10.1e9
+#   weights, 20.2 GB in bf16; nothing cut
+
+
+def phase_serve_starcoder2(torch, np):
+    """starcoder2-7b as published (bf16, 32 layers, random weights from seed
+    0) through GenerateService on decode_path "auto" (K10 at H/Hkv 9) for
+    workload (a) with its checks and timings, then the bf16 teacher-forced
+    kernel-vs-gather logits check at BF16_LOGIT_RTOL with its planted
+    fault; the model is freed before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(ARCH_SC2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    torch.cuda.synchronize()
+    n_par = tree_numel(params)
+    log(f"[serve-sc2] {ARCH_SC2} as published ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}): {n_par:,} weights drawn on the "
+        f"card in {time.perf_counter() - t0:.2f} s (seed 0), peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB while "
+        f"drawing")
+    name, slots, plen, new = SERVE_WORKLOADS[0]
+    work = serve_workload(np, cfg.vocab, slots, plen, new)
+    run = run_service(torch, np, params, cfg, work, slots, plen, new, "auto")
+    ticks = check_served(np, cfg, name, run, work, "kernel")
+    out = {"weights": n_par, name: serve_timings(np, name, run),
+           "launches": run["launches"]["paged_gqa"], "ticks": ticks}
+    log(f"[serve-sc2] ({name}) {slots} slots, prompt {plen}, up to {new} new "
+        f"tokens, {len(work)} requests: every request done with its budget, "
+        f"pool empty, path kernel, degrade level 0, retries 0, launches "
+        f"{run['launches']} (paged_gqa = {cfg.n_layers} layers x {ticks} "
+        f"ticks), no plain version")
+    del run
+    out["bf16_logit_rel"] = teacher_forced(torch, np, params, cfg,
+                                           BF16_LOGIT_RTOL)
+    del params
+    free_card(torch)
+    return out
+
+
 def phase_k10_timing(torch, np, errs, serve, card):
     """K10 per launch at workload (b)'s shape in the middle of its decode
     (8 slots at position 288, 37 of 40 pages walked, bf16), over 28
     distinct layer pools as one decode tick has them, beside its bound,
-    its plain version and the library yardstick; and at workload (a)'s."""
+    its plain version and the library yardstick; at workload (a)'s; and at
+    (b)'s with starcoder2-7b's heads (36 / 4)."""
     from repro_torch.kernels.paged_attention import kernel as pak
     from repro_torch.kernels.paged_attention import ref
     import torch.nn.functional as F
-    L, h, hkv, hd, ps = 28, 16, 8, 128, SERVE_PAGE
+    L, hd, ps = 28, 128, SERVE_PAGE
     rng = np.random.default_rng(13)
     rows_out = {}
-    for name, bs, pos_v, max_pages in (("b", 8, 288, 40), ("a", 4, 20, 5)):
+    for name, bs, pos_v, max_pages, h, hkv in (
+            ("b", 8, 288, 40, 16, 8), ("a", 4, 20, 5, 16, 8),
+            ("starcoder2", 8, 288, 40, 36, 4)):
         n_pages = bs * max_pages
         dt = torch.bfloat16
 
@@ -1798,7 +1881,7 @@ def phase_k10_timing(torch, np, errs, serve, card):
             f"library (F.scaled_dot_product_attention over the window "
             f"gathered beforehand) {lms:.5f} ms, max |Δ| {lerr:.2e}; {card}")
         del kps, vps
-    b, a = rows_out["b"], rows_out["a"]
+    b, a, sc2 = rows_out["b"], rows_out["a"], rows_out["starcoder2"]
     return {"name": "paged_gqa", "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/"
                       "paged_attention.cu",
@@ -1817,6 +1900,11 @@ def phase_k10_timing(torch, np, errs, serve, card):
             "ms_a": a["ms"], "plain_ms_a": a["pms"], "bound_ms_a": a["bms"],
             "library_ms_a": a["lms"],
             "shape_a": "bs 4, pos 20 (3 pages)",
+            "ms_starcoder2": sc2["ms"], "plain_ms_starcoder2": sc2["pms"],
+            "bound_ms_starcoder2": sc2["bms"],
+            "library_ms_starcoder2": sc2["lms"],
+            "shape_starcoder2": "bs 8, pos 288 (37 pages), H 36, Hkv 4, "
+                                "hd 128, ps 8, bf16",
             "decode_ticks": serve["ticks"]}
 
 
@@ -2080,7 +2168,16 @@ PIPE_REL_TOL = 1e-5   # each mode vs a float64 autograd of the monolithic
 #                   worst leaf read 9.2e-7 and the sequential mode under
 #                   TF32, a control this phase runs again, 9.6e-4
 FA_SHAPES = ((4, 128, 64), (4, 256, 64), (4, 512, 64), (2, 128, 32),
-             (2, 256, 128))   # hd 128 at blocks 128: the timed shape's build
+             (2, 256, 128))   # hd 128 at blocks 128: the timed shape's width
+# (BH, Sq, Sk, hd, block_q, block_k): the shapes the reference takes beyond
+# those — hd 48, 112 (zamba2-7b's), 256 and 50 (rows not on 16 bytes: the
+# kernel's element-wise loads), caller blocks 32, 96 and 256, Sq != Sk; the
+# kernel's own tiles mask the ragged edges
+FA_WIDE = ((2, 256, 256, 48, 64, 128), (2, 256, 256, 112, 128, 64),
+           (2, 256, 256, 256, 128, 128), (2, 192, 192, 112, 32, 96),
+           (2, 768, 768, 64, 256, 96), (2, 192, 384, 128, 96, 128),
+           (2, 384, 192, 64, 128, 32), (2, 160, 160, 50, 32, 32),
+           (1, 96, 96, 256, 96, 32))
 FA_TOL = {"float32": dict(atol=2e-5, rtol=1e-4),   # the reference's
           "bfloat16": dict(atol=2e-2, rtol=2e-2)}  # (test_kernels_flash.py)
 FA_ROW_TOL = 2e-2   # K12 vs plain at the timed shape, bf16: the worst row's
@@ -2093,6 +2190,7 @@ FA_ROW_TOL = 2e-2   # K12 vs plain at the timed shape, bf16: the worst row's
 #                   again, 0.15
 FA_TIMED = (1, 4096, 16, 128)   # (B, S, H, hd): qwen3-1.7b's query heads and
 #                                 width, the reference kernel's 4,096 keys
+FA_HD112 = 112                  # zamba2-7b's head width, timed beside it
 
 
 def pipe_table(S, M):
@@ -2460,6 +2558,22 @@ def phase_k12(torch, np):
                                    **FA_TOL[dt])
         errs[dt] = max(errs[dt], float(np.abs(gf - wf).max()))
         n += 1
+    for (bh, sq, sk, hd, bq, bk), dt, causal in itertools.product(
+            FA_WIDE, ("float32", "bfloat16"), (True, False)):
+        q = (torch.randn(bh, sq, hd, generator=g, device="cuda") * 0.5).to(
+            getattr(torch, dt))
+        k, v = ((torch.randn(bh, sk, hd, generator=g, device="cuda") * 0.5)
+                .to(getattr(torch, dt)) for _ in range(2))
+        got = fa.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                 block_k=bk)
+        want = fref.attention_ref(q, k, v, causal=causal)
+        gf, wf = got.float().cpu().numpy(), want.float().cpu().numpy()
+        np.testing.assert_allclose(gf, wf, err_msg=f"K12 {dt} causal "
+                                   f"{causal} (BH, Sq, Sk, hd) "
+                                   f"{(bh, sq, sk, hd)} ({bq}, {bk})",
+                                   **FA_TOL[dt])
+        errs[dt] = max(errs[dt], float(np.abs(gf - wf).max()))
+        n += 1
     q, k, v = (torch.randn(2, 100, 3, 32, generator=g, device="cuda") * 0.5
                for _ in range(3))
     got = fops.flash_attention_bshd(q, k, v, block_q=64, block_k=64)
@@ -2477,7 +2591,8 @@ def phase_k12(torch, np):
             fail(f"K12 with v = ones, {dt}: max |o - 1| {ones[dt]:.3e}")
     torch.cuda.synchronize()
     log(f"[k12] K12 matches its plain version in {n} cases ((BH, S, hd) in "
-        f"{FA_SHAPES}, fp32 and bf16, causal and not, blocks 64 and 128), "
+        f"{FA_SHAPES}, blocks 64 and 128; (BH, Sq, Sk, hd, block_q, block_k) "
+        f"in {FA_WIDE}; fp32 and bf16, causal and not), "
         f"fp32 atol 2e-5 rtol 1e-4, bf16 2e-2: max |err| {errs}; the op on "
         f"a ragged S = 100 matches; v = ones gives max |o - 1| {ones}")
     return errs
@@ -2515,39 +2630,35 @@ def row_gap(got, want):
 def phase_k12_timing(torch, np, errs, launches, qkvo, card):
     """K12 at the timed shape beside its bound, its plain version and
     F.scaled_dot_product_attention (the yardstick, never called by the
-    port)."""
+    port); then at hd 112 (zamba2-7b's width) the same way."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ref as fref
     B, S, H, hd = FA_TIMED
     q, k, v, o = (t.transpose(1, 2).reshape(B * H, S, hd).contiguous()
                   for t in qkvo)
-    ms = {}
-    for bq, bk in ((128, 128), (64, 64)):
-        ms[bq, bk] = median_of(lambda: events_ms(
-            torch, lambda: fa.flash_attention(q, k, v, block_q=bq,
-                                              block_k=bk), 5))
+    ms = median_of(lambda: events_ms(
+        torch, lambda: fa.flash_attention(q, k, v), 5))
     plain = median_of(lambda: events_ms(
         torch, lambda: fref.attention_ref(q, k, v), 3))
     want = fref.attention_ref(q, k, v)
     err = float((o.float() - want.float()).abs().max())
-    rows = {"128": row_gap(o, want),
-            "64": row_gap(fa.flash_attention(q, k, v, block_q=64,
-                                             block_k=64), want)}
+    row = row_gap(o, want)
     # the planted fault: the output of a kernel that lost the last 64 keys
     fault = row_gap(fref.attention_ref(q, k[:, :-64], v[:, :-64]), want)
-    if not (err <= FA_TOL["bfloat16"]["atol"]
-            and max(rows.values()) <= FA_ROW_TOL):
+    if not (err <= FA_TOL["bfloat16"]["atol"] and row <= FA_ROW_TOL):
         fail(f"K12 at the timed shape vs plain: max |err| {err:.3e}, worst "
-             f"row {rows} (bound {FA_ROW_TOL})")
+             f"row {row:.3e} (bound {FA_ROW_TOL})")
     if not fault > FA_ROW_TOL:
         fail(f"an output without the last 64 keys passes the bound "
              f"{FA_ROW_TOL}: worst row {fault:.3e}")
-    q4, k4, v4 = (t.reshape(B, H, S, hd) for t in (q, k, v))
 
-    def lib():
-        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    def lib_of(q_, k_, v_, width):
+        q4, k4, v4 = (t.reshape(B, H, S, width) for t in (q_, k_, v_))
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=True)
 
+    lib = lib_of(q, k, v, hd)
     lms = median_of(lambda: events_ms(torch, lib, 20))
     lerr = float((lib().reshape(B * H, S, hd).float() - o.float())
                  .abs().max())
@@ -2558,16 +2669,35 @@ def phase_k12_timing(torch, np, errs, launches, qkvo, card):
     flops = pairs * 4 * hd                      # q·k and p·v
     nbytes = 4 * B * H * S * hd * 2             # q, k, v in; o out (bf16)
     bms, by = bound_ms(flops, nbytes, BF16_PEAK)
-    main = ms[128, 128]
-    log(f"[k12-time] (B, S, H, hd) = {FA_TIMED}, causal, bf16: "
-        f"{main:.4f} ms at blocks (128, 128), {ms[64, 64]:.4f} ms at (64, "
-        f"64) (CUDA events, median of 3); bound {bms:.5f} ms ({by}: "
-        f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, {nbytes / 1e6:.1f} "
-        f"MB at 3.35 TB/s); plain {plain:.3f} ms; library "
+    log(f"[k12-time] (B, S, H, hd) = {FA_TIMED}, causal, bf16: {ms:.4f} ms "
+        f"(CUDA events, median of 3; the kernel's tiles: 128 query rows, 64 "
+        f"keys); bound {bms:.5f} ms ({by}: {flops / 1e9:.1f} GFLOP at 989 "
+        f"TFLOP/s bf16, {nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain:.3f} ms; library "
         f"(F.scaled_dot_product_attention, is_causal) {lms:.4f} ms, max "
         f"|Δ| {lerr:.2e}; kernel vs plain: max |err| {err:.2e}, worst row "
-        f"(blocks 128, 64) {rows['128']:.2e}, {rows['64']:.2e} (bound "
-        f"{FA_ROW_TOL}; without the last 64 keys {fault:.2e}); {card}")
+        f"{row:.2e} (bound {FA_ROW_TOL}; without the last 64 keys "
+        f"{fault:.2e}); {card}")
+    # zamba2-7b's width: the kernel built for 128, columns past 112 zero
+    g = torch.Generator(device="cuda").manual_seed(112)
+    q2, k2, v2 = (torch.randn(B * H, S, FA_HD112, generator=g, device="cuda")
+                  .mul(0.5).bfloat16() for _ in range(3))
+    ms112 = median_of(lambda: events_ms(
+        torch, lambda: fa.flash_attention(q2, k2, v2), 5))
+    o2, want2 = fa.flash_attention(q2, k2, v2), fref.attention_ref(q2, k2, v2)
+    err112, row112 = float((o2.float() - want2.float()).abs().max()), \
+        row_gap(o2, want2)
+    if not (err112 <= FA_TOL["bfloat16"]["atol"] and row112 <= FA_ROW_TOL):
+        fail(f"K12 at hd {FA_HD112} vs plain: max |err| {err112:.3e}, worst "
+             f"row {row112:.3e} (bound {FA_ROW_TOL})")
+    lms112 = median_of(lambda: events_ms(torch, lib_of(q2, k2, v2, FA_HD112),
+                                         20))
+    flops112 = pairs * 4 * FA_HD112
+    bms112, _ = bound_ms(flops112, 4 * B * H * S * FA_HD112 * 2, BF16_PEAK)
+    log(f"[k12-time] hd {FA_HD112} (zamba2-7b), otherwise as above: "
+        f"{ms112:.4f} ms, {flops112 / ms112 / 1e9:.1f} TFLOP/s; bound "
+        f"{bms112:.5f} ms; library {lms112:.4f} ms; max |err| {err112:.2e}, "
+        f"worst row {row112:.2e}; {card}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
@@ -2575,14 +2705,15 @@ def phase_k12_timing(torch, np, errs, launches, qkvo, card):
             "launches": launches, "max_abs_err": max(errs.values()),
             "max_abs_err_fp32": errs["float32"],
             "max_abs_err_bf16": errs["bfloat16"],
-            "row_rel_err_timed": rows, "row_rel_err_planted_fault": fault,
-            "ms": main, "ms_blocks_64": ms[64, 64], "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lms,
+            "row_rel_err_timed": row, "row_rel_err_planted_fault": fault,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lms,
             "library": "F.scaled_dot_product_attention(is_causal=True), "
                        "(1, 16, 4096, 128) bf16",
-            "shape": "B 1, S 4096, H 16, hd 128, causal, bf16, blocks "
-                     "(128, 128)"}
-
+            "shape": "B 1, S 4096, H 16, hd 128, causal, bf16; the kernel's "
+                     "tiles 128 x 64",
+            "ms_hd112": ms112, "bound_ms_hd112": bms112,
+            "library_ms_hd112": lms112, "row_rel_err_hd112": row112}
 
 
 def main():
@@ -2619,6 +2750,10 @@ def main():
         {k: serve[k] for k in ("a", "b", "bf16_logit_rel", "profile")}))
     del serve
     free_card(torch)
+    sc2 = phase_serve_starcoder2(torch, np)
+    rows[-1]["launches_starcoder2"] = sc2["launches"]
+    log("[serve-sc2-json] " + json.dumps(sc2))
+    del sc2
     k11_errs = phase_k11(torch, np)
     serve_mla = phase_serve_mla(torch, np)
     rows.append(phase_k11_timing(torch, np, k11_errs, serve_mla, card))

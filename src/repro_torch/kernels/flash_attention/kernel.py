@@ -1,7 +1,8 @@
 """ctypes binding of the hand-written flash-attention kernel (K12,
 ``csrc/flash_attention.cu``): one block per (batch-head, query tile), K/V
-staged through shared memory a key tile at a time, the online softmax in
-float (the source's header says how).  It replaces the Pallas kernel
+streamed through shared memory a key tile at a time, the online softmax in
+float; bf16 products on the tensor cores (``mma.sync``), float32 on the
+CUDA cores (the source's header says how).  It replaces the Pallas kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention``
 (``_fa_kernel``).
 
@@ -32,8 +33,7 @@ SOURCE = CSRC / "flash_attention.cu"
 
 BLOCK_Q = 128
 BLOCK_K = 128
-HEAD_DIMS = (16, 32, 64, 128)
-BLOCKS = (64, 128)           # block_q and block_k the kernel is built for
+MAX_HD = 256                 # the widest head the kernel is built for
 _SYMBOLS = {torch.float32: "fa_forward_f32", torch.bfloat16: "fa_forward_bf16"}
 
 # kernel launches, and plain-version calls taken because the tensors lay
@@ -45,7 +45,7 @@ _LOAD_LOCK = threading.Lock()
 _LIB = None
 
 _P, _I, _F = _binding.P, _binding.I, _binding.F
-_SIG = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P)
+_SIG = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)
 _SIGNATURES = {name: _SIG for name in _SYMBOLS.values()}
 
 
@@ -66,11 +66,34 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
+def _check_blocks(sq: int, sk: int, block_q: int, block_k: int) -> None:
+    if block_q < 1 or block_k < 1 or sq % block_q or sk % block_k:
+        raise ValueError(f"Sq {sq} / Sk {sk} not multiples of block_q "
+                         f"{block_q} / block_k {block_k} (ops.py pads)")
+
+
+def check_shape(dtype: torch.dtype, sq: int, sk: int, hd: int,
+                block_q: int = BLOCK_Q, block_k: int = BLOCK_K) -> None:
+    """Raise ValueError unless the card kernel takes these operands: float32
+    or bfloat16, 1 <= hd <= ``MAX_HD``, and blocks that divide Sq and Sk
+    (the reference's assertion).  Needs no card."""
+    _check_blocks(sq, sk, block_q, block_k)
+    if dtype not in _SYMBOLS:
+        raise ValueError(f"the kernel takes float32 or bfloat16, not {dtype}")
+    if not 1 <= hd <= MAX_HD:
+        raise ValueError(f"the kernel takes 1 <= hd <= {MAX_HD}, got {hd}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_q: int = BLOCK_Q,
                     block_k: int = BLOCK_K) -> torch.Tensor:
     """q: (BH, Sq, hd); k, v: (BH, Sk, hd), one dtype, Sq % block_q == 0
-    and Sk % block_k == 0 (``ops`` pads) → (BH, Sq, hd) in q's dtype."""
+    and Sk % block_k == 0 (``ops`` pads) → (BH, Sq, hd) in q's dtype.
+
+    As in the reference, the blocks must divide Sq and Sk; they set the
+    reference's tiling and nothing else here: the card kernel picks its
+    own tiles (and masks their ragged edges), the plain version has none.
+    The causal mask is aligned at the top left (row r sees keys 0..r)."""
     bh, sq, hd = q.shape
     sk = k.shape[1]
     if (k.shape != (bh, sk, hd) or v.shape != k.shape
@@ -78,26 +101,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} "
                          f"{k.dtype}, v {tuple(v.shape)} {v.dtype}: want "
                          f"(BH, Sq, hd) and two (BH, Sk, hd) of one dtype")
-    if sq % block_q or sk % block_k:
-        raise ValueError(f"Sq {sq} / Sk {sk} not multiples of block_q "
-                         f"{block_q} / block_k {block_k} (ops.py pads)")
     if q.device.type == "cpu":
+        _check_blocks(sq, sk, block_q, block_k)
         count(PLAIN_CALLS, "flash_attention")
         return ref.attention_ref(q, k, v, causal=causal)
-    if q.dtype not in _SYMBOLS:
-        raise ValueError(f"the kernel takes float32 or bfloat16, not "
-                         f"{q.dtype}")
-    if hd not in HEAD_DIMS or block_q not in BLOCKS or block_k not in BLOCKS:
-        raise ValueError(f"the kernel is built for hd in {HEAD_DIMS} and "
-                         f"block_q, block_k in {BLOCKS}; got hd {hd}, "
-                         f"blocks ({block_q}, {block_k})")
+    check_shape(q.dtype, sq, sk, hd, block_q, block_k)
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
+    vec = hd % 8 == 0 and all(x.data_ptr() % 16 == 0 for x in (q, k, v, o))
     if o.numel():
         _check(getattr(lib(), _SYMBOLS[q.dtype])(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(o), bh, sq, sk, hd, block_q,
-            block_k, int(causal), hd ** -0.5, _stream()), "flash_attention")
+            _ptr(q), _ptr(k), _ptr(v), _ptr(o), bh, sq, sk, hd, int(causal),
+            int(vec), hd ** -0.5, _stream()), "flash_attention")
         count(LAUNCHES, "flash_attention")
     return o

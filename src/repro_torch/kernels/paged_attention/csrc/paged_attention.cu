@@ -7,42 +7,58 @@
 // K10 replaces src/repro/kernels/paged_attention/kernel.py::paged_gqa_call
 // (_gqa_kernel, _online_softmax_walk).  The Pallas kernel ran one program
 // per slot, in order on one TPU core, with the page-table rows
-// scalar-prefetched and the pools resident in VMEM.  Here one block serves
-// one (slot, KV head) pair, bs x Hkv blocks in parallel, and the block
-// loads its own page-table row.  Per block:
-//   1. write the new K/V cell (page_rows[t, pos / ps], pos % ps) of its KV
-//      head, then __syncthreads(), so the walk reads position pos back like
-//      every earlier one (the pool pointers are plain loads, not the
-//      read-only path, so the block sees its own write);
-//   2. walk pages page_rows[t, 0 .. pos / ps] in order, staging the valid
-//      rows of one page (K and V, ps x hd, as float) in shared memory.
-//      Positions after pos in the last page are never loaded: a reused
-//      page's stale tail cannot reach the result, even when non-finite.
-//      No other page (the tail of the row, another slot's) is read;
-//   3. scores q . k * hd^-0.5 for its n_rep = H / Hkv query heads, one warp
-//      per (head, position) with a warp reduction over hd;
-//   4. an online softmax in float (running max, normaliser and the
-//      accumulator, rescaled by exp(m_old - m_new) each page), as the
-//      reference's walk does;
-//   5. o = acc / l, written in q's storage type.
-// Blocks touch disjoint memory: distinct slots own disjoint pages
-// (admission proves it) and a block reads and writes only its KV head's
-// slice of them.  A position outside the row (pos < 0 or pos >= max_pages
-// * ps), or a page id outside the pool among page_rows[t, 0 .. pos / ps]
-// (all checked before the cell write), makes the block write NaN to its
-// output and touch nothing else: the kernel cannot raise, and a NaN trips
-// the service's finiteness guard, which on the card raises.
+// scalar-prefetched and the pools resident in VMEM, walking the slot's
+// pages with an online softmax and repeating the KV heads to any H.  Here
+// the walk is split (flash-decoding): the grid is (KV head x head group,
+// slot, split), and split s walks the slot's listed pages s * pps ..
+// s * pps + pps - 1, pps = max(1, PA_SPLIT_POS / ps) (4 pages at page 8,
+// 32 positions), so 8 slots x 37 pages give several hundred blocks for 132
+// SMs.  The wrapper sizes the grid from page_rows.shape[1], never from pos
+// (no host sync); a split past the slot's position exits at once.  A block
+// serves up to PA_GROUP (4) query heads of its KV head, the KV head's
+// n_rep heads cut into ceil(n_rep / 4) groups as even as they can be (any
+// n_rep: more heads take more groups, so shared memory does not grow with
+// n_rep; each group re-reads the split's rows, from L2 after the first).
+// Splits of 32 positions, 256 threads and groups of 4 were the fastest
+// forms tried on an H100: splits of 16 or 64 positions, 128 threads, and
+// groups of 8 or 16 heads were each slower at 8 slots x 37 pages, groups
+// of 16 most of all at starcoder2-7b's 36 / 4 heads.  Per block:
+//   0. every page id of page_rows[t, 0 .. pos / ps] is checked against the
+//      pool and pos against the row (at most a few dozen ints); if one
+//      fails, the slot's output is NaN (written by split 0) and nothing is
+//      written to the pools: the kernel cannot raise, and a NaN trips the
+//      service's finiteness guard, which on the card raises;
+//   1. while the ids are checked, the split's valid positions (<= pos) of
+//      K and V are staged as float in shared memory, 16-byte loads on
+//      neighbouring lanes, each row loaded once (only if its own page id
+//      lies in the pool) and used for all the block's query heads.
+//      Positions after pos are never loaded, so a reused page's stale,
+//      even non-finite, tail cannot reach o; no unlisted page is read;
+//   2. after the check, exactly one block, the split holding page pos / ps
+//      of head group 0, writes the new K/V cell of its KV head; every block
+//      whose split covers position pos takes it from k_new / v_new
+//      directly, so no block reads what another block of the launch
+//      writes;
+//   3. scores q . k * hd^-0.5, a thread per (head, position);
+//   4. the split's softmax (max m, normaliser l) across a warp per head
+//      (shuffles), the weights kept in shared memory;
+//   5. acc = sum p v, a thread per (head, element).  A slot walked by one
+//      split writes o = acc / l at once; otherwise each split writes its
+//      partial (m, l, acc) to the wrapper's scratch, and the last split of
+//      each (slot, KV head, group) to arrive, chosen by an integer ticket
+//      that it then resets for the next launch, merges the partials in
+//      fixed split order, o = sum_s acc_s e^(m_s - M) / sum_s l_s
+//      e^(m_s - M), M = max_s m_s, in q's storage type.  No float atomics:
+//      two runs are bitwise equal.  One CUDA launch a layer.
+// Blocks of different slots touch disjoint memory: distinct slots own
+// disjoint pages (admission proves it).
 //
 // What bounds it: bytes.  Per launch it must read the valid K and V rows of
 // every walked page once (2 x positions x Hkv x hd x the storage size) and
-// q, and write o and the cell; its operations (4 per element of those
-// rows per query head) are far below the card's rate at n_rep = 2.  The
-// design reads each row once per KV head into shared memory and uses it
-// for all n_rep query heads.  It is a first, simple kernel: one launch per
-// layer, no TMA, no split over pages: a block walks its slot's pages one
-// after another with four block barriers per page and one thread per query
-// head running the softmax update serially, on bs x Hkv blocks (64 at 8
-// slots) for 132 SMs.  That design, not the bytes, sets its time.
+// q, and write o and the cell; its operations (4 per element of those rows
+// per query head) are far below the card's rate.  The split grid puts the
+// reads of one layer on every SM at once; the partials (float, n_rep x hd a
+// split) stay in L2.
 
 #include <cmath>
 #include <cstdint>
@@ -51,146 +67,234 @@
 
 namespace {
 
+// 16 bytes of T at src (aligned) as floats at dst
+__device__ __forceinline__ void pa_load16(float* dst, const float* src) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  dst[0] = x.x;
+  dst[1] = x.y;
+  dst[2] = x.z;
+  dst[3] = x.w;
+}
+
+__device__ __forceinline__ void pa_load16(float* dst,
+                                          const __nv_bfloat16* src) {
+  const uint4 x = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(PA_THREADS)
 gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
                   const T* __restrict__ v_new, T* k_pool, T* v_pool,
                   const int* __restrict__ page_rows,
-                  const int* __restrict__ pos, T* __restrict__ o, int n_kv,
-                  int n_rep, int hd, int ps, int max_pages, int n_pages,
+                  const int* __restrict__ pos, T* __restrict__ o,
+                  float* __restrict__ part_ml, float* __restrict__ part_acc,
+                  int* __restrict__ tickets, int n_kv, int n_rep, int hd,
+                  int ps, int max_pages, int n_pages, int pps, int vec,
                   float scale) {
+  // ceil(n_rep / PA_GROUP) groups of as even a size as they can have
+  const int n_groups = (n_rep + PA_GROUP - 1) / PA_GROUP;
+  const int g_size = (n_rep + n_groups - 1) / n_groups;
+  const int kvh = blockIdx.x / n_groups, grp = blockIdx.x - kvh * n_groups;
+  const int t = blockIdx.y, split = blockIdx.z, n_split = gridDim.z;
+  const int r0 = grp * g_size;                   // first head of the group
+  const int nr = min(g_size, n_rep - r0);        // heads of this block
+  const int npos = pps * ps;                     // positions a split
+  const int hp = hd + 1;                         // padded staged row
   extern __shared__ float smem[];
-  float* ks = smem;                 // ps x hd: the page's K rows
-  float* vs = ks + ps * hd;         // ps x hd: its V rows
-  float* qs = vs + ps * hd;         // n_rep x hd: the block's query heads
-  float* ss = qs + n_rep * hd;      // n_rep x ps: scores, then weights
-  float* ms = ss + n_rep * ps;      // n_rep: running max
-  float* ls = ms + n_rep;           // n_rep: running normaliser
-  float* cs = ls + n_rep;           // n_rep: this page's correction
+  float* ks = smem;                   // npos x hp: the split's K rows
+  float* vs = ks + npos * hp;         // npos x hp: its V rows
+  float* qs = vs + npos * hp;         // PA_GROUP x hd: the block's queries
+  float* ss = qs + PA_GROUP * hd;     // PA_GROUP x npos: scores, weights
+  float* ms = ss + PA_GROUP * npos;   // PA_GROUP: the split's max
+  float* ls = ms + PA_GROUP;          // PA_GROUP: its normaliser
+  __shared__ int merge;
 
-  const int kvh = blockIdx.x, t = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int n_items = n_rep * hd;
   const int64_t cell = (int64_t)n_kv * hd;      // one position of a page
   const int64_t page = (int64_t)ps * cell;
   const int* row = page_rows + (int64_t)t * max_pages;
-  const int64_t qo = ((int64_t)t * n_kv + kvh) * n_rep * hd;  // q and o
-  const int64_t kvo = ((int64_t)t * n_kv + kvh) * hd;         // new cells
+  const int64_t qo = ((int64_t)t * n_kv * n_rep + kvh * n_rep + r0) * hd;
+  const int64_t kvo = ((int64_t)t * n_kv + kvh) * hd;   // new cells
 
   const int p_t = pos[t];
   const bool pos_ok = p_t >= 0 && p_t < max_pages * ps;
   const int last = pos_ok ? p_t / ps : -1;
+  const int n_need = pos_ok ? last / pps + 1 : 0;   // splits holding a
+  const int p0 = split * npos;                        // position
+  const int nv = min(npos, p_t - p0 + 1);       // positions <= pos
   // 0. every page id the walk will read lies in the pool, or nothing is
-  // written: all threads check a share of row[0 .. last] and agree
+  // written: all threads check a share of row[0 .. last] and agree.
   bool mine = pos_ok;
-  for (int p = tid; p <= last; p += blockDim.x)
+  for (int p = tid; p <= last; p += PA_THREADS)
     mine = mine && row[p] >= 0 && row[p] < n_pages;
-  const bool ok = __syncthreads_and(mine);
-
-  // 1. the new cell first
-  if (ok) {
-    const int pg = row[last];
-    T* kc = k_pool + pg * page + (int64_t)(p_t % ps) * cell + kvh * hd;
-    T* vc = v_pool + pg * page + (int64_t)(p_t % ps) * cell + kvh * hd;
-    for (int d = tid; d < hd; d += blockDim.x) {
-      kc[d] = k_new[kvo + d];
-      vc[d] = v_new[kvo + d];
-    }
-  }
-  for (int i = tid; i < n_items; i += blockDim.x)
-    qs[i] = pa_to_float(q[qo + i]);
-  if (tid < n_rep) {
-    ms[tid] = -INFINITY;
-    ls[tid] = 0.0f;
-  }
-  __syncthreads();   // the cell is visible to the block before the walk
-
-  float acc[PA_ITEMS];
-#pragma unroll
-  for (int k = 0; k < PA_ITEMS; ++k) acc[k] = 0.0f;
-
-  for (int p = 0; ok && p <= last; ++p) {
-    const int pg = row[p];
-    const int nv = min(ps, p_t - p * ps + 1);   // positions <= pos
-    const T* kp = k_pool + pg * page + kvh * hd;
-    const T* vp = v_pool + pg * page + kvh * hd;
-    // 2. stage the valid rows only
-    for (int i = tid; i < nv * hd; i += blockDim.x) {
-      const int j = i / hd, d = i - j * hd;
-      ks[i] = pa_to_float(kp[j * cell + d]);
-      vs[i] = pa_to_float(vp[j * cell + d]);
-    }
-    __syncthreads();
-    // 3. scores, one warp per (head, position)
-    for (int w = warp; w < n_rep * nv; w += nwarps) {
-      const int r = w / nv, j = w - r * nv;
-      float a = 0.0f;
-      for (int d = lane; d < hd; d += 32) a += qs[r * hd + d] * ks[j * hd + d];
-      a = pa_warp_sum(a);
-      if (lane == 0) ss[r * ps + j] = a * scale;
-    }
-    __syncthreads();
-    // 4. the softmax state, one thread per query head
-    if (tid < n_rep) {
-      float* s = ss + tid * ps;
-      const float m_old = ms[tid];
-      float m_new = m_old;
-      for (int j = 0; j < nv; ++j) m_new = fmaxf(m_new, s[j]);
-      float sum = 0.0f;
-      for (int j = 0; j < nv; ++j) {
-        const float w = expf(s[j] - m_new);
-        s[j] = w;
-        sum += w;
+  // 1. meanwhile, stage the queries and the split's valid rows (position
+  // pos from k_new / v_new, the others from the listed pages), each row
+  // only if its own page id lies in the pool
+  if (split < n_need) {
+    for (int i = tid; i < nr * hd; i += PA_THREADS)
+      qs[i] = pa_to_float(q[qo + i]);
+    constexpr int VEC = 16 / sizeof(T);
+    const int cpr = vec ? hd / VEC : hd;        // loads a row
+    for (int i = tid; i < nv * cpr; i += PA_THREADS) {
+      const int j = i / cpr, c = i - j * cpr;
+      const int p = p0 + j;
+      const T* kr = k_new + kvo;
+      const T* vr = v_new + kvo;
+      if (p != p_t) {
+        const int id = row[p / ps];
+        if (id < 0 || id >= n_pages) continue;  // the vote below fails
+        const int64_t at = id * page + (p % ps) * cell + kvh * hd;
+        kr = k_pool + at;
+        vr = v_pool + at;
       }
-      const float corr = expf(m_old - m_new);   // 0 on the first page
-      ls[tid] = ls[tid] * corr + sum;
-      ms[tid] = m_new;
-      cs[tid] = corr;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < PA_ITEMS; ++k) {
-      const int i = tid + k * blockDim.x;
-      if (i < n_items) {
-        const int r = i / hd, d = i - r * hd;
-        float a = acc[k] * cs[r];
-        for (int j = 0; j < nv; ++j) a += ss[r * ps + j] * vs[j * hd + d];
-        acc[k] = a;
+      if (vec) {
+        pa_load16(ks + j * hp + c * VEC, kr + c * VEC);
+        pa_load16(vs + j * hp + c * VEC, vr + c * VEC);
+      } else {
+        ks[j * hp + c] = pa_to_float(kr[c]);
+        vs[j * hp + c] = pa_to_float(vr[c]);
       }
     }
-    __syncthreads();   // the next page overwrites ks, vs and ss
   }
-
-  // 5. the output
+  if (!__syncthreads_and(mine)) {
+    if (split == 0)
+      for (int i = tid; i < nr * hd; i += PA_THREADS)
+        o[qo + i] = pa_from_float<T>(NAN);
+    return;                       // every block of the slot returns here
+  }
+  if (split >= n_need) return;
+  // 2. the new cell, once every listed id has passed, by the one block
+  // whose split holds it (no block reads it from the pool: position pos
+  // comes from k_new / v_new)
+  if (split == n_need - 1 && grp == 0) {
+    const int64_t at = row[last] * page + (p_t % ps) * cell + kvh * hd;
+    for (int d = tid; d < hd; d += PA_THREADS) {
+      k_pool[at + d] = k_new[kvo + d];
+      v_pool[at + d] = v_new[kvo + d];
+    }
+  }
+  // 3. scores, a thread per (head, position), four partial sums
+  for (int i = tid; i < nr * nv; i += PA_THREADS) {
+    const int r = i / nv, j = i - r * nv;
+    const float* qr = qs + r * hd;
+    const float* kr = ks + j * hp;
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int d = 0;
+    for (; d + 4 <= hd; d += 4)
 #pragma unroll
-  for (int k = 0; k < PA_ITEMS; ++k) {
-    const int i = tid + k * blockDim.x;
-    if (i < n_items)
-      o[qo + i] = pa_from_float<T>(ok ? acc[k] / ls[i / hd] : NAN);
+      for (int u = 0; u < 4; ++u) a[u] = fmaf(qr[d + u], kr[d + u], a[u]);
+    for (; d < hd; ++d) a[0] = fmaf(qr[d], kr[d], a[0]);
+    ss[r * npos + j] = ((a[0] + a[1]) + (a[2] + a[3])) * scale;
   }
+  __syncthreads();
+  // 4. the split's softmax, a warp per head
+  for (int r = warp; r < nr; r += PA_THREADS / 32) {
+    float* s = ss + r * npos;
+    float m = -INFINITY;
+    for (int j = lane; j < nv; j += 32) m = fmaxf(m, s[j]);
+    m = pa_warp_max(m);
+    float l = 0.0f;
+    for (int j = lane; j < nv; j += 32) {
+      const float w = expf(s[j] - m);
+      s[j] = w;
+      l += w;
+    }
+    l = pa_warp_sum(l);
+    if (lane == 0) {
+      ms[r] = m;
+      ls[r] = l;
+    }
+  }
+  __syncthreads();
+  // 5. acc = sum p v, a thread per (head, element)
+  const bool single = n_need == 1;
+  const int64_t part = ((int64_t)t * n_kv + kvh) * n_rep + r0;  // (r, s)
+  for (int i = tid; i < nr * hd; i += PA_THREADS) {
+    const int r = i / hd, d = i - r * hd;
+    const float* w = ss + r * npos;
+    float a2[2] = {0.0f, 0.0f};
+    int j = 0;
+    for (; j + 2 <= nv; j += 2) {
+      a2[0] = fmaf(w[j], vs[j * hp + d], a2[0]);
+      a2[1] = fmaf(w[j + 1], vs[(j + 1) * hp + d], a2[1]);
+    }
+    if (j < nv) a2[0] = fmaf(w[j], vs[j * hp + d], a2[0]);
+    const float a = a2[0] + a2[1];
+    if (single)
+      o[qo + i] = pa_from_float<T>(a / ls[r]);
+    else
+      part_acc[((part + r) * n_split + split) * hd + d] = a;
+  }
+  if (single) return;
+  if (tid < nr) {
+    part_ml[((part + tid) * n_split + split) * 2] = ms[tid];
+    part_ml[((part + tid) * n_split + split) * 2 + 1] = ls[tid];
+  }
+  __threadfence();                // the partial is visible before the ticket
+  __syncthreads();
+  if (tid == 0) {
+    int* ticket = tickets + (int64_t)t * gridDim.x + blockIdx.x;
+    merge = atomicAdd(ticket, 1) == n_need - 1;
+    if (merge) *ticket = 0;       // every split of the group has arrived
+  }
+  __syncthreads();
+  if (!merge) return;
+  __threadfence();
+  // the merge, in split order
+  for (int i = tid; i < nr * hd; i += PA_THREADS) {
+    const int r = i / hd, d = i - r * hd;
+    const float* ml = part_ml + (part + r) * n_split * 2;
+    const float* acc = part_acc + (part + r) * n_split * hd + d;
+    float m = -INFINITY;
+    for (int s = 0; s < n_need; ++s) m = fmaxf(m, __ldcg(ml + 2 * s));
+    float l = 0.0f, a = 0.0f;
+    for (int s = 0; s < n_need; ++s) {
+      const float c = expf(__ldcg(ml + 2 * s) - m);
+      l += __ldcg(ml + 2 * s + 1) * c;
+      a += __ldcg(acc + s * hd) * c;
+    }
+    o[qo + i] = pa_from_float<T>(a / l);
+  }
+}
+
+// dynamic shared memory of one K10 block (kernel.py::smem_bytes repeats it)
+inline size_t gqa_smem_bytes(int hd, int ps, int pps) {
+  const size_t npos = (size_t)pps * ps;
+  return sizeof(float) * (2 * npos * (hd + 1) + PA_GROUP * hd
+                          + PA_GROUP * npos + 2 * PA_GROUP);
 }
 
 template <typename T>
 int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
            void* v_pool, const int* page_rows, const int* pos, void* o,
-           int bs, int n_kv, int n_rep, int hd, int ps, int max_pages,
-           int n_pages, float scale, void* stream) {
-  const size_t smem =
-      sizeof(float) * (2 * ps * hd + n_rep * hd + n_rep * ps + 3 * n_rep);
+           float* part_ml, float* part_acc, int* tickets, int bs, int n_kv,
+           int n_rep, int hd, int ps, int max_pages, int n_pages, int vec,
+           float scale, void* stream) {
+  if (hd < 1 || hd > PA_MAX_HD || ps < 1 || n_rep < 1)
+    return (int)cudaErrorInvalidValue;
+  const int pps = ps < PA_SPLIT_POS ? PA_SPLIT_POS / ps : 1;
+  const size_t smem = gqa_smem_bytes(hd, ps, pps);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         gqa_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid(n_kv, bs);
+  const int n_groups = (n_rep + PA_GROUP - 1) / PA_GROUP;
+  const dim3 grid(n_kv * n_groups, bs, (max_pages + pps - 1) / pps);
   gqa_decode_kernel<T><<<grid, PA_THREADS, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k_new, (const T*)v_new, (T*)k_pool, (T*)v_pool,
-      page_rows, pos, (T*)o, n_kv, n_rep, hd, ps, max_pages, n_pages, scale);
+      page_rows, pos, (T*)o, part_ml, part_acc, tickets, n_kv, n_rep, hd, ps,
+      max_pages, n_pages, pps, vec, scale);
   return (int)cudaGetLastError();
 }
-
 
 // K11: weight-absorbed MLA decode against the compressed latent pool.
 //
@@ -406,24 +510,32 @@ extern "C" {
 // q, o (bs, n_kv * n_rep, hd); k_new, v_new (bs, n_kv, hd); pools
 // (n_pages, ps, n_kv, hd), all contiguous in one storage type; page_rows
 // (bs, max_pages) and pos (bs) int32.  The pools are updated in place.
+// Scratch from the wrapper: part_ml (bs, n_kv, n_rep, n_split, 2) and
+// part_acc (bs, n_kv, n_rep, n_split, hd) float, n_split = ceil(max_pages
+// / max(1, PA_SPLIT_POS / ps)); tickets (bs, n_kv * ceil(n_rep /
+// PA_GROUP)) int32, zero before the launch and left zero.  vec: hd is a
+// multiple of 16 bytes' elements and every operand starts on 16 bytes.
 int pa_gqa_decode_f32(const void* q, const void* k_new, const void* v_new,
                       void* k_pool, void* v_pool, const int* page_rows,
-                      const int* pos, void* o, int bs, int n_kv, int n_rep,
-                      int hd, int ps, int max_pages, int n_pages, float scale,
-                      void* stream) {
+                      const int* pos, void* o, float* part_ml,
+                      float* part_acc, int* tickets, int bs, int n_kv,
+                      int n_rep, int hd, int ps, int max_pages, int n_pages,
+                      int vec, float scale, void* stream) {
   return launch<float>(q, k_new, v_new, k_pool, v_pool, page_rows, pos, o,
-                       bs, n_kv, n_rep, hd, ps, max_pages, n_pages, scale,
-                       stream);
+                       part_ml, part_acc, tickets, bs, n_kv, n_rep, hd, ps,
+                       max_pages, n_pages, vec, scale, stream);
 }
 
 int pa_gqa_decode_bf16(const void* q, const void* k_new, const void* v_new,
                        void* k_pool, void* v_pool, const int* page_rows,
-                       const int* pos, void* o, int bs, int n_kv, int n_rep,
-                       int hd, int ps, int max_pages, int n_pages,
-                       float scale, void* stream) {
+                       const int* pos, void* o, float* part_ml,
+                       float* part_acc, int* tickets, int bs, int n_kv,
+                       int n_rep, int hd, int ps, int max_pages, int n_pages,
+                       int vec, float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k_new, v_new, k_pool, v_pool, page_rows,
-                               pos, o, bs, n_kv, n_rep, hd, ps, max_pages,
-                               n_pages, scale, stream);
+                               pos, o, part_ml, part_acc, tickets, bs, n_kv,
+                               n_rep, hd, ps, max_pages, n_pages, vec, scale,
+                               stream);
 }
 
 }  // extern "C"

@@ -7,8 +7,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define PA_THREADS 128      // blockDim: four warps per (slot, KV head)
-#define PA_ITEMS 8          // accumulators a thread holds: n_rep * hd <= 1024
+#define PA_THREADS 256      // K10: blockDim, eight warps a block
+#define PA_GROUP 4          // K10: query heads a block serves at most
+#define PA_SPLIT_POS 32     // K10: positions a split walks (whole pages, at
+                            //      least one: max(1, 32 / ps) pages)
 #define PA_MAX_HD 256       // the wrappers refuse wider heads
 
 #define MLA_WARPS 8         // K11: query heads a block serves, a warp each

@@ -26,8 +26,8 @@ from repro_torch.kernels._binding import count
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "paged_attention.cu"   # includes csrc/paged_attention.cuh
 
-THREADS = 128      # PA_THREADS in csrc/paged_attention.cuh
-MAX_ITEMS = 8      # PA_ITEMS: n_rep * hd <= THREADS * MAX_ITEMS
+GROUP = 4          # PA_GROUP in csrc/paged_attention.cuh: heads a block
+SPLIT_POS = 32     # PA_SPLIT_POS: positions a split walks (whole pages)
 MAX_HD = 256       # PA_MAX_HD
 MAX_SMEM = 227 * 1024
 MLA_CHUNK = 32     # MLA_CHUNK: positions K11 stages at once
@@ -43,7 +43,7 @@ _LOAD_LOCK = threading.Lock()
 _LIB = None
 
 _P, _I, _F = _binding.P, _binding.I, _binding.F
-_ARGS = (_P,) * 8 + (_I,) * 7 + (_F, _P)
+_ARGS = (_P,) * 11 + (_I,) * 8 + (_F, _P)
 _MLA_ARGS = (_P,) * 9 + (_I,) * 7 + (_F, _P)
 _SIGNATURES = {"pa_gqa_decode_f32": _ARGS, "pa_gqa_decode_bf16": _ARGS,
                "pa_mla_decode_f32": _MLA_ARGS,
@@ -65,23 +65,75 @@ def lib() -> ctypes.CDLL:
     return _LIB
 
 
-def smem_bytes(n_rep: int, hd: int, page_size: int) -> int:
-    """Dynamic shared memory of one block (the launcher's formula)."""
-    return 4 * (2 * page_size * hd + n_rep * hd + n_rep * page_size
-                + 3 * n_rep)
+def pages_per_split(page_size: int) -> int:
+    """Listed pages one K10 split walks: max(1, SPLIT_POS // page_size)."""
+    return max(1, SPLIT_POS // page_size)
+
+
+def smem_bytes(hd: int, page_size: int) -> int:
+    """Dynamic shared memory of one K10 block (the launcher's formula):
+    the split's K and V rows as float (padded), the group's queries, its
+    scores and its softmax state.  It does not grow with n_rep."""
+    npos = pages_per_split(page_size) * page_size
+    return 4 * (2 * npos * (hd + 1) + GROUP * hd + GROUP * npos + 2 * GROUP)
+
+
+def check_shape(dtype: torch.dtype, n_heads: int, n_kv: int, hd: int,
+                page_size: int) -> None:
+    """Raise ValueError unless K10 takes these widths: float32 or bfloat16,
+    Hkv dividing H (any n_rep), 1 <= hd <= ``MAX_HD`` and a page whose
+    split fits in shared memory.  Needs no card."""
+    if dtype not in _SUFFIX:
+        raise ValueError(f"K10 takes float32 or bfloat16, got {dtype}")
+    if n_kv < 1 or n_heads < n_kv or n_heads % n_kv:
+        raise ValueError(f"K10 needs Hkv dividing H, got H {n_heads}, Hkv "
+                         f"{n_kv}")
+    if not 1 <= hd <= MAX_HD:
+        raise ValueError(f"K10 takes 1 <= hd <= {MAX_HD}, got hd {hd}")
+    if page_size < 1 or smem_bytes(hd, page_size) > MAX_SMEM:
+        raise ValueError(f"page_size {page_size} x hd {hd} does not fit in "
+                         f"shared memory")
+
+
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The device's merge tickets, at least ``n``: zero when made, and each
+    launch leaves them zero.  Launches that share them are ordered on one
+    stream, as the serving path's are."""
+    with _LOAD_LOCK:
+        buf = _TICKETS.get(device)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+            _TICKETS[device] = buf
+        return buf
 
 
 def paged_gqa(q, k_new, v_new, k_pool, v_pool, page_rows, pos, o) -> None:
     """o (bs, H, hd) <- the walk; the new cells land in the pools in
-    place.  All operands checked by the caller."""
+    place.  All operands checked by the caller.  The partials of the
+    split walk go to scratch allocated here; the grid is sized from
+    ``page_rows.shape[1]``, so nothing is read back from the card."""
     bs, n_heads, hd = q.shape
     n_pages, ps, n_kv, _ = k_pool.shape
+    n_rep = n_heads // n_kv
+    n_split = -(-page_rows.shape[1] // pages_per_split(ps))
+    part_ml = torch.empty((bs, n_kv, n_rep, n_split, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((bs, n_kv, n_rep, n_split, hd),
+                           dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, bs * n_kv * -(-n_rep // GROUP))
+    operands = (q, k_new, v_new, k_pool, v_pool, o)
+    vec = (hd * q.element_size() % 16 == 0
+           and all(x.data_ptr() % 16 == 0 for x in operands))
     ptr = _binding.ptr
     fn = getattr(lib(), f"pa_gqa_decode_{_SUFFIX[q.dtype]}")
     _binding.check(fn(ptr(q), ptr(k_new), ptr(v_new), ptr(k_pool),
-                      ptr(v_pool), ptr(page_rows), ptr(pos), ptr(o), bs,
-                      n_kv, n_heads // n_kv, hd, ps, page_rows.shape[1],
-                      n_pages, hd ** -0.5, _binding.stream()),
+                      ptr(v_pool), ptr(page_rows), ptr(pos), ptr(o),
+                      ptr(part_ml), ptr(part_acc), ptr(tickets), bs, n_kv,
+                      n_rep, hd, ps, page_rows.shape[1], n_pages, int(vec),
+                      hd ** -0.5, _binding.stream()),
                    "paged_gqa")
     count(LAUNCHES, "paged_gqa")
 

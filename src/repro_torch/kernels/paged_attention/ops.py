@@ -101,14 +101,7 @@ def check_operands(q, k_new, v_new, k_pool, v_pool, page_rows, pos,
             f"{tuple(k_new.shape)}, pools {tuple(k_pool.shape)}, page_rows "
             f"{tuple(page_rows.shape)}, pos {tuple(pos.shape)}, page_size "
             f"{page_size}")
-    n_rep = n_heads // n_kv
-    if hd > kernel.MAX_HD or n_rep * hd > kernel.THREADS * kernel.MAX_ITEMS:
-        raise ValueError(f"K10 takes hd <= {kernel.MAX_HD} and "
-                         f"H/Hkv * hd <= {kernel.THREADS * kernel.MAX_ITEMS}"
-                         f", got hd {hd}, H/Hkv {n_rep}")
-    if kernel.smem_bytes(n_rep, hd, ps) > kernel.MAX_SMEM:
-        raise ValueError(f"page_size {ps} x hd {hd} does not fit in shared "
-                         f"memory")
+    kernel.check_shape(q.dtype, n_heads, n_kv, hd, ps)
 
 
 def paged_gqa_decode(q, k_new, v_new, k_pool, v_pool, page_rows, pos, *,

@@ -5,7 +5,10 @@ The same numpy inputs go through the reference's Pallas kernel in
 interpret mode, its oracle ``ref.attention_ref``, its model-layout op
 ``ops.flash_attention_bshd`` (ragged S = 100) and the model's chunked
 attention ``models.layers.sdpa_chunked``, at tests/test_kernels_flash.py's
-shapes and tolerances: atol 2e-5 / rtol 1e-4 in float32, 2e-2 in bf16.
+shapes and tolerances: atol 2e-5 / rtol 1e-4 in float32, 2e-2 in bf16;
+also at the shapes the reference takes beyond those (hd 48 and 112,
+blocks 32 and 96, Sq != Sk), which ``kernel.check_shape`` (the card
+kernel's limits, checked without a card) accepts.
 """
 
 import numpy as np
@@ -68,6 +71,47 @@ def test_dtypes_match_reference_kernel(dtype):
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
     assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                     atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("sq,sk,hd,blocks", [(192, 192, 48, (32, 96)),
+                                             (192, 192, 112, (96, 32)),
+                                             (96, 192, 64, (32, 64)),
+                                             (192, 96, 32, (64, 32)),
+                                             (128, 256, 112, (128, 128))])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wider_shapes_match_reference_kernel_and_oracle(sq, sk, hd, blocks,
+                                                        causal):
+    """hd 48 and 112 (zamba2-7b's), blocks 32 and 96, Sq != Sk (causal
+    aligned at the top left): the reference's kernel takes them all, and
+    so does the port's card kernel (check_shape)."""
+    arrays = qkv_np(2, sq, sk, hd, seed=sq + 3 * sk + hd)
+    kernel.check_shape(torch.bfloat16, sq, sk, hd, *blocks)
+    kernel.check_shape(torch.float32, sq, sk, hd, *blocks)
+    got = kernel.flash_attention(*as_torch(arrays), causal=causal,
+                                 block_q=blocks[0], block_k=blocks[1])
+    assert got.shape == (2, sq, hd)
+    want = jkernel.flash_attention(*as_jax(arrays), causal=causal,
+                                   block_q=blocks[0], block_k=blocks[1],
+                                   interpret=True)
+    assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    oracle = jref.attention_ref(*as_jax(arrays), causal=causal)
+    assert_allclose(got.numpy(), np.asarray(oracle), **TOL)
+
+
+def test_check_shape_limits():
+    """The card kernel's limits, device-free: any hd up to 256 and any
+    blocks that divide Sq and Sk pass; hd > 256, fp16 and blocks that do
+    not divide raise."""
+    for hd in (1, 16, 20, 48, 50, 112, 192, 256):
+        kernel.check_shape(torch.bfloat16, 192, 96, hd, 32, 96)
+        kernel.check_shape(torch.float32, 4096, 4096, hd, 128, 128)
+    kernel.check_shape(torch.bfloat16, 100, 100, 64, 100, 50)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        kernel.check_shape(torch.bfloat16, 64, 64, 257, 64, 64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernel.check_shape(torch.float16, 64, 64, 64, 64, 64)
+    with pytest.raises(ValueError, match="multiples"):
+        kernel.check_shape(torch.bfloat16, 96, 64, 64, 64, 64)
 
 
 def bshd(seed, b=2, s=100, h=3, hd=32):

@@ -246,7 +246,11 @@ PAGED_SHAPES = [(4, 2, 32, 8, torch.float32),        # qwen3-1.7b reduced
                 (16, 8, 128, 8, torch.float32),      # qwen3-1.7b as published
                 (16, 8, 128, 16, torch.float32),
                 (16, 8, 128, 8, torch.bfloat16),
-                (16, 8, 128, 16, torch.bfloat16)]
+                (16, 8, 128, 16, torch.bfloat16),
+                (36, 4, 128, 8, torch.float32),      # starcoder2-7b: H/Hkv 9
+                (36, 4, 128, 16, torch.bfloat16),
+                (32, 2, 128, 8, torch.bfloat16),     # n_rep 16
+                (8, 2, 20, 8, torch.bfloat16)]       # rows not on 16 bytes
 
 
 
@@ -284,11 +288,27 @@ def test_paged_gqa_kernel_matches_plain_on_card(cuda, bs, n_heads, n_kv, hd,
 def test_paged_gqa_kernel_matches_plain_at_serving_depth(cuda, dtype):
     """Workload (b) of chip_smoke.py's serving phase: 8 slots of 40 pages
     at positions spread over 256-319 (288 among them), up to 40 pages
-    walked a slot."""
+    walked a slot, at qwen3-1.7b's heads and starcoder2-7b's."""
     pos = [256, 263, 264, 277, 288, 300, 311, 319]
-    ops_, rows, pos = pa_ref.random_case(8, 8, dtype, 21, cuda, max_pages=40,
-                                         pos=pos, n_heads=16, n_kv=8, hd=128)
-    paged_check(ops_, rows, pos, 8)
+    for n_heads, n_kv in ((16, 8), (36, 4)):
+        ops_, rows, p = pa_ref.random_case(8, 8, dtype, 21, cuda,
+                                           max_pages=40, pos=pos,
+                                           n_heads=n_heads, n_kv=n_kv, hd=128)
+        paged_check(ops_, rows, p, 8)
+
+
+def test_paged_gqa_kernel_repeats_bitwise(cuda):
+    """The split walk merges its partials in a fixed order, with no float
+    atomics: two launches on the same inputs give the same bits."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    pos = [256, 263, 264, 277, 288, 300, 311, 319]
+    ops_, _, _ = pa_ref.random_case(8, 8, torch.bfloat16, 21, cuda,
+                                    max_pages=40, pos=pos, n_heads=36,
+                                    n_kv=4, hd=128)
+    a, b = (pa_ops.paged_gqa_decode(*[x.clone() for x in ops_],
+                                    page_size=8)[0] for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -666,7 +686,9 @@ def test_pipeline_modes_on_card_match_float64_autograd(cuda, mode):
 
 FA_CASES = [(4, 128, 64, 64, 64), (4, 256, 64, 128, 64),
             (4, 512, 64, 128, 128), (2, 128, 32, 64, 128),
-            (2, 256, 16, 64, 64), (1, 256, 128, 128, 128)]
+            (2, 256, 16, 64, 64), (1, 256, 128, 128, 128),
+            (2, 192, 112, 32, 96), (1, 256, 256, 128, 64),
+            (2, 288, 112, 96, 32)]
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -694,6 +716,7 @@ def test_flash_kernel_matches_plain_on_card(cuda, bh, s, hd, bq, bk, dtype,
 
 def test_flash_op_on_card_pads_and_sums_to_one(cuda):
     from repro_torch.kernels.flash_attention import kernel as fa, ops as fops
+    from repro_torch.kernels.flash_attention import ref as far
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v = (torch.randn(2, 100, 3, 32, generator=g, device=cuda) * 0.5
                for _ in range(3))
@@ -706,9 +729,13 @@ def test_flash_op_on_card_pads_and_sums_to_one(cuda):
                               torch.ones(3, 64, 32, device=cuda),
                               block_q=64, block_k=64)
     assert_allclose(ones.cpu().numpy(), np.ones((3, 64, 32)), atol=1e-5)
-    with pytest.raises(ValueError, match="hd in"):
-        fa.flash_attention(*(torch.zeros(1, 64, 48, device=cuda)
-                             for _ in range(3)), block_q=64, block_k=64)
+    # hd 48 is built at 64 with the columns past 48 zero
+    q48, k48, v48 = (torch.randn(2, 64, 48, generator=g, device=cuda) * 0.5
+                     for _ in range(3))
+    got = fa.flash_attention(q48, k48, v48, block_q=64, block_k=64)
+    assert_allclose(got.cpu().numpy(),
+                    far.attention_ref(q48, k48, v48).cpu().numpy(),
+                    atol=2e-5, rtol=1e-4)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(*(torch.zeros(1, 64, 32, device=cuda,
                                          dtype=torch.float16)

@@ -27,11 +27,12 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 N_HEADS, HD, MAX_PAGES = 4, 32, 4
 
 
-def _case(bs, n_kv, ps, seed, pos=None, stale_tail=False):
+def _case(bs, n_kv, ps, seed, pos=None, stale_tail=False, n_heads=N_HEADS,
+          hd=HD):
     rows, pos, walked, n_pages = ref.random_layout(bs, ps, MAX_PAGES, 3,
                                                    seed, pos)
-    arrs = ref.random_operands(rows, pos, walked, n_pages, n_heads=N_HEADS,
-                               n_kv=n_kv, hd=HD, page_size=ps,
+    arrs = ref.random_operands(rows, pos, walked, n_pages, n_heads=n_heads,
+                               n_kv=n_kv, hd=hd, page_size=ps,
                                seed=seed + 1, stale_tail=stale_tail)
     return list(arrs) + [rows, pos]
 
@@ -52,14 +53,19 @@ def _same_pages(got, want, rows, pos, ps):
         np.testing.assert_array_equal(got[pages], want[pages])
 
 
-@pytest.mark.parametrize("n_kv", [4, 2, 1])           # H/Hkv 1, 2, 4
+# (Hkv, H, hd): H/Hkv 1, 2, 4 at the reduced widths; 9, starcoder2-7b as
+# published (36 / 4 heads of 128), and 16 (32 / 2), which K10 now takes
+@pytest.mark.parametrize("n_kv,n_heads,hd", [(4, 4, 32), (2, 4, 32),
+                                             (1, 4, 32), (4, 36, 128),
+                                             (2, 32, 128)],
+                         ids=["4", "2", "1", "36-4-128", "32-2-128"])
 @pytest.mark.parametrize("ps", [4, 8])
 @pytest.mark.parametrize("where", ["zero", "page_end", "page_start", "mid"])
-def test_plain_k10_matches_reference_oracle(n_kv, ps, where):
+def test_plain_k10_matches_reference_oracle(n_kv, n_heads, hd, ps, where):
     p = {"zero": 0, "page_end": ps - 1, "page_start": ps,
          "mid": ps + ps // 2 + 1}[where]
     arrs = _case(3, n_kv, ps, seed=10 * n_kv + ps,
-                 pos=[p, MAX_PAGES * ps - 1 - p, p])
+                 pos=[p, MAX_PAGES * ps - 1 - p, p], n_heads=n_heads, hd=hd)
     (o, kp, vp), (ro, rk, rv) = _both(arrs, ps)
     assert np.isfinite(o).all()
     assert_allclose(o, ro, **TOL)
@@ -121,6 +127,26 @@ def test_cpu_tensors_take_the_plain_version_and_others_raise():
     assert ops.PLAIN_CALLS["paged_gqa"] == 1
     assert ops.pages_occupied(torch.tensor([0, 3, 4, 9]), 4).tolist() == [
         1, 1, 2, 3]
+
+
+def test_k10_check_shape_limits():
+    """K10's limits, device-free: any H/Hkv (the limit H/Hkv * hd <= 1,024
+    is gone), hd up to 256; hd > 256, fp16, Hkv not dividing H and a page
+    too large for shared memory raise."""
+    from repro_torch.kernels.paged_attention import kernel
+    for h, hkv, hd in ((36, 4, 128), (32, 2, 128), (64, 1, 256),
+                       (16, 8, 128), (4, 2, 32), (8, 2, 20)):
+        for ps in (1, 8, 16, 64):
+            kernel.check_shape(torch.bfloat16, h, hkv, hd, ps)
+            kernel.check_shape(torch.float32, h, hkv, hd, ps)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        kernel.check_shape(torch.bfloat16, 4, 2, 257, 8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernel.check_shape(torch.float16, 4, 2, 32, 8)
+    with pytest.raises(ValueError, match="dividing"):
+        kernel.check_shape(torch.float32, 36, 8, 128, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.check_shape(torch.float32, 4, 2, 256, 512)
 
 
 # --- K11: the MLA flavour ----------------------------------------------------
