@@ -21,16 +21,23 @@ Phases, each fatal when it fails:
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
  2. build the kernels (nvcc, sm_90a) and report the build time;
  3. K1-K4 (geqrf, tsqrf, apply_qt, apply_tsqt) against their plain
-    PyTorch versions on the card, b in {16, 32, 64}, batch 1 and 8;
- 4. K5 (the QR task-table walk) against the plain walk, 256² / 32² tiles;
+    PyTorch versions on the card, b in {1, 7, 16, 32, 33, 64}, batch 1
+    and 8 (a zero column, a triangular and a zero tile among the 8);
+ 4. K5 (the QR task-table walk, one cooperative launch a plan) against the
+    plain walk at 256² / 32² tiles and on the 2048² / 64² plan, whose
+    longest phase (296 rows) is longer than the resident grid (264
+    blocks), one launch each;
  5. the QR path: run_qr at 2048²/64² in sequential, threaded, rounds and
     engine modes on the card — bitwise equal across modes, R valid (Gram
     identity, float64 LAPACK up to signs), the engine's R equal to the
     plain path's on the CPU within tolerance, and the launch counters
-    showing that every QR kernel ran and no plain version ran on the card;
+    showing that every QR kernel ran, the engine's plan took one walk
+    launch and no plain version ran on the card;
  6. QR timings (CUDA events, median of 3 after warm-up): run_qr per mode
-    at 2048² and engine mode at 4096², launches per plan, each kernel at
-    b = 64 beside its bound, its plain version and a PyTorch yardstick
+    at 2048² and engine mode at 4096², launches per plan (one), the walk
+    of the 2048² plan beside its barrier floor (the same table with every
+    row a QR_NOOP: 125 grid barriers, one launch), each kernel at b = 64
+    beside its bound, its plain version and a PyTorch yardstick
     (torch.geqrf, torch.ormqr, torch.linalg.qr — never called by the port);
  7. K6/K7 (acc_pair, acc_self) against their plain versions on the card,
     Ni, Nj in {1, 37, 58, 100, 128, 463}, with coincident particles and
@@ -120,8 +127,9 @@ Phases, each fatal when it fails:
 21. K12 (flash attention) against its plain version on the card: fp32 and
     bf16, causal and not, (BH, S, hd) in (4, 128, 64), (4, 256, 64), (4,
     512, 64), (2, 128, 32), (2, 256, 128), blocks 64 and 128, and
-    FA_WIDE: hd 48, 50, 112, 256, caller blocks 32, 96 and 256, Sq != Sk
-    (116 cases); the op on a ragged S = 100, v = ones; then the op itself
+    FA_WIDE: hd 48, 50, 112, 256, 320 and 512 (above 256 the chunked
+    path), caller blocks 32, 96 and 256, Sq != Sk (124 cases); the op on a
+    ragged S = 100, v = ones; then the op itself
     once at (B, S, H, hd) = (1, 4096, 16, 128), causal, bf16, launching
     K12 and no plain version;
 22. K12 timings there beside its bound (operations at the bf16 rate), its
@@ -151,6 +159,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 N_MAIN, B_MAIN = 2048, 64        # the paper's benchmark matrix and tile
+# K1-K4 tile sizes: edges of the kernels' 4-row and 4-thread blocks, the
+# reference tests' and run_qr's 32, and the paper's 64
+OP_SIZES = (1, 7, 16, 32, 33, 64)
 N_LARGE = 4096
 LANES = 4
 MODES = ("sequential", "threaded", "rounds", "engine")
@@ -283,21 +294,25 @@ def phase_ops(torch, np):
             np.testing.assert_allclose(g, w, err_msg=name, **OP_TOL)
             errs[name] = max(errs[name], float(np.abs(g - w).max()))
 
-    for b in (16, 32, 64):
+    for b in OP_SIZES:
         for n in (1, 8):
             x = [torch.tensor(rng.standard_normal((n, b, b)), dtype=torch.float32,
-                              device=dev) for _ in range(3)]
-            a, c1, c2 = x
-            if n == 8:                 # Householder guards: zero column,
-                a[1, :, 3] = 0.0       # already-triangular tile
-                a[2] = torch.triu(a[2])
+                              device=dev) for _ in range(4)]
+            a, c1, c2, r0 = x
+            r0 = torch.triu(r0)        # tsqrf's R: a random triangle (R = 0
+            #                            leaves T and V2 ill-conditioned in
+            #                            float32: no two orders agree there)
+            if n == 8:                 # Householder guards in each op's
+                for y in (a, c1, c2):  # dense input: zero column,
+                    y[1, :, min(3, b - 1)] = 0.0   # already-triangular
+                    y[2] = torch.triu(y[2])        # tile, zero tile
+                    y[3] = 0.0
             got = ops.geqrf(a)
             plain = [ref.geqrf_ref(t) for t in a]
             for i, p in enumerate(plain):
                 check("geqrf", [g[i] for g in got], p)
             rv, t = torch.stack([p[0] for p in plain]), torch.stack(
                 [p[2] for p in plain])
-            r0 = torch.triu(a)
             got = ops.tsqrf(r0, c1)
             plain = [ref.tsqrf_ref(r, y) for r, y in zip(r0, c1)]
             for i, p in enumerate(plain):
@@ -313,8 +328,9 @@ def phase_ops(torch, np):
                 check("apply_tsqt", [g[i] for g in got],
                       ref.apply_tsqt_ref(v2[i], t2[i], c1[i], c2[i]))
             torch.cuda.synchronize()
-    log("[ops] K1-K4 match their plain versions, b in (16, 32, 64), batch "
-        f"1 and 8, atol 2e-5 rtol 1e-4; max |err| {errs}")
+    log(f"[ops] K1-K4 match their plain versions, b in {OP_SIZES}, batch "
+        f"1 and 8 (zero column, triangular and zero tiles), atol 2e-5 rtol "
+        f"1e-4; max |err| {errs}")
     return errs
 
 
@@ -340,19 +356,26 @@ def stack_of(torch, a, b):
     return tiles, torch.zeros_like(tiles)
 
 
-def phase_walk(torch, np):
+def walk_tiles(torch, np, tables, a, b):
+    """K5 (one launch, as execute_plan hands it the table) and the plain
+    walk from the same stack; returns the worst tile's max|Δ|/max(1,
+    max|plain|), max|Δ| and the plain walk's ms (host clock, one run)."""
     from repro_torch import engine
-    n, b = 256, 32
-    tables = plan_tables(torch, n, b)
-    a = torch.tensor(np.random.default_rng(1).standard_normal((n, n)),
-                     dtype=torch.float32, device="cuda")
+    from repro_torch.kernels.qr_tile import kernel
     tiles, tmat = stack_of(torch, a, b)
     p_tiles, p_tmat = tiles.clone(), tmat.clone()
-    desc = torch.as_tensor(tables.desc, device="cuda")
-    bounds = tuple(int(x) for x in tables.phase_offsets)
-    engine.qr_round_fn(desc, bounds, (), (tiles, tmat))
-    engine.qr_walk_plain(tables.desc, bounds, p_tiles, p_tmat)
+    desc, phases = engine.upload_phases(tables.desc, tables.phase_offsets,
+                                        "cuda")
+    kernel.reset_counts()
+    engine.qr_round_fn(desc, phases, (), (tiles, tmat))
     torch.cuda.synchronize()
+    if kernel.LAUNCHES["qr_walk"] != 1 or any(kernel.PLAIN_CALLS.values()):
+        fail(f"walk at {a.shape[0]}²: launches {kernel.LAUNCHES}, plain "
+             f"{kernel.PLAIN_CALLS}")
+    t0 = time.perf_counter()
+    engine.qr_walk_plain(tables.desc, tables.phase_offsets, p_tiles, p_tmat)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     worst = worst_abs = 0.0
     for got, want in ((tiles, p_tiles), (tmat, p_tmat)):
         for g, w in zip(got, want):
@@ -362,12 +385,37 @@ def phase_walk(torch, np):
             worst_abs = max(worst_abs, d)
             worst = max(worst, d / max(1.0, float(w.abs().max())))
     if worst > WALK_TOL:
-        fail(f"walk vs plain walk: tile error {worst:.3e} > {WALK_TOL}")
-    log(f"[walk] K5 matches the plain walk at {n}² / {b}² tiles "
-        f"({tables.nr_items} rows, {tables.nr_phases} phases): worst tile "
-        f"max|Δ|/max(1,max|plain|) {worst:.3e} (bound {WALK_TOL}), max|Δ| "
-        f"{worst_abs:.3e}")
-    return {"abs": worst_abs, "rel": worst}
+        fail(f"walk vs plain walk at {a.shape[0]}² / {b}²: tile error "
+             f"{worst:.3e} > {WALK_TOL}")
+    return worst, worst_abs, plain_ms
+
+
+def phase_walk(torch, np):
+    """K5 against the plain walk at 256² / 32² and on the main path's
+    2048² / 64² plan, whose longest phase is longer than the resident
+    grid."""
+    from repro_torch.kernels.qr_tile import kernel
+    out = {"abs": 0.0, "rel": 0.0}
+    for n, b in ((256, 32), (N_MAIN, B_MAIN)):
+        tables = plan_tables(torch, n, b)
+        grid = kernel.walk_grid(b)
+        longest = int(tables.stats["max_phase_len"])
+        if n == N_MAIN and not longest > grid:
+            fail(f"the {n}² plan's longest phase ({longest} rows) fits the "
+                 f"resident grid ({grid} blocks): it no longer tests turns")
+        a = torch.tensor(np.random.default_rng(n + 1).standard_normal(
+            (n, n)), dtype=torch.float32, device="cuda")
+        worst, worst_abs, plain_ms = walk_tiles(torch, np, tables, a, b)
+        out["abs"], out["rel"] = (max(out["abs"], worst_abs),
+                                  max(out["rel"], worst))
+        log(f"[walk] K5 (one launch, {grid} resident blocks at b = {b}) "
+            f"matches the plain walk at {n}² / {b}² tiles ({tables.nr_items} "
+            f"rows, {tables.nr_phases} phases, longest {longest}): worst "
+            f"tile max|Δ|/max(1,max|plain|) {worst:.3e} (bound {WALK_TOL}), "
+            f"max|Δ| {worst_abs:.3e}; plain walk {plain_ms:.1f} ms")
+        if n == N_MAIN:
+            out["plain_ms"], out["grid"] = plain_ms, grid
+    return out
 
 
 def run_mode(torch, qr, a, mode):
@@ -400,6 +448,9 @@ def phase_main(torch, np):
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    if per_mode["engine"]["qr_walk"] != 1:
+        fail(f"the engine's plan took {per_mode['engine']['qr_walk']} walk "
+             f"launches, not one")
     for mode in MODES[1:]:
         if not torch.equal(rs[mode], rs["sequential"]):
             d = float((rs[mode] - rs["sequential"]).abs().max())
@@ -508,12 +559,19 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, card):
         lambda: run_mode(torch, qr, big, "engine")[1])
     del big
     tables = plan_tables(torch, N_MAIN, B_MAIN)
-    lib_qr = events_ms(torch, lambda: torch.linalg.qr(a, mode="r"), 3)
+    kernel.reset_counts()
+    run_mode(torch, qr, a, "engine")
+    per_plan = kernel.LAUNCHES["qr_walk"]
+    if (per_plan, per_plan_large) != (1, 1):
+        fail(f"walk launches per plan {per_plan} at {N_MAIN}², "
+             f"{per_plan_large} at {N_LARGE}²: not one")
+    lib_qr = median_of(lambda: events_ms(
+        torch, lambda: torch.linalg.qr(a, mode="r"), 3))
     log(f"[time] run_qr wall s (median of 3): "
         + ", ".join(f"{k} {v:.4f}" for k, v in walls.items())
         + f"; torch.linalg.qr {N_MAIN}² {lib_qr:.3f} ms; walk launches per "
-        f"plan {tables.nr_phases} at {N_MAIN}², {per_plan_large} at "
-        f"{N_LARGE}²; {card}")
+        f"plan {per_plan} at {N_MAIN}² ({tables.nr_phases} phases), "
+        f"{per_plan_large} at {N_LARGE}²; {card}")
 
     # per-op kernels at b = 64, batch 1 (the run_one shape) and at the
     # largest batch the rounds mode gives them
@@ -602,30 +660,32 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, card):
             f"({by}), plain {plain:.3f} ms, library "
             f"{'-' if lib is None else f'{lib:.5f}'} ms{extra}")
 
-    # K5: the whole walk of the 2048² plan, on fresh copies of the stack
-    desc = torch.as_tensor(tables.desc, device=dev)
-    bounds = tuple(int(x) for x in tables.phase_offsets)
+    # K5: the whole walk of the 2048² plan, on fresh copies of the stack,
+    # desc and offsets uploaded beforehand (as execute_plan does); beside
+    # it the barrier floor: the same table with every row a no-op
     init = stack_of(torch, a, b)
+    noops = tables.desc.copy()
+    noops[:, 0] = engine.QR_NOOP
 
-    def walk_once():
-        tiles, tmat = init[0].clone(), init[1].clone()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        engine.qr_round_fn(desc, bounds, (), (tiles, tmat))
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1)
+    def walk_ms_of(table):
+        desc, phases = engine.upload_phases(table, tables.phase_offsets, dev)
 
-    walk_once()
-    walk_ms = median_of(walk_once)
-    tiles, tmat = init[0].clone(), init[1].clone()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.qr_walk_plain(tables.desc, bounds, tiles, tmat)
-    torch.cuda.synchronize()
-    walk_plain_ms = (time.perf_counter() - t0) * 1e3
+        def once():
+            tiles, tmat = init[0].clone(), init[1].clone()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            engine.qr_round_fn(desc, phases, (), (tiles, tmat))
+            e1.record()
+            torch.cuda.synchronize()
+            return e0.elapsed_time(e1)
+
+        once()
+        return median_of(once)
+
+    walk_ms, floor_ms = walk_ms_of(tables.desc), walk_ms_of(noops)
+    walk_plain_ms = walk_err["plain_ms"]
     etypes = tables.desc[:, 0]
     names = ("geqrf", "apply_qt", "tsqrf", "apply_tsqt")   # QR_* order
     walk_flops = sum(2 * macs(nm, b) * int((etypes == k).sum())
@@ -639,11 +699,17 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, card):
                  "max_rel_err_per_tile": walk_err["rel"],
                  "main_path_rel_fro_vs_cpu": vs_cpu,
                  "ms": walk_ms, "plain_ms": walk_plain_ms, "bound_ms": wbms,
-                 "bound_by": wby, "library_ms": lib_qr})
+                 "bound_by": wby, "library_ms": lib_qr,
+                 "launches_per_plan": per_plan, "phases": tables.nr_phases,
+                 "barrier_floor_ms": floor_ms,
+                 "resident_grid": walk_err["grid"],
+                 "library": "torch.linalg.qr(mode='r'), 2048² fp32"})
     log(f"[time] qr_walk {N_MAIN}² plan ({tables.nr_items} rows, "
-        f"{tables.nr_phases} launches): {walk_ms:.3f} ms (median of 3), "
-        f"bound {wbms:.4f} ms ({wby}, {walk_flops / 1e9:.3f} GFLOP), plain "
-        f"walk {walk_plain_ms:.1f} ms (one run), torch.linalg.qr "
+        f"{tables.nr_phases} phases, {per_plan} launch, "
+        f"{walk_err['grid']} resident blocks): {walk_ms:.3f} ms (median of "
+        f"3), barrier floor (every row a no-op) {floor_ms:.4f} ms, bound "
+        f"{wbms:.4f} ms ({wby}, {walk_flops / 1e9:.3f} GFLOP), plain walk "
+        f"{walk_plain_ms:.1f} ms (one run, phase 4), torch.linalg.qr "
         f"{lib_qr:.3f} ms; {card}")
     return rows
 
@@ -2170,14 +2236,17 @@ PIPE_REL_TOL = 1e-5   # each mode vs a float64 autograd of the monolithic
 FA_SHAPES = ((4, 128, 64), (4, 256, 64), (4, 512, 64), (2, 128, 32),
              (2, 256, 128))   # hd 128 at blocks 128: the timed shape's width
 # (BH, Sq, Sk, hd, block_q, block_k): the shapes the reference takes beyond
-# those — hd 48, 112 (zamba2-7b's), 256 and 50 (rows not on 16 bytes: the
-# kernel's element-wise loads), caller blocks 32, 96 and 256, Sq != Sk; the
-# kernel's own tiles mask the ragged edges
+# those — hd 48, 112 (zamba2-7b's), 256, 50 (rows not on 16 bytes: the
+# kernel's element-wise loads), 320 and 512 (two chunks of the head), caller
+# blocks 32, 96 and 256, Sq != Sk; the kernel's own tiles mask the ragged
+# edges
 FA_WIDE = ((2, 256, 256, 48, 64, 128), (2, 256, 256, 112, 128, 64),
            (2, 256, 256, 256, 128, 128), (2, 192, 192, 112, 32, 96),
            (2, 768, 768, 64, 256, 96), (2, 192, 384, 128, 96, 128),
            (2, 384, 192, 64, 128, 32), (2, 160, 160, 50, 32, 32),
-           (1, 96, 96, 256, 96, 32))
+           (1, 96, 96, 256, 96, 32),
+           (2, 192, 128, 320, 64, 64),    # hd > 256: the chunked path
+           (1, 128, 192, 512, 64, 32))
 FA_TOL = {"float32": dict(atol=2e-5, rtol=1e-4),   # the reference's
           "bfloat16": dict(atol=2e-2, rtol=2e-2)}  # (test_kernels_flash.py)
 FA_ROW_TOL = 2e-2   # K12 vs plain at the timed shape, bf16: the worst row's

@@ -24,8 +24,9 @@ Execution modes, all dispatched through the port's backend registry
     rounds whose LARFT/SSRFT groups run as one batched launch over stacked
     tiles (the reference's vmap);
   * ``engine``     — the plan lowers to the ragged task table and the QR
-    walk kernel runs it, one launch per write-colored phase, over a
-    (ntiles, b, b) tile stack updated in place;
+    walk kernel runs it in one cooperative launch, a grid-wide barrier
+    between write-colored phases, over a (ntiles, b, b) tile stack
+    updated in place;
   * ``threaded``   — the paper's thread pool; on a card every worker
     launches on the caller's stream.
 
@@ -407,20 +408,15 @@ def run_qr(a, tile: int = 32, mode: str = "sequential", nr_queues: int = 1,
 def dispatch_counts(a, tile: int = 32, nr_queues: int = 1):
     """(host dispatches of the per-round path, engine walk launches) for
     ``a``'s QR plan.  Only ``a``'s shape is read: no tile is computed and
-    no device is touched.  The reference's second figure is 1 (one jitted
-    dispatch); here it is the number of write-colored phases, one walk
-    launch each (every phase of a QR table holds rows)."""
+    no device is touched.  The second figure is one, as the reference's
+    (one jitted dispatch): the walk is one cooperative launch a plan."""
     mt, nt = a.shape[0] // tile, a.shape[1] // tile
     sched, _ = make_qr_graph(mt, nt, nr_queues=nr_queues)
     plan = lower(sched, nr_lanes=max(nr_queues, 1))
     state = _TileState({(i, j): torch.empty(0)
                         for i in range(mt) for j in range(nt)})
-    registry = state.batch_registry()
-    host = engine.count_host_dispatches(plan, sched, registry)
-    tables = engine.lower_tables(plan, sched, registry,
-                                 arg_width=engine.QR_ARG_WIDTH,
-                                 row_access=engine.qr_row_access)
-    return host, tables.nr_phases
+    host = engine.count_host_dispatches(plan, sched, state.batch_registry())
+    return host, engine.QR_LAUNCHES_PER_PLAN
 
 
 def paper_counts(mt: int = 32, nt: int = 32):

@@ -8,12 +8,15 @@ write-colored phases (``descriptors.lower_tables``).  The Pallas walks
 relied on their grid running in order on one TPU core.  CUDA blocks of one
 launch run concurrently, so each family states what it keeps in order:
 
-* **QR** launches its walk kernel once per phase, in phase order, on one
-  stream: the rows of a phase touch pairwise-disjoint tiles, and the
-  launch boundary is the barrier between phases.  Within a launch each
-  row is one block that switches on ``etype`` over the same
+* **QR** walks a whole plan in ONE cooperative launch: every resident
+  block strides over the rows of a phase (the rows of a phase touch
+  pairwise-disjoint tiles), and a grid-wide barrier separates phases, so
+  the walk's time is the sum over its phases of the slowest tile op plus
+  a barrier (125 a 2048² plan), bound by the latency of one tile body.
+  Each row is run by one block that switches on ``etype`` over the same
   ``__device__`` tile functions the per-op kernels run
-  (``kernels/qr_tile/csrc``).
+  (``kernels/qr_tile/csrc``), whose chains the bodies keep short; tile
+  loads bypass L1, which is not coherent across SMs.
 * **Barnes-Hut** would need 2,148,304 phases at the paper's 1M particles,
   because a leaf's ~58 consecutive particle-cell rows all add into the
   same accelerations.  It walks launch groups instead
@@ -59,6 +62,7 @@ from .descriptors import LaunchGroups
 # to themselves; QR_NOOP is the defensive clamp branch (never in a table).
 QR_GEQRF, QR_LARFT, QR_TSQRF, QR_SSRFT, QR_NOOP = range(5)
 QR_ARG_WIDTH = 3       # rows: [etype, slot0, slot1, slot2] (tile indices)
+QR_LAUNCHES_PER_PLAN = 1   # the walk is one cooperative launch a plan
 
 # Barnes-Hut engine (work-item) types; BH_NOOP is the clamp branch.
 (BH_COM_LEAF, BH_COM_INNER, BH_SELF, BH_PP, BH_PC, BH_NOOP) = range(6)
@@ -128,17 +132,22 @@ def qr_walk_plain(desc, phase_bounds: Sequence[int], tiles: torch.Tensor,
             _plain_row(rows[q], tiles, tmat)
 
 
-def _check_table(desc, phase_bounds: Sequence[int], ntiles: int) -> None:
+def check_qr_table(desc, phase_bounds: Sequence[int], ntiles: int) -> None:
     """Refuse a table the walk would run out of bounds on: phase bounds
     must be ascending row offsets into ``desc`` and every slot a tile
-    index (one device sync for a CUDA ``desc``)."""
+    index.  ``desc`` is a host copy (array or CPU tensor): no device is
+    touched."""
+    desc = np.asarray(desc)
+    if desc.ndim != 2 or desc.shape[1] < 4:
+        raise ValueError(f"a QR table is (items, >= 4), not {desc.shape}")
     bounds = [int(b) for b in phase_bounds]
-    if bounds != sorted(bounds) or bounds[0] < 0 or bounds[-1] > len(desc):
-        raise ValueError(f"phase bounds {bounds[0]}..{bounds[-1]} do not "
+    if (not bounds or bounds != sorted(bounds) or bounds[0] < 0
+            or bounds[-1] > len(desc)):
+        raise ValueError(f"phase bounds {bounds[:1]}..{bounds[-1:]} do not "
                          f"index the {len(desc)} rows of the table")
-    slots = torch.as_tensor(desc)[:, 1:4]
-    if slots.numel():
-        lo, hi = torch.stack([slots.min(), slots.max()]).tolist()
+    slots = desc[:, 1:4]
+    if slots.size:
+        lo, hi = int(slots.min()), int(slots.max())
         if lo < 0 or hi >= ntiles:
             raise ValueError(f"table slots {lo}..{hi} outside the "
                              f"{ntiles}-tile stack")
@@ -149,28 +158,36 @@ def qr_round_fn(desc: torch.Tensor, phase_bounds: Sequence[int], statics,
     """Walk executor for the QR family:
     ``(desc, phase_bounds, (), (tiles, tmat)) -> (tiles, tmat)``, updated
     in place.  ``phase_bounds`` are absolute row offsets into ``desc``
-    (host integers); ``tiles``/``tmat`` are (ntiles, b, b) stacks in
-    column-major tile-index order; ``tmat[kk]`` holds the GEQRF T factor
-    and ``tmat[ik]`` the TSQRF one (disjoint indices, one buffer).
+    (host integers; on a card, the ``runner.Phases`` that records the
+    uploaded table); ``tiles``/``tmat`` are (ntiles, b, b)
+    stacks in column-major tile-index order; ``tmat[kk]`` holds the GEQRF
+    T factor and ``tmat[ik]`` the TSQRF one (disjoint indices, one
+    buffer).
 
-    On CUDA tensors: one ``qr_walk`` launch per phase, in order, on the
-    current stream (``desc`` must be the device copy, int32 contiguous).
-    On CPU tensors: ``qr_walk_plain``."""
+    On CUDA tensors: one ``qr_walk`` launch for all the phases, on the
+    current stream.  ``desc`` and ``phase_bounds`` must come from one
+    ``runner.upload_phases`` call; the table's range is checked on the
+    host copy the phases record, so the call makes no device sync.  On
+    CPU tensors: ``qr_walk_plain``."""
     del statics
     tiles, tmat = buffers
-    _check_table(desc, phase_bounds, tiles.shape[0])
     if tiles.device.type == "cpu":
+        check_qr_table(desc, phase_bounds, tiles.shape[0])
         kernel.count(kernel.PLAIN_CALLS, "qr_walk")
         qr_walk_plain(desc, phase_bounds, tiles, tmat)
         return tiles, tmat
     check_tiles(tiles, tmat)
-    if (desc.device != tiles.device or desc.dtype != torch.int32
-            or not desc.is_contiguous() or desc.shape[1] < 4):
-        raise ValueError("desc must be a contiguous int32 (items, 4) table "
-                         "on the tiles' device")
-    for p0, p1 in zip(phase_bounds, phase_bounds[1:]):
-        if p1 > p0:
-            kernel.qr_walk(desc, int(p0), int(p1), tiles, tmat)
+    if (getattr(phase_bounds, "device_desc", None) is not desc
+            or desc.device != tiles.device):
+        raise ValueError("on a card desc and its phases come from one "
+                         "runner.upload_phases call, on the tiles' device")
+    check_qr_table(phase_bounds.host_desc, phase_bounds, tiles.shape[0])
+    bounds = [int(b) for b in phase_bounds]
+    max_rows = max((b1 - b0 for b0, b1 in zip(bounds, bounds[1:])),
+                   default=0)
+    if max_rows > 0:
+        kernel.qr_walk(desc, phase_bounds.device_offsets, max_rows, tiles,
+                       tmat)
     return tiles, tmat
 
 

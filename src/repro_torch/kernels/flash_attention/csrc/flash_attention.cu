@@ -15,7 +15,8 @@
 // and this kernel masks its own ragged edges: keys >= Sk are -inf, rows
 // >= Sq are not stored, columns >= hd are zero on load and not stored.
 // The width HD is the next one built (32, 64, 96, 128, 192, 256) at or
-// above the true hd; the scale is the true hd's, an argument.
+// above the true hd, and above 256 the chunked path below; the scale is
+// the true hd's, an argument.
 //
 // bf16 (fa_mma_kernel): the tensor-core design.
 //   * A block is 8 warps; warp w owns query rows 16w .. 16w + 15 of the
@@ -56,6 +57,14 @@
 // memory a 64-key tile at a time, the products and the online softmax in
 // float, the same masking, skipping and tile order.
 //
+// hd > 256, float32 or bf16: the same CUDA-core kernel at HD 256 over
+// chunks of the head.  q.k^T is summed over head-dim chunks of 256, Q and
+// K staged chunk by chunk; the output's columns are split in chunks of
+// 256 across the grid's z axis, and each chunk's block recomputes the
+// scores.  bf16 is widened to float on staging and rounded once on the
+// store.  It is slow by about the chunk count squared; no configuration
+// of the repo goes above hd 192, and no model path calls the op.
+//
 // What bounds it: at S = 4096, hd = 128, causal, bf16 (the timed shape)
 // the operations, 68.7 GFLOP, take 0.069 ms at the card's bf16 tensor-core
 // rate (989 TFLOP/s); the 16.8 MB of q, k, v and o take 0.005 ms.  mma.sync
@@ -89,10 +98,37 @@ constexpr int f32_smem_bytes() {
   return (F32_BQ * (HD + 1) + F32_BK * (HD + 1) + F32_BQ * (F32_BK + 1)) * 4;
 }
 
-template <int HD>
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// rows r0 .. r0 + ROWS - 1, head columns c0 .. c0 + HD - 1 of a (n_rows,
+// hd) matrix into a ROWS x QP float tile, zero past n_rows and hd
+template <int ROWS, int HD, typename T>
+__device__ __forceinline__ void stage_f32(float* dst, const T* src, int r0,
+                                          int n_rows, int c0, int hd,
+                                          int tid) {
+  constexpr int QP = HD + 1;
+  for (int e = tid; e < ROWS * HD; e += FA_THREADS) {
+    const int r = e / HD, c = e % HD;
+    dst[r * QP + c] = (r0 + r < n_rows && c0 + c < hd)
+                          ? to_float(src[(int64_t)(r0 + r) * hd + c0 + c])
+                          : 0.f;
+  }
+}
+
+// HD is the width of one head-dim chunk: hd <= HD takes one chunk (Q
+// staged once); hd > HD sums q.k^T over (hd + HD - 1) / HD chunks and
+// writes output columns blockIdx.z * HD ..
+template <int HD, typename T>
 __global__ void __launch_bounds__(FA_THREADS, 1)
-fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
+fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
           int hd, int causal, float scale) {
   constexpr int BQ = F32_BQ, BK = F32_BK;
   constexpr int QP = HD + 1, PP = BK + 1;           // padded row strides
@@ -103,15 +139,12 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ps = kv + BK * QP;      // BQ x PP: the tile's softmax weights
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const float* qb = q + (int64_t)bh * sq * hd;
-  const float* kb = k + (int64_t)bh * sk * hd;
-  const float* vb = v + (int64_t)bh * sk * hd;
+  const int nc = (hd + HD - 1) / HD, c_out = blockIdx.z * HD;
+  const T* qb = q + (int64_t)bh * sq * hd;
+  const T* kb = k + (int64_t)bh * sk * hd;
+  const T* vb = v + (int64_t)bh * sk * hd;
 
-  for (int e = tid; e < BQ * HD; e += FA_THREADS) {
-    const int r = e / HD, c = e % HD;
-    qs[r * QP + c] = (q0 + r < sq && c < hd)
-                         ? qb[(int64_t)(q0 + r) * hd + c] : 0.f;
-  }
+  if (nc == 1) stage_f32<BQ, HD>(qs, qb, q0, sq, 0, hd, tid);
   float m[RI], l[RI], acc[RI][DJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -125,29 +158,28 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int j = 0; j < nk; ++j) {
     const int k0 = j * BK;
-    __syncthreads();   // the last tile's V reads are done (q is staged)
-    for (int e = tid; e < BK * HD; e += FA_THREADS) {
-      const int r = e / HD, c = e % HD;
-      kv[r * QP + c] = (k0 + r < sk && c < hd)
-                           ? kb[(int64_t)(k0 + r) * hd + c] : 0.f;
-    }
-    __syncthreads();
     float s[RI][CJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int c = 0; c < CJ; ++c) s[i][c] = 0.f;
+    for (int cc = 0; cc < nc; ++cc) {
+      __syncthreads();   // the last reads of kv (and of qs) are done
+      if (nc > 1) stage_f32<BQ, HD>(qs, qb, q0, sq, cc * HD, hd, tid);
+      stage_f32<BK, HD>(kv, kb, k0, sk, cc * HD, hd, tid);
+      __syncthreads();
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[RI], b[CJ];
+      for (int d = 0; d < HD; ++d) {
+        float a[RI], b[CJ];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) a[i] = qs[(ty + 16 * i) * QP + d];
+        for (int i = 0; i < RI; ++i) a[i] = qs[(ty + 16 * i) * QP + d];
 #pragma unroll
-      for (int c = 0; c < CJ; ++c) b[c] = kv[(tx + 16 * c) * QP + d];
+        for (int c = 0; c < CJ; ++c) b[c] = kv[(tx + 16 * c) * QP + d];
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int c = 0; c < CJ; ++c) s[i][c] = fmaf(a[i], b[c], s[i][c]);
+          for (int c = 0; c < CJ; ++c) s[i][c] = fmaf(a[i], b[c], s[i][c]);
+      }
     }
     const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > q0);
 #pragma unroll
@@ -183,11 +215,7 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int d = 0; d < DJ; ++d) acc[i][d] *= alpha;
     }
     __syncthreads();   // K reads done, p written
-    for (int e = tid; e < BK * HD; e += FA_THREADS) {
-      const int r = e / HD, c = e % HD;
-      kv[r * QP + c] = (k0 + r < sk && c < hd)
-                           ? vb[(int64_t)(k0 + r) * hd + c] : 0.f;
-    }
+    stage_f32<BK, HD>(kv, vb, k0, sk, c_out, hd, tid);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
@@ -202,15 +230,16 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int d = 0; d < DJ; ++d) acc[i][d] = fmaf(p[i], vv[d], acc[i][d]);
     }
   }
-  float* ob = o + (int64_t)bh * sq * hd;
+  T* ob = o + (int64_t)bh * sq * hd;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int d = 0; d < DJ; ++d) {
-      const int col = tx + 16 * d;
-      if (row < sq && col < hd) ob[(int64_t)row * hd + col] = acc[i][d] / den;
+      const int col = c_out + tx + 16 * d;
+      if (row < sq && col < hd)
+        store_as(ob + (int64_t)row * hd + col, acc[i][d] / den);
     }
   }
 }
@@ -486,19 +515,21 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launchers: the kernel's width HD is the next one built at or above hd
 
-template <int HD>
+// the CUDA-core kernel: float32 at every hd, bf16 above 256 (HD 256,
+// (hd + 255) / 256 output chunks on the grid's z axis)
+template <int HD, typename T = float>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
                int sq, int sk, int hd, int causal, float scale,
                void* stream) {
   constexpr int bytes = f32_smem_bytes<HD>();
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      fa_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (sq + F32_BQ - 1) / F32_BQ);
-  fa_kernel<HD><<<grid, FA_THREADS, bytes, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, hd,
-      causal, scale);
+  const dim3 grid(bh, (sq + F32_BQ - 1) / F32_BQ, (hd + HD - 1) / HD);
+  fa_kernel<HD, T><<<grid, FA_THREADS, bytes, (cudaStream_t)stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, hd, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -523,8 +554,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
 extern "C" {
 
 // q, o (bh, sq, hd); k, v (bh, sk, hd), all contiguous in one storage
-// type, 1 <= hd <= 256; any sq and sk (the kernel masks its ragged
-// edges).  vec: hd % 8 == 0 and every pointer on 16 bytes (bf16 only).
+// type, any hd >= 1 (above 256 the chunked CUDA-core kernel); any sq and
+// sk (the kernel masks its ragged edges).  vec: hd % 8 == 0 and every
+// pointer on 16 bytes (bf16 up to hd 256 only).
 int fa_forward_f32(const void* q, const void* k, const void* v, void* o,
                    int bh, int sq, int sk, int hd, int causal, int vec,
                    float scale, void* stream) {
@@ -536,9 +568,7 @@ int fa_forward_f32(const void* q, const void* k, const void* v, void* o,
     return launch_f32<64>(q, k, v, o, bh, sq, sk, hd, causal, scale, stream);
   if (hd <= 128)
     return launch_f32<128>(q, k, v, o, bh, sq, sk, hd, causal, scale, stream);
-  if (hd <= 256)
-    return launch_f32<256>(q, k, v, o, bh, sq, sk, hd, causal, scale, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_f32<256>(q, k, v, o, bh, sq, sk, hd, causal, scale, stream);
 }
 
 int fa_forward_bf16(const void* q, const void* k, const void* v, void* o,
@@ -563,7 +593,8 @@ int fa_forward_bf16(const void* q, const void* k, const void* v, void* o,
   if (hd <= 256)
     return launch_bf16<256>(q, k, v, o, bh, sq, sk, hd, causal, vec, scale,
                             stream);
-  return (int)cudaErrorInvalidValue;
+  return launch_f32<256, bf16>(q, k, v, o, bh, sq, sk, hd, causal, scale,
+                               stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """ctypes binding of the hand-written flash-attention kernel (K12,
 ``csrc/flash_attention.cu``): one block per (batch-head, query tile), K/V
 streamed through shared memory a key tile at a time, the online softmax in
-float; bf16 products on the tensor cores (``mma.sync``), float32 on the
-CUDA cores (the source's header says how).  It replaces the Pallas kernel
+float; bf16 products on the tensor cores (``mma.sync``) up to hd 256,
+float32 and any head wider than 256 on the CUDA cores (the source's header
+says how).  It replaces the Pallas kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention``
 (``_fa_kernel``).
 
@@ -33,7 +34,6 @@ SOURCE = CSRC / "flash_attention.cu"
 
 BLOCK_Q = 128
 BLOCK_K = 128
-MAX_HD = 256                 # the widest head the kernel is built for
 _SYMBOLS = {torch.float32: "fa_forward_f32", torch.bfloat16: "fa_forward_bf16"}
 
 # kernel launches, and plain-version calls taken because the tensors lay
@@ -75,13 +75,14 @@ def _check_blocks(sq: int, sk: int, block_q: int, block_k: int) -> None:
 def check_shape(dtype: torch.dtype, sq: int, sk: int, hd: int,
                 block_q: int = BLOCK_Q, block_k: int = BLOCK_K) -> None:
     """Raise ValueError unless the card kernel takes these operands: float32
-    or bfloat16, 1 <= hd <= ``MAX_HD``, and blocks that divide Sq and Sk
+    or bfloat16, a head of at least one column (any width: above 256 the
+    kernel sums over chunks of the head), and blocks that divide Sq and Sk
     (the reference's assertion).  Needs no card."""
     _check_blocks(sq, sk, block_q, block_k)
     if dtype not in _SYMBOLS:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {dtype}")
-    if not 1 <= hd <= MAX_HD:
-        raise ValueError(f"the kernel takes 1 <= hd <= {MAX_HD}, got {hd}")
+    if hd < 1:
+        raise ValueError(f"the kernel takes hd >= 1, got {hd}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,105 +1,120 @@
 // Tiled-QR kernels for Hopper (sm_90a): the four tile ops as batched
-// per-op kernels, and the task-table walk.
+// per-op kernels, and the task-table walk as one persistent launch.
 //
 // Replaces the TPU kernels
 //   src/repro/kernels/qr_tile/kernel.py::geqrf, tsqrf, apply_qt, apply_tsqt
 //     (one pallas_call per tile op; here blockIdx.x indexes a batch of
 //     tiles, so one launch serves both run_one and the batched rounds mode)
 //   src/repro/engine/megakernel.py::qr_round_fn -> _grid_walk + _qr_kernel
-//     (the ragged walk over [etype, s0, s1, s2] rows; here qr_walk runs one
-//     write-colored phase per launch, one block per row, and the host
-//     launches the phases in order on one stream: CUDA blocks of a launch
-//     run concurrently, so the launch boundary is what serialises phases,
-//     where the TPU relied on its grid running in order.)
+//     (the ragged walk over [etype, s0, s1, s2] rows, one dispatch a plan;
+//     here qr_walk is one cooperative launch a plan: its blocks stride
+//     over the rows of each write-colored phase and meet at a grid-wide
+//     barrier between phases.  The TPU relied on its grid running in
+//     order; CUDA blocks run concurrently, so the barrier is what
+//     serialises phases.)
 //
-// What bounds it on an H100: the apply ops (most tasks) are three b x b
-// products, about 6 b^3 flops over 4 (apply_qt) or 6 (apply_tsqt) tiles
-// moved; at b = 64 that is 24 and 16 flops per byte, either side of the
-// card's fp32 ridge (67 TFLOP/s over 3.35 TB/s, H100 SXM data sheet: 20
-// flops per byte; TF32 is off, so no tensor cores).  The panel
-// factorizations are b dependent column steps, each a reduction and a
-// barrier.  Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py,
-// PERF.md), every kernel here takes far longer than either roof: it is
-// bound by latency — one block per tile walks a chain of dependent shared-memory
-// loads and fmaf — and the walk also waits at each phase boundary (125
-// per 2048^2 plan).
-// What the design does about it, for now: each tile is staged once into
-// shared memory (padded, conflict-free) and every product reads it from
-// there, each thread accumulating its outputs with fmaf in registers;
-// a phase's rows run as concurrent blocks on the 132 SMs.  Register
-// tiling, more independent accumulators and a persistent walk are later
-// work (ROADMAP.md).
+// What bounds it on an H100: the walk's time is the sum over its phases
+// of the slowest row (125 phases a 2048^2 plan, 93 of them holding a panel
+// factorization), so it is bound by the latency of one tile body and of
+// the barrier, not by bytes (0.22 ms for the whole plan's operations at
+// the fp32 rate) or by flops.  What the design does about it: the tile
+// bodies (qr_tile.cuh) keep each chain short — panels in registers with
+// one block barrier a column and T built after the loop, products
+// register-blocked 4 x 4 a thread from float4 shared-memory reads — and
+// the walk is one launch, so no phase waits on a host launch.  Two blocks
+// fit an SM (six 18 KB tile slots at b = 64); the grid is every resident
+// block (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), capped at
+// the longest phase, and a phase with more rows than the grid takes them
+// in turns.  A tile a row reads may have been written by another SM in an
+// earlier phase, and L1 is not coherent across SMs: every tile and T load
+// bypasses L1 (__ldcg); the grid barrier orders the writes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "qr_tile.cuh"
 
-extern __shared__ float qr_smem[];
+namespace cg = cooperative_groups;
+
+extern __shared__ __align__(16) float qr_smem[];
 
 namespace {
 
 struct Slots {
   float* t[QR_TILES];
-  float *v, *d, *sc;
+  float *vbuf, *taus;
 };
 
 __device__ __forceinline__ Slots qr_slots(int b) {
   Slots s;
-  const int ts = b * (b + 1);
+  const int ts = qr_slot_floats(b);
   for (int k = 0; k < QR_TILES; ++k) s.t[k] = qr_smem + k * ts;
-  s.v = qr_smem + QR_TILES * ts;
-  s.d = s.v + b;
-  s.sc = s.d + 2 * b;   // s.d + b .. + 2b holds taus
+  s.vbuf = qr_smem + QR_TILES * ts;      // 2 x QR_MAX_B
+  s.taus = s.vbuf + 2 * QR_MAX_B;        // QR_MAX_B
   return s;
 }
 
+// global (b,b) row-major -> shared tile, every load in flight at once and
+// past L1 (another SM may have written the tile since this one read it)
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int b) {
-  for (int e = threadIdx.x; e < b * b; e += blockDim.x)
-    dst[(e / b) * (b + 1) + e % b] = src[e];
+  const int ld = qr_ld(b);
+  float x[QR_MAX_B * QR_MAX_B / QR_THREADS];
+#pragma unroll
+  for (int k = 0; k < QR_MAX_B * QR_MAX_B / QR_THREADS; ++k) {
+    const int e = threadIdx.x + k * QR_THREADS, i = e >> 6, c = e & 63;
+    x[k] = i < b && c < b ? __ldcg(src + i * b + c) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < QR_MAX_B * QR_MAX_B / QR_THREADS; ++k) {
+    const int e = threadIdx.x + k * QR_THREADS, i = e >> 6, c = e & 63;
+    if (i < b && c < b) dst[i * ld + c] = x[k];
+  }
 }
 
 __device__ __forceinline__ void store_tile(float* dst, const float* src,
                                            int b) {
-  for (int e = threadIdx.x; e < b * b; e += blockDim.x)
-    dst[e] = src[(e / b) * (b + 1) + e % b];
+  const int ld = qr_ld(b);
+#pragma unroll
+  for (int k = 0; k < QR_MAX_B * QR_MAX_B / QR_THREADS; ++k) {
+    const int e = threadIdx.x + k * QR_THREADS, i = e >> 6, c = e & 63;
+    if (i < b && c < b) dst[i * b + c] = src[i * ld + c];
+  }
 }
 
 __device__ __forceinline__ void store_vec(float* dst, const float* src,
                                           int b) {
-  for (int i = threadIdx.x; i < b; i += blockDim.x) dst[i] = src[i];
+  for (int i = threadIdx.x; i < b; i += QR_THREADS) dst[i] = src[i];
 }
 
-__global__ void __launch_bounds__(QR_THREADS)
+__global__ void __launch_bounds__(QR_THREADS, 2)
 geqrf_kernel(const float* a, float* rv, float* tau, float* t, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
   Slots s = qr_slots(b);
-  float* taus = s.d + b;
   load_tile(s.t[0], a + off, b);
   __syncthreads();
-  geqrf_tile(s.t[0], s.t[1], taus, s.v, s.d, s.sc, b);
+  geqrf_tile(s.t[0], s.t[1], s.taus, s.t[2], s.t[3], s.vbuf, b);
   store_tile(rv + off, s.t[0], b);
   store_tile(t + off, s.t[1], b);
-  store_vec(tau + (size_t)blockIdx.x * b, taus, b);
+  store_vec(tau + (size_t)blockIdx.x * b, s.taus, b);
 }
 
-__global__ void __launch_bounds__(QR_THREADS)
+__global__ void __launch_bounds__(QR_THREADS, 2)
 tsqrf_kernel(const float* r, const float* a, float* r1, float* v2,
              float* tau, float* t, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
   Slots s = qr_slots(b);
-  float* taus = s.d + b;
   load_tile(s.t[0], r + off, b);
   load_tile(s.t[1], a + off, b);
   __syncthreads();
-  tsqrf_tile(s.t[0], s.t[1], s.t[2], taus, s.v, s.d, s.sc, b);
+  tsqrf_tile(s.t[0], s.t[1], s.t[2], s.taus, s.t[3], s.t[4], s.vbuf, b);
   store_tile(r1 + off, s.t[0], b);
   store_tile(v2 + off, s.t[1], b);
   store_tile(t + off, s.t[2], b);
-  store_vec(tau + (size_t)blockIdx.x * b, taus, b);
+  store_vec(tau + (size_t)blockIdx.x * b, s.taus, b);
 }
 
-__global__ void __launch_bounds__(QR_THREADS)
+__global__ void __launch_bounds__(QR_THREADS, 2)
 apply_qt_kernel(const float* rv, const float* t, const float* c, float* out,
                 int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
@@ -108,11 +123,11 @@ apply_qt_kernel(const float* rv, const float* t, const float* c, float* out,
   load_tile(s.t[1], t + off, b);
   load_tile(s.t[2], c + off, b);
   __syncthreads();
-  apply_qt_tile(s.t[0], s.t[1], s.t[2], s.t[3], s.t[4], b);
+  apply_qt_tile(s.t[0], s.t[1], s.t[2], s.t[3], s.t[4], s.t[5], b);
   store_tile(out + off, s.t[2], b);
 }
 
-__global__ void __launch_bounds__(QR_THREADS)
+__global__ void __launch_bounds__(QR_THREADS, 2)
 apply_tsqt_kernel(const float* v2, const float* t, const float* c1,
                   const float* c2, float* o1, float* o2, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
@@ -127,25 +142,17 @@ apply_tsqt_kernel(const float* v2, const float* t, const float* c1,
   store_tile(o2 + off, s.t[3], b);
 }
 
-// One block per row of one write-colored phase: rows row0 .. row0 +
-// gridDim.x - 1 of desc (width ints each: [etype, s0, s1, s2]).  The write
-// coloring guarantees the rows of a phase touch disjoint tiles, so the
-// blocks may run in any order.  tiles and tmat are (ntiles, b, b) stacks
-// in column-major tile order, updated in place.
-__global__ void __launch_bounds__(QR_THREADS)
-qr_walk_kernel(const int* desc, int row0, int width, float* tiles,
-               float* tmat, int b) {
-  const int* row = desc + (size_t)(row0 + blockIdx.x) * width;
+// One row [etype, s0, s1, s2] of the table, by the whole block.
+__device__ __forceinline__ void qr_row(const int* row, float* tiles,
+                                       float* tmat, const Slots& s, int b) {
   const int et = row[0];
   const size_t bb = (size_t)b * b;
   const size_t s0 = row[1] * bb, s1 = row[2] * bb, s2 = row[3] * bb;
-  Slots s = qr_slots(b);
-  float* taus = s.d + b;
   switch (et) {
     case 0:  // GEQRF [kk]: factor the diagonal tile, stash T
       load_tile(s.t[0], tiles + s0, b);
       __syncthreads();
-      geqrf_tile(s.t[0], s.t[1], taus, s.v, s.d, s.sc, b);
+      geqrf_tile(s.t[0], s.t[1], s.taus, s.t[2], s.t[3], s.vbuf, b);
       store_tile(tiles + s0, s.t[0], b);
       store_tile(tmat + s0, s.t[1], b);
       break;
@@ -154,14 +161,14 @@ qr_walk_kernel(const int* desc, int row0, int width, float* tiles,
       load_tile(s.t[1], tmat + s0, b);
       load_tile(s.t[2], tiles + s1, b);
       __syncthreads();
-      apply_qt_tile(s.t[0], s.t[1], s.t[2], s.t[3], s.t[4], b);
+      apply_qt_tile(s.t[0], s.t[1], s.t[2], s.t[3], s.t[4], s.t[5], b);
       store_tile(tiles + s1, s.t[2], b);
       break;
     case 2:  // TSQRF [kk, ik]: R over the rect tile; kk keeps V below
       load_tile(s.t[0], tiles + s0, b);
       load_tile(s.t[1], tiles + s1, b);
       __syncthreads();
-      tsqrf_tile(s.t[0], s.t[1], s.t[2], taus, s.v, s.d, s.sc, b);
+      tsqrf_tile(s.t[0], s.t[1], s.t[2], s.taus, s.t[3], s.t[4], s.vbuf, b);
       store_tile(tiles + s0, s.t[0], b);
       store_tile(tiles + s1, s.t[1], b);
       store_tile(tmat + s1, s.t[2], b);
@@ -179,6 +186,27 @@ qr_walk_kernel(const int* desc, int row0, int width, float* tiles,
     default:  // QR_NOOP and anything out of range: no-op
       break;
   }
+  __syncthreads();   // the stores have read the slots the next row reuses
+}
+
+// The whole plan in one cooperative launch: phase p is rows offs[p] ..
+// offs[p + 1] - 1 of desc (width ints each: [etype, s0, s1, s2]); block
+// x takes rows offs[p] + x, + gridDim.x, ... in turns.  The write
+// coloring guarantees the rows of a phase touch disjoint tiles, so they
+// may run in any order and on any block; the grid barrier makes phase p's
+// stores visible before phase p + 1 loads.  tiles and tmat are (ntiles,
+// b, b) stacks in column-major tile order, updated in place.
+__global__ void __launch_bounds__(QR_THREADS, 2)
+qr_walk_kernel(const int* __restrict__ desc, const int* __restrict__ offs,
+               int nphases, int width, float* tiles, float* tmat, int b) {
+  cg::grid_group grid = cg::this_grid();
+  const Slots s = qr_slots(b);
+  for (int p = 0; p < nphases; ++p) {
+    const int q1 = offs[p + 1];
+    for (int q = offs[p] + blockIdx.x; q < q1; q += gridDim.x)
+      qr_row(desc + (size_t)q * width, tiles, tmat, s, b);
+    if (p + 1 < nphases) grid.sync();
+  }
 }
 
 size_t smem_bytes(int b) { return sizeof(float) * qr_smem_floats(b); }
@@ -193,22 +221,35 @@ extern "C" {
 // needs (over the 48 KB default); call once before any launch.
 int qr_init(void) {
   const int bytes = (int)smem_bytes(QR_MAX_B);
-  cudaFuncSetAttribute(geqrf_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  cudaFuncSetAttribute(tsqrf_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  cudaFuncSetAttribute(apply_qt_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  cudaFuncSetAttribute(apply_tsqt_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  cudaFuncSetAttribute(qr_walk_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const void* fns[] = {(const void*)geqrf_kernel, (const void*)tsqrf_kernel,
+                       (const void*)apply_qt_kernel,
+                       (const void*)apply_tsqt_kernel,
+                       (const void*)qr_walk_kernel};
+  for (const void* fn : fns) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 
 int qr_max_b(void) { return QR_MAX_B; }
 
 int qr_threads(void) { return QR_THREADS; }
+
+// Blocks of qr_walk resident on the current card at tile size b: the
+// largest grid a cooperative launch takes (0 when it cannot run at all).
+int qr_walk_grid(int b, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, qr_walk_kernel, QR_THREADS, smem_bytes(b));
+  *blocks = per_sm * sms;
+  return (int)err;
+}
 
 int qr_geqrf(const float* a, float* rv, float* tau, float* t, int n, int b,
              void* stream) {
@@ -239,10 +280,24 @@ int qr_apply_tsqt(const float* v2, const float* t, const float* c1,
   return (int)cudaGetLastError();
 }
 
-int qr_walk(const int* desc, int row0, int nrows, int width, float* tiles,
-            float* tmat, int b, void* stream) {
-  qr_walk_kernel<<<nrows, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(
-      desc, row0, width, tiles, tmat, b);
+// The whole plan: nphases phases, offs[0 .. nphases] the device row
+// offsets, max_rows the longest phase.  One cooperative launch of
+// min(resident blocks, max_rows) blocks; a refused launch (for example
+// cudaErrorCooperativeLaunchTooLarge) is returned, never retried.
+int qr_walk(const int* desc, const int* offs, int nphases, int max_rows,
+            int width, float* tiles, float* tmat, int b, void* stream) {
+  int resident = 0;
+  const int err = qr_walk_grid(b, &resident);
+  if (err != 0) return err;
+  if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int blocks = max_rows < resident ? (max_rows > 0 ? max_rows : 1)
+                                         : resident;
+  void* args[] = {(void*)&desc, (void*)&offs, (void*)&nphases,
+                  (void*)&width, (void*)&tiles, (void*)&tmat, (void*)&b};
+  const cudaError_t launch = cudaLaunchCooperativeKernel(
+      (const void*)qr_walk_kernel, dim3(blocks), dim3(QR_THREADS), args,
+      smem_bytes(b), (cudaStream_t)stream);
+  if (launch != cudaSuccess) return (int)launch;
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 // Tile kernels of the tiled QR (paper §4.1) as device functions, one (b,b)
-// float32 tile per thread block, b <= 64.
+// float32 tile per thread block of QR_THREADS threads, b <= 64.
 //
 // Replaces the bodies of the TPU kernels in src/repro/kernels/qr_tile/
 // kernel.py: geqrf_math, tsqrf_math, apply_qt_math and apply_tsqt_math.
@@ -7,13 +7,37 @@
 // functions, which are __noinline__ so that every entry point runs one
 // compiled copy of the arithmetic: with the same blockDim the four
 // execution modes are bitwise equal on the card, as they are in the
-// reference.  Every reduction has a fixed order (a per-lane strided sum,
-// then a shuffle tree read from lane 0), so a result never depends on
-// scheduling.
+// reference.  Every reduction has a fixed order (per-thread partial sums,
+// then a butterfly over a fixed group of lanes), so a result never depends
+// on scheduling, on gridDim or on which block runs a tile.
 //
-// Layout: tiles live in shared memory row-major with leading dimension
-// ld = b + 1; the pad puts the elements of a column in distinct banks, so
-// the column walks of the panel factorizations are free of bank conflicts.
+// What bounds them on an H100: latency, not bytes or flops.  A tile op
+// moves 16-24 KB and does 0.3-1.2 MFLOP, microseconds of work for one SM,
+// but the panels are b dependent column steps and the walk waits on the
+// slowest op of each phase.  The design shortens every chain:
+//   * panels (geqrf, tsqrf): the tile lives in registers, thread
+//     (m = tid / 4, q = tid % 4) holding rows q, q + 4, ... of column m.
+//     A column step is one block barrier: the pivot column's four threads
+//     form the Householder vector (norm by a two-shuffle butterfly) and
+//     publish it to shared memory; after the barrier every column's four
+//     threads take v.a by the same butterfly and update their column in
+//     registers.  Every shuffle runs with its warp converged, and the
+//     pivot's row tests are resolved at compile time (a switch on the
+//     warp-uniform j / 4).  Columns already done take the same dot, which
+//     is the Gram column V^T v_j; T is built after the loop from that Gram
+//     matrix, in 16-column blocks (T12 = -T1 G12 T2), not as a serial
+//     chain inside it;
+//   * applies (apply_qt, apply_tsqt): three b x b products, each thread a
+//     4 x 4 block of outputs in 16 independent accumulators, both
+//     operands read as float4 along rows of shared memory (V and V2 are
+//     also kept transposed, so every product is A^T B), no division or
+//     modulo in any inner loop.
+//
+// Layout: tiles live in shared memory row-major, qr_rows(b) rows with
+// leading dimension qr_ld(b) (a multiple of 8, 8 mod 32), so float4 rows
+// are aligned and the panels' column loads (rows q + 4r) fall in 32
+// distinct banks.  Columns and rows past b hold anything: they feed only
+// outputs past b, which are never stored.
 //
 // Conventions (LAPACK compact WY, as repro/kernels/qr_tile/ref.py):
 //   geqrf: A -> R on and above the diagonal, V strictly below (unit
@@ -28,209 +52,429 @@
 #include <cuda_runtime.h>
 
 #define QR_THREADS 256   // one blockDim for every entry point
-#define QR_MAX_B 64      // six padded fp32 tiles fit the 227 KB of smem
+#define QR_MAX_B 64      // a panel holds 4 threads x 16 rows of a column
 #define QR_TILES 6       // shared-memory tile slots of every kernel
+#define QR_TB 16         // column block of the T build
+
+__host__ __device__ inline int qr_ld(int b) { return (b + 23) / 32 * 32 + 8; }
+__host__ __device__ inline int qr_rows(int b) { return (b + 3) & ~3; }
+__host__ __device__ inline int qr_slot_floats(int b) {
+  return qr_rows(b) * qr_ld(b);
+}
 
 // floats of dynamic shared memory every entry point takes for tile size b:
-// QR_TILES padded tiles, then three b-vectors and four scalars
+// QR_TILES tile slots, two Householder-vector buffers and the taus
 __host__ __device__ inline int qr_smem_floats(int b) {
-  return QR_TILES * b * (b + 1) + 3 * b + 4;
+  return QR_TILES * qr_slot_floats(b) + 3 * QR_MAX_B;
 }
 
-// lane 0 holds the sum of x over the warp, in a fixed order
-__device__ __forceinline__ float qr_warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-  return x;
-}
+struct QrHouse {
+  float beta, tau, inv;
+};
 
 // Householder scalars for pivot alpha and below-pivot squared norm sigma2,
 // with the reference's guards: sigma2 == 0 gives tau = 0 and inv = 0, and
 // a zero denominator is replaced by 1 (kernel.py::_householder).
-__device__ __forceinline__ void qr_householder(float alpha, float sigma2,
-                                               float* sc) {
+__device__ __forceinline__ QrHouse qr_householder(float alpha, float sigma2) {
+  QrHouse h;
   if (sigma2 == 0.0f) {
-    sc[0] = alpha;
-    sc[1] = 0.0f;
-    sc[2] = 0.0f;
-    return;
+    h.beta = alpha;
+    h.tau = 0.0f;
+    h.inv = 0.0f;
+    return h;
   }
   const float sign = alpha >= 0.0f ? 1.0f : -1.0f;
-  const float beta = -sign * sqrtf(alpha * alpha + sigma2);
-  const float denom = alpha - beta;
-  sc[0] = beta;
-  sc[1] = (beta - alpha) / beta;
-  sc[2] = 1.0f / (denom == 0.0f ? 1.0f : denom);
+  h.beta = -sign * sqrtf(alpha * alpha + sigma2);
+  const float denom = alpha - h.beta;
+  h.tau = (h.beta - alpha) / h.beta;
+  h.inv = 1.0f / (denom == 0.0f ? 1.0f : denom);
+  return h;
 }
 
-// d[m] = sum_{i >= i0} v[i] X[i][m] for every column m != skip, one warp
-// per column (lanes stride the rows, lane 0 stores)
-__device__ __forceinline__ void qr_col_dots(const float* X, const float* v,
-                                            float* d, int i0, int skip,
-                                            int b) {
-  const int ld = b + 1;
-  const int lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  for (int m = threadIdx.x >> 5; m < b; m += nw) {
-    if (m == skip) continue;
-    float s = 0.0f;
-    for (int i = i0 + lane; i < b; i += 32) s = fmaf(v[i], X[i * ld + m], s);
-    s = qr_warp_sum(s);
-    if (lane == 0) d[m] = s;
+// sum of x over the four lanes of a column group; every lane gets the
+// same bits (float addition commutes)
+__device__ __forceinline__ float qr_quad_sum(float x, unsigned mask) {
+  x += __shfl_xor_sync(mask, x, 1);
+  x += __shfl_xor_sync(mask, x, 2);
+  return x;
+}
+
+// geqrf's pivot column j, in the lane of column group q: rows q + 4r with
+// r < K = j / 4 lie above row j, rows with r > K below it, and row q + 4K
+// is above, at or below j as q is <, = or > j % 4.  K is the same for the
+// whole warp, so qr_pivot_geqrf switches on it (one jump, no divergence)
+// into code whose row tests are all resolved at compile time: a chain of
+// run-time compare / predicated-op pairs on one predicate register
+// serialises the pivot step.
+// sigma2: this lane's sum of squares below row j; alpha: row q + 4K.
+template <int K>
+__device__ __forceinline__ void qr_tail_geqrf(const float (&a)[16], int q,
+                                              int jq, float& sigma2,
+                                              float& alpha) {
+  float s0 = q > jq ? a[K] * a[K] : 0.0f, s1 = 0.0f;
+#pragma unroll
+  for (int r = K + 1; r < 16; r += 2) {
+    s1 = fmaf(a[r], a[r], s1);
+    if (r + 1 < 16) s0 = fmaf(a[r + 1], a[r + 1], s0);
   }
+  sigma2 = s0 + s1;
+  alpha = a[K];
 }
 
-// T[r][j] = -tau * sum_{r <= c < j} T[r][c] u[c] for r < j; T[j][j] = tau
-__device__ __forceinline__ void qr_t_column(float* T, const float* u,
-                                            float tau, int j, int b) {
-  const int ld = b + 1;
-  for (int r = threadIdx.x; r < j; r += blockDim.x) {
-    float s = 0.0f;
-    for (int c = r; c < j; ++c) s = fmaf(T[r * ld + c], u[c], s);
-    T[r * ld + j] = -tau * s;
-  }
-  if (threadIdx.x == 0) T[j * ld + j] = tau;
-}
-
-__device__ __forceinline__ void qr_zero_tile(float* X, int b) {
-  for (int e = threadIdx.x; e < b * (b + 1); e += blockDim.x) X[e] = 0.0f;
-}
-
-// GEQRF: A (b,b) -> RV in place, T, taus.  v, d: b floats; sc: 4 floats.
-__device__ __noinline__ void geqrf_tile(float* A, float* T, float* taus,
-                                        float* v, float* d, float* sc,
-                                        int b) {
-  const int ld = b + 1;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  qr_zero_tile(T, b);
-  for (int j = 0; j < b; ++j) {
-    if (tid < 32) {                        // sigma2 over rows below j
-      float s = 0.0f;
-      for (int i = j + 1 + tid; i < b; i += 32) {
-        const float x = A[i * ld + j];
-        s = fmaf(x, x, s);
+// the pivot column's update: rows above j keep R (v = 0), row j takes
+// beta (v = 1), rows below take v = a * inv; v goes to vbuf
+template <int K>
+__device__ __forceinline__ void qr_pivot_geqrf(float (&a)[16], int q, int jq,
+                                               const QrHouse& h, float* vj) {
+#pragma unroll
+  for (int r = 0; r < 16; r += 4) {
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int rr = r + k;
+      if (rr < K) {
+        v[k] = 0.0f;
+      } else if (rr > K) {
+        v[k] = a[rr] * h.inv;
+        a[rr] = v[k];
+      } else {
+        v[k] = q < jq ? 0.0f : (q == jq ? 1.0f : a[rr] * h.inv);
+        a[rr] = q < jq ? a[rr] : (q == jq ? h.beta : v[k]);
       }
-      s = qr_warp_sum(s);
-      if (tid == 0) qr_householder(A[j * ld + j], s, sc);
+    }
+    *reinterpret_cast<float4*>(vj + r) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+#define QR_CASES(X) X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) \
+  X(10) X(11) X(12) X(13) X(14) X(15)
+
+__device__ __forceinline__ void qr_zero_slot(float* X, int b) {
+  for (int e = threadIdx.x; e < qr_slot_floats(b); e += QR_THREADS)
+    X[e] = 0.0f;
+}
+
+// T (upper triangular, zero below) from the Gram matrix G (G[c][j] =
+// v_c . v_j for c < j, V unit lower) and taus: the compact-WY
+// recurrence T[:j, j] = -tau_j T[:j, :j] G[:j, j], T[j][j] = tau_j, taken
+// in 16-column blocks — each diagonal block by its rows in parallel, then
+// block column k as T[:j0, J] = -T[:j0, :j0] (G[:j0, J] T[J, J]).  Y is
+// scratch.  T must be zero on entry; call after a barrier.
+__device__ __forceinline__ void qr_build_t(float* T, const float* G,
+                                           const float* taus, float* Y,
+                                           int b) {
+  const int ld = qr_ld(b);
+  const int tid = threadIdx.x;
+  if (tid < b) {                         // diagonal blocks: row r of its block
+    const int r = tid, end = min((r | (QR_TB - 1)) + 1, b);
+    float* tr = T + r * ld;
+    tr[r] = taus[r];
+    for (int j = r + 1; j < end; ++j) {
+      float s = 0.0f;
+#pragma unroll 4
+      for (int c = r; c < j; ++c) s = fmaf(tr[c], G[c * ld + j], s);
+      tr[j] = -taus[j] * s;
+    }
+  }
+  for (int j0 = QR_TB; j0 < b; j0 += QR_TB) {
+    const int nj = min(QR_TB, b - j0);
+    __syncthreads();                     // T[:j0, :j0] and T[J, J] are done
+    for (int e = tid; e < j0 * QR_TB; e += QR_THREADS) {
+      const int r = e / QR_TB, jj = e % QR_TB;   // powers of two: shifts
+      if (jj < nj) {                     // Y = G[:j0, J] T[J, J]
+        float s = 0.0f;
+#pragma unroll 4
+        for (int c = j0; c <= j0 + jj; ++c)
+          s = fmaf(G[r * ld + c], T[c * ld + j0 + jj], s);
+        Y[r * ld + jj] = s;
+      }
     }
     __syncthreads();
-    const float tau = sc[1], inv = sc[2];
-    for (int i = tid; i < b; i += nt)
-      v[i] = i < j ? 0.0f : (i == j ? 1.0f : A[i * ld + j] * inv);
-    __syncthreads();
-    // d[m]: V^T v for m < j (the T recurrence), v^T A for m > j
-    qr_col_dots(A, v, d, j, j, b);
-    __syncthreads();
-    const int w = b - j;                   // rows j.., columns j..
-    for (int e = tid; e < w * w; e += nt) {
-      const int i = j + e / w, m = j + e % w;
-      if (m > j)
-        A[i * ld + m] = fmaf(-v[i], tau * d[m], A[i * ld + m]);
-      else
-        A[i * ld + j] = i == j ? sc[0] : v[i];
+    for (int e = tid; e < j0 * QR_TB; e += QR_THREADS) {
+      const int r = e / QR_TB, jj = e % QR_TB;
+      if (jj < nj) {                     // T[:j0, J] = -T[:j0, :j0] Y
+        float s = 0.0f;
+#pragma unroll 4
+        for (int c = r; c < j0; ++c) s = fmaf(T[r * ld + c], Y[c * ld + jj], s);
+        T[r * ld + j0 + jj] = -s;
+      }
     }
-    qr_t_column(T, d, tau, j, b);
-    if (tid == 0) taus[j] = tau;
+  }
+  __syncthreads();
+}
+
+// The Householder panel, shared by geqrf (TS = false: A alone) and tsqrf
+// (TS = true: [R; A], the top reflector block e_j).  A's columns live in
+// registers (a[r] is row q + 4r of column m); R stays in shared memory,
+// where lane 0 of column m's group alone reads and writes its row j.
+// Iteration j applies reflector j - 1 to every column and forms reflector
+// j in the pivot column's group, then meets the block at one barrier.
+// Every shuffle runs with the whole warp converged (a shuffle inside a
+// branch taken by part of a warp takes a slow, serialised path), so every
+// group reduces its own column and the pivot group alone uses the result.
+// vbuf: 2 x 64 floats (v of step j in half j & 1, stored at q * 16 + r);
+// G, Y: scratch tiles; T: out; taus: b floats out.
+template <bool TS>
+__device__ __forceinline__ void qr_panel(float* R, float* A, float* T,
+                                         float* taus, float* G, float* Y,
+                                         float* vbuf, int b) {
+  const int ld = qr_ld(b);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int m = tid >> 2, q = tid & 3;
+  const bool own = m < b;
+  const unsigned all = 0xffffffffu;
+  float a[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int i = q + 4 * r;
+    a[r] = own && i < b ? A[i * ld + m] : 0.0f;
+  }
+  qr_zero_slot(T, b);
+  for (int j = 0;; ++j) {
+    if (j > 0) {                         // apply reflector p = j - 1
+      const int p = j - 1;
+      const float* vp = vbuf + (p & 1) * QR_MAX_B + q * 16;
+      const float tau = taus[p];
+      float v[16];
+#pragma unroll
+      for (int r = 0; r < 16; r += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(vp + r);
+        v[r] = x.x;
+        v[r + 1] = x.y;
+        v[r + 2] = x.z;
+        v[r + 3] = x.w;
+      }
+      // v . column m (rows < p: v = 0); tsqrf's w adds R[p][m]
+      const float rpm = TS && own && m > p && q == 0 ? R[p * ld + m] : 0.0f;
+      float d[4] = {rpm, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 16; ++r) d[r & 3] = fmaf(v[r], a[r], d[r & 3]);
+      const float dot = qr_quad_sum((d[0] + d[1]) + (d[2] + d[3]), all);
+      if (own && m > p) {                // the trailing update
+        if (TS) {                        // dot is w = R[p][m] + v . A[:, m]
+#pragma unroll
+          for (int r = 0; r < 16; ++r) a[r] = fmaf(-tau, v[r] * dot, a[r]);
+          if (q == 0) R[p * ld + m] = fmaf(-tau, dot, rpm);
+        } else {
+          const float tw = tau * dot;
+#pragma unroll
+          for (int r = 0; r < 16; ++r) a[r] = fmaf(-v[r], tw, a[r]);
+        }
+      } else if (own && m < p && q == 0) {
+        G[m * ld + p] = dot;             // a done column: the Gram column
+      }
+    }
+    if (j == b) break;
+    // reflector j, in the pivot column's warp only (a warp-uniform branch,
+    // so its shuffles run converged): each group reduces its column below
+    // row j (geqrf) or all of it (tsqrf); the pivot group's sum is used
+    if (tid >> 5 == j >> 3) {
+      const int jq = j & 3;
+      float s0 = 0.0f, s1 = 0.0f, mine = 0.0f;
+      if (TS) {                          // rows past b hold 0
+#pragma unroll
+        for (int r = 0; r < 16; r += 2) {
+          s0 = fmaf(a[r], a[r], s0);
+          s1 = fmaf(a[r + 1], a[r + 1], s1);
+        }
+        s0 += s1;
+        if (own && q == 0) mine = R[j * ld + m];   // lane 0 alone reads R
+      } else {
+        switch (j >> 2) {
+#define QR_TAIL(K) \
+  case K:          \
+    qr_tail_geqrf<K>(a, q, jq, s0, mine); \
+    break;
+          QR_CASES(QR_TAIL)
+#undef QR_TAIL
+        }
+      }
+      const float alpha = __shfl_sync(all, mine, (lane & ~3) | (TS ? 0 : jq));
+      const float sigma2 = qr_quad_sum(s0, all);
+      if (m == j) {                      // the pivot column's four threads
+        const QrHouse h = qr_householder(alpha, sigma2);
+        float* vj = vbuf + (j & 1) * QR_MAX_B + q * 16;
+        if (TS) {
+#pragma unroll
+          for (int r = 0; r < 16; r += 4) {
+            float v[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              v[k] = a[r + k] * h.inv;
+              a[r + k] = v[k];
+            }
+            *reinterpret_cast<float4*>(vj + r) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          }
+        } else {
+          switch (j >> 2) {
+#define QR_PIVOT(K) \
+  case K:           \
+    qr_pivot_geqrf<K>(a, q, jq, h, vj); \
+    break;
+            QR_CASES(QR_PIVOT)
+#undef QR_PIVOT
+          }
+        }
+        if (q == 0) {
+          taus[j] = h.tau;
+          if (TS) R[j * ld + j] = h.beta;
+        }
+      }
+    }
     __syncthreads();
   }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int i = q + 4 * r;
+    if (own && i < b) A[i * ld + m] = a[r];
+  }
+  __syncthreads();
+  qr_build_t(T, G, taus, Y, b);
+}
+
+// GEQRF: A (b,b) -> RV in place, T, taus.  G, Y: scratch tiles; vbuf:
+// 2 x 64 floats.
+__device__ __noinline__ void geqrf_tile(float* A, float* T, float* taus,
+                                        float* G, float* Y, float* vbuf,
+                                        int b) {
+  qr_panel<false>(nullptr, A, T, taus, G, Y, vbuf, b);
 }
 
 // TSQRF: [R; A] -> R' (upper triangle of R in place), V2 in place of A,
-// T, taus.  v, d: b floats; sc: 4 floats.
+// T, taus.  G, Y: scratch tiles; vbuf: 2 x 64 floats.
 __device__ __noinline__ void tsqrf_tile(float* R, float* A, float* T,
-                                        float* taus, float* v, float* d,
-                                        float* sc, int b) {
-  const int ld = b + 1;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  qr_zero_tile(T, b);
-  for (int j = 0; j < b; ++j) {
-    if (tid < 32) {                        // sigma2 over the dense column
-      float s = 0.0f;
-      for (int i = tid; i < b; i += 32) {
-        const float x = A[i * ld + j];
-        s = fmaf(x, x, s);
-      }
-      s = qr_warp_sum(s);
-      if (tid == 0) qr_householder(R[j * ld + j], s, sc);
-    }
-    __syncthreads();
-    const float tau = sc[1], inv = sc[2];
-    for (int i = tid; i < b; i += nt) v[i] = A[i * ld + j] * inv;
-    __syncthreads();
-    // d[m]: V2^T v for m < j (columns before j hold V2), v^T A for m > j
-    qr_col_dots(A, v, d, 0, j, b);
-    __syncthreads();
-    for (int m = j + 1 + tid; m < b; m += nt) d[m] += R[j * ld + m];  // w
-    __syncthreads();
-    const int w = b - j;                   // all rows, columns j..
-    for (int e = tid; e < b * w; e += nt) {
-      const int i = e / w, m = j + e % w;
-      A[i * ld + m] = m > j ? fmaf(-tau, v[i] * d[m], A[i * ld + m]) : v[i];
-    }
-    for (int m = j + tid; m < b; m += nt)
-      R[j * ld + m] = m > j ? fmaf(-tau, d[m], R[j * ld + m]) : sc[0];
-    qr_t_column(T, d, tau, j, b);
-    if (tid == 0) taus[j] = tau;
-    __syncthreads();
+                                        float* taus, float* G, float* Y,
+                                        float* vbuf, int b) {
+  qr_panel<true>(R, A, T, taus, G, Y, vbuf, b);
+}
+
+// acc = A^T B on this thread's 4 x 4 block (rows r0.., columns c0..):
+// acc[i][k] = sum_{t < n} A[t][r0 + i] B[t][c0 + k]
+__device__ __forceinline__ void qr_mm_tn(const float* A, const float* B,
+                                         int ld, int n, int r0, int c0,
+                                         float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+  const float* pa = A + r0;
+  const float* pb = B + c0;
+#pragma unroll 4
+  for (int t = 0; t < n; ++t, pa += ld, pb += ld) {
+    const float4 x = *reinterpret_cast<const float4*>(pa);
+    const float4 y = *reinterpret_cast<const float4*>(pb);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    const float ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(xs[i], ys[k], acc[i][k]);
   }
 }
 
-// LARFT apply: C <- C - V (T^T (V^T C)), V the unit-lower part of RV.
-// W1, W2: scratch tiles.
-__device__ __noinline__ void apply_qt_tile(const float* RV, const float* T,
-                                           float* C, float* W1, float* W2,
-                                           int b) {
-  const int ld = b + 1;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int e = tid; e < b * b; e += nt) {  // W1 = V^T C
-    const int c = e / b, m = e % b;
-    float s = C[c * ld + m];
-    for (int i = c + 1; i < b; ++i) s = fmaf(RV[i * ld + c], C[i * ld + m], s);
-    W1[c * ld + m] = s;
+// this thread's 4 x 4 output block of a product: rows 4 (tid / 16),
+// columns 4 (tid % 16); false when it lies wholly past b
+__device__ __forceinline__ bool qr_block(int b, int& r0, int& c0) {
+  r0 = (threadIdx.x >> 4) * 4;
+  c0 = (threadIdx.x & 15) * 4;
+  return r0 < b && c0 < b;
+}
+
+__device__ __forceinline__ void qr_store_block(float* X, int ld,
+                                               const float (&acc)[4][4],
+                                               int r0, int c0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(X + (r0 + i) * ld + c0) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+// X[r0 + i][c0 + k] -= acc[i][k] for the rows and columns inside b
+__device__ __forceinline__ void qr_sub_block(float* X, int ld, int b,
+                                             const float (&acc)[4][4],
+                                             int r0, int c0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (r0 + i < b && c0 + k < b) X[(r0 + i) * ld + c0 + k] -= acc[i][k];
+}
+
+// Walk the b x b elements so that a warp reads 8 rows x 4 columns and
+// writes the transpose 4 rows x 8 columns (both near conflict-free at
+// ld = 8 mod 32): fn(i, c) for every i, c < b.
+template <typename Fn>
+__device__ __forceinline__ void qr_each(int b, Fn fn) {
+  for (int e = threadIdx.x; e < QR_MAX_B * QR_MAX_B; e += QR_THREADS) {
+    const int i = (e & 7) | ((e >> 9) << 3), c = (e >> 3) & 63;
+    if (i < b && c < b) fn(i, c);
+  }
+}
+
+// LARFT apply: C <- C - V (T^T (V^T C)), V the unit-lower part of RV,
+// which becomes V in place (RV is a shared-memory copy).  VT, W1, W2:
+// scratch tiles.
+__device__ __noinline__ void apply_qt_tile(float* RV, const float* T,
+                                           float* C, float* VT, float* W1,
+                                           float* W2, int b) {
+  const int ld = qr_ld(b);
+  qr_each(b, [&](int i, int c) {
+    const float x = i > c ? RV[i * ld + c] : (i == c ? 1.0f : 0.0f);
+    RV[i * ld + c] = x;
+    VT[c * ld + i] = x;
+  });
+  __syncthreads();
+  int r0, c0;
+  const bool mine = qr_block(b, r0, c0);
+  float acc[4][4];
+  if (mine) {                            // W1 = V^T C
+    qr_mm_tn(RV, C, ld, b, r0, c0, acc);
+    qr_store_block(W1, ld, acc, r0, c0);
   }
   __syncthreads();
-  for (int e = tid; e < b * b; e += nt) {  // W2 = T^T W1
-    const int r = e / b, m = e % b;
-    float s = 0.0f;
-    for (int c = 0; c <= r; ++c) s = fmaf(T[c * ld + r], W1[c * ld + m], s);
-    W2[r * ld + m] = s;
+  if (mine) {                            // W2 = T^T W1
+    qr_mm_tn(T, W1, ld, b, r0, c0, acc);
+    qr_store_block(W2, ld, acc, r0, c0);
   }
   __syncthreads();
-  for (int e = tid; e < b * b; e += nt) {  // C -= V W2
-    const int i = e / b, m = e % b;
-    float s = W2[i * ld + m];
-    for (int c = 0; c < i; ++c) s = fmaf(RV[i * ld + c], W2[c * ld + m], s);
-    C[i * ld + m] -= s;
+  if (mine) {                            // C -= V W2
+    qr_mm_tn(VT, W2, ld, b, r0, c0, acc);
+    qr_sub_block(C, ld, b, acc, r0, c0);
   }
   __syncthreads();
 }
 
 // SSRFT apply: W = T^T (C1 + V2^T C2); C1 -= W; C2 -= V2 W.
-// W, X: scratch tiles.
+// W, V2T: scratch tiles.
 __device__ __noinline__ void apply_tsqt_tile(const float* V2, const float* T,
                                              float* C1, float* C2, float* W,
-                                             float* X, int b) {
-  const int ld = b + 1;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int e = tid; e < b * b; e += nt) {  // W = C1 + V2^T C2
-    const int c = e / b, m = e % b;
-    float s = 0.0f;
-    for (int i = 0; i < b; ++i) s = fmaf(V2[i * ld + c], C2[i * ld + m], s);
-    W[c * ld + m] = C1[c * ld + m] + s;
+                                             float* V2T, int b) {
+  const int ld = qr_ld(b);
+  qr_each(b, [&](int i, int c) { V2T[c * ld + i] = V2[i * ld + c]; });
+  int r0, c0;
+  const bool mine = qr_block(b, r0, c0);
+  float acc[4][4];
+  if (mine) {                            // W = C1 + V2^T C2
+    qr_mm_tn(V2, C2, ld, b, r0, c0, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc[i][k] = C1[(r0 + i) * ld + c0 + k] + acc[i][k];
+    qr_store_block(W, ld, acc, r0, c0);
   }
   __syncthreads();
-  for (int e = tid; e < b * b; e += nt) {  // X = T^T W
-    const int r = e / b, m = e % b;
-    float s = 0.0f;
-    for (int c = 0; c <= r; ++c) s = fmaf(T[c * ld + r], W[c * ld + m], s);
-    X[r * ld + m] = s;
+  if (mine) {                            // X = T^T W; C1 -= X
+    qr_mm_tn(T, W, ld, b, r0, c0, acc);
+    qr_sub_block(C1, ld, b, acc, r0, c0);
   }
+  __syncthreads();                       // every read of W is done
+  if (mine) qr_store_block(W, ld, acc, r0, c0);   // W <- X
   __syncthreads();
-  for (int e = tid; e < b * b; e += nt) {  // C1 -= X; C2 -= V2 X
-    const int i = e / b, m = e % b;
-    float s = 0.0f;
-    for (int c = 0; c < b; ++c) s = fmaf(V2[i * ld + c], X[c * ld + m], s);
-    C1[i * ld + m] -= X[i * ld + m];
-    C2[i * ld + m] -= s;
+  if (mine) {                            // C2 -= V2 X
+    qr_mm_tn(V2T, W, ld, b, r0, c0, acc);
+    qr_sub_block(C2, ld, b, acc, r0, c0);
   }
   __syncthreads();
 }

@@ -2,8 +2,10 @@
 
 ``csrc/qr_tile.cuh`` holds the four tile ops as ``__device__`` functions;
 ``csrc/qr_tile.cu`` wraps them in batched per-op kernels (one block per
-tile) and in the task-table walk ``qr_walk`` (one block per row of one
-write-colored phase), and exports a plain C launcher for each.  They
+tile) and in the task-table walk ``qr_walk`` (one cooperative launch a
+plan: every resident block strides over the rows of each write-colored
+phase, with a grid-wide barrier between phases), and exports a plain C
+launcher for each.  They
 replace the Pallas kernels ``repro/kernels/qr_tile/kernel.py::geqrf``,
 ``tsqrf``, ``apply_qt``, ``apply_tsqt`` and the walk
 ``repro/engine/megakernel.py::qr_round_fn``.
@@ -29,7 +31,8 @@ from repro_torch.kernels._binding import count
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "qr_tile.cu"     # includes csrc/qr_tile.cuh
 
-MAX_B = 64         # QR_MAX_B in csrc/qr_tile.cuh: six padded tiles in smem
+MAX_B = 64         # QR_MAX_B in csrc/qr_tile.cuh: 4 threads x 16 rows a
+#                    column of a panel held in registers
 
 # kernel launches by wrapper, and plain-version calls taken by a wrapper
 # because its tensor lay on the CPU; chip_smoke.py zeroes both before the
@@ -48,7 +51,8 @@ _SIGNATURES = {
     "qr_tsqrf": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "qr_apply_qt": (_P, _P, _P, _P, _I, _I, _P),
     "qr_apply_tsqt": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "qr_walk": (_P, _I, _I, _I, _P, _P, _I, _P),
+    "qr_walk": (_P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "qr_walk_grid": (_I, _P),
 }
 
 
@@ -101,10 +105,21 @@ def apply_tsqt(v2, t, c1, c2, o1, o2) -> None:
     count(LAUNCHES, "apply_tsqt")
 
 
-def qr_walk(desc, row0: int, row1: int, tiles, tmat) -> None:
-    """Walk rows ``[row0, row1)`` of the device ``desc`` (one write-colored
-    phase) over the (ntiles,b,b) ``tiles``/``tmat`` stacks, in place."""
-    _check(lib().qr_walk(_ptr(desc), row0, row1 - row0, desc.shape[1],
-                         _ptr(tiles), _ptr(tmat), tiles.shape[-1],
-                         _stream()), "qr_walk")
+def walk_grid(b: int) -> int:
+    """Blocks of the walk resident on the current card at tile size b: the
+    largest grid its cooperative launch takes."""
+    blocks = ctypes.c_int(0)
+    _check(lib().qr_walk_grid(b, ctypes.addressof(blocks)), "qr_walk_grid")
+    return blocks.value
+
+
+def qr_walk(desc, offsets, max_rows: int, tiles, tmat) -> None:
+    """Walk every phase of the device ``desc`` in one cooperative launch:
+    ``offsets`` is the int32 device copy of the phase row offsets
+    (nphases + 1), ``max_rows`` the longest phase (host integer), and the
+    (ntiles,b,b) ``tiles``/``tmat`` stacks are updated in place.  A
+    refused launch raises; there is no per-phase fallback."""
+    _check(lib().qr_walk(_ptr(desc), _ptr(offsets), offsets.numel() - 1,
+                         max_rows, desc.shape[1], _ptr(tiles), _ptr(tmat),
+                         tiles.shape[-1], _stream()), "qr_walk")
     count(LAUNCHES, "qr_walk")

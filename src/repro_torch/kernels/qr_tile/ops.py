@@ -46,8 +46,8 @@ def check_tiles(*xs: torch.Tensor) -> int:
             raise ValueError("kernel operands must be contiguous")
     if not 1 <= b <= kernel.MAX_B:
         raise ValueError(f"tile size {b} not supported: the CUDA kernels "
-                         f"take b <= {kernel.MAX_B} (six padded fp32 tiles "
-                         f"in shared memory)")
+                         f"take b <= {kernel.MAX_B} (a panel holds each "
+                         f"column in 4 threads x 16 rows of registers)")
     return b
 
 

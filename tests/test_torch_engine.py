@@ -167,3 +167,54 @@ def test_walk_refuses_out_of_range_tables(desc, bounds):
     with pytest.raises(ValueError):
         engine.qr_round_fn(torch.tensor(desc, dtype=torch.int32), bounds,
                            (), (tiles, tmat))
+
+
+def test_upload_phases_gives_the_walk_its_schedule():
+    """The walk's device schedule: desc and the phase offsets in one int32
+    buffer, the offsets ascending from row 0 to the last row, recorded in
+    the phases beside the host copy the walk checks."""
+    _, _, tab = tables_of(qr, engine, lower, 8, 8)
+    desc, phases = engine.upload_phases(tab.desc, tab.phase_offsets, "cpu")
+    offs = phases.device_offsets
+    assert phases.device_desc is desc
+    assert np.array_equal(phases.host_desc, tab.desc)
+    assert phases.host_desc.dtype == np.int32
+    assert isinstance(phases, tuple) and len(phases) == tab.nr_phases + 1
+    assert np.array_equal(desc.numpy(), tab.desc)
+    assert offs.dtype == torch.int32 and offs.tolist() == list(phases)
+    assert offs.tolist() == [int(b) for b in tab.phase_offsets]
+    assert offs[0] == 0 and offs[-1] == tab.nr_items
+    assert bool((offs[1:] >= offs[:-1]).all())
+    assert desc.untyped_storage().data_ptr() == \
+        offs.untyped_storage().data_ptr()     # one upload
+
+
+@pytest.mark.parametrize("row,bounds", [
+    ([engine.QR_GEQRF, 36, 0, 0], (0, 1)),        # slot past the stack
+    ([engine.QR_SSRFT, 0, 1, -2], (0, 1)),        # negative slot
+    ([engine.QR_GEQRF, 0, 0, 0], (0, 1, 0)),      # bounds not ascending
+    ([engine.QR_GEQRF, 0, 0, 0], (0, 2)),         # bounds past the rows
+])
+def test_host_check_refuses_bad_tables(row, bounds):
+    """``check_qr_table`` reads only the host copy: no card, no walk."""
+    with pytest.raises(ValueError):
+        engine.check_qr_table(np.array([row], dtype=np.int32), bounds, 36)
+    engine.check_qr_table(np.array([[engine.QR_GEQRF, 35, 0, 0]],
+                                   dtype=np.int32), (0, 1), 36)
+
+
+def test_execute_plan_checks_the_host_table_before_the_walk():
+    """execute_plan hands the walk a table whose range is checked on the
+    host before anything is walked; a good table is walked once."""
+    from repro_torch.kernels.qr_tile import kernel
+    _, _, tab = tables_of(qr, engine, lower, 2, 2)
+    _, _, bad = tables_of(qr, engine, lower, 2, 2)
+    bad.desc[:, 1] = 9                      # every row's first slot
+    tiles, tmat = torch.zeros((4, 4, 4)), torch.zeros((4, 4, 4))
+    kernel.reset_counts()
+    with pytest.raises(ValueError, match="outside the 4-tile stack"):
+        engine.execute_plan(bad, engine.qr_round_fn, (), (tiles, tmat))
+    assert kernel.PLAIN_CALLS["qr_walk"] == 0
+    assert not tiles.any() and not tmat.any()
+    engine.execute_plan(tab, engine.qr_round_fn, (), (tiles, tmat))
+    assert kernel.PLAIN_CALLS["qr_walk"] == 1

@@ -99,15 +99,15 @@ def test_wider_shapes_match_reference_kernel_and_oracle(sq, sk, hd, blocks,
 
 
 def test_check_shape_limits():
-    """The card kernel's limits, device-free: any hd up to 256 and any
-    blocks that divide Sq and Sk pass; hd > 256, fp16 and blocks that do
-    not divide raise."""
-    for hd in (1, 16, 20, 48, 50, 112, 192, 256):
+    """The card kernel's limits, device-free: any hd (above 256 the
+    chunked path) and any blocks that divide Sq and Sk pass; fp16 and
+    blocks that do not divide raise."""
+    for hd in (1, 16, 20, 48, 50, 112, 192, 256, 257, 320, 512):
         kernel.check_shape(torch.bfloat16, 192, 96, hd, 32, 96)
         kernel.check_shape(torch.float32, 4096, 4096, hd, 128, 128)
     kernel.check_shape(torch.bfloat16, 100, 100, 64, 100, 50)
-    with pytest.raises(ValueError, match="hd <= 256"):
-        kernel.check_shape(torch.bfloat16, 64, 64, 257, 64, 64)
+    with pytest.raises(ValueError, match="hd >= 1"):
+        kernel.check_shape(torch.bfloat16, 64, 64, 0, 64, 64)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kernel.check_shape(torch.float16, 64, 64, 64, 64, 64)
     with pytest.raises(ValueError, match="multiples"):

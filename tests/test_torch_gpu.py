@@ -9,7 +9,10 @@ rtol 1e-4, tests/test_kernels_qr.py; N-body: rtol 2e-4, atol 1e-5,
 tests/test_kernels_nbody.py).  Across the four execution modes the card's
 QR R is bitwise equal (one set of ``__device__`` functions, one
 blockDim); against the plain path on the CPU it agrees to atol
-1e-4·max|R|, rtol 1e-4 (two float32 summation orders).  The N-body
+1e-4·max|R|, rtol 1e-4 (two float32 summation orders).  The QR walk (K5),
+one cooperative launch a plan, is held to the plain walk per tile at
+``WALK_TOL`` (max|Δ| / max(1, max|plain|) 1e-4, chip_smoke.py's), also on
+a table whose phases are longer than the resident grid.  The N-body
 tolerance applies to each target's acceleration vector, not to each of its
 components: a component that cancels to ~1 out of terms of ~10³ keeps no
 relative precision in any float32 sum, and the kernel and its plain
@@ -68,19 +71,30 @@ def close(got, want):
         assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
 
 
-@pytest.mark.parametrize("b", [16, 32, 64])
+@pytest.mark.parametrize("b", [1, 7, 16, 32, 33, 64])
 @pytest.mark.parametrize("n", [1, 8])
 def test_kernels_match_plain_on_card(cuda, b, n):
-    a, c1, c2 = (rand((n, b, b), b + k, cuda) for k in range(3))
+    """K1-K4 against their plain versions.  At batch 8 each op's dense
+    input has the Householder guards: tile 1 a zero column, tile 2
+    already triangular, tile 3 zero (tau = 0 throughout).  tsqrf's R is a
+    random triangle: with R = 0 its T and V2 are ill-conditioned in
+    float32 (the plain version itself lies up to 1.2e-3 from float64 at
+    b = 64), so no two summation orders agree there to the limit."""
+    a, c1, c2, r = (rand((n, b, b), b + k, cuda) for k in range(4))
+    r = torch.triu(r)
+    if n == 8:
+        for x in (a, c1, c2):
+            x[1, :, min(3, b - 1)] = 0.0
+            x[2] = torch.triu(x[2])
+            x[3] = 0.0
     rv, tau, t = ops.geqrf(a)
-    r1, v2, tau2, t2 = ops.tsqrf(torch.triu(a), c1)
+    r1, v2, tau2, t2 = ops.tsqrf(r, c1)
     q1 = ops.apply_qt(rv, t, c2)
     s1, s2 = ops.apply_tsqt(v2, t2, c1, c2)
     torch.cuda.synchronize()
     for i in range(n):
         close((rv[i], tau[i], t[i]), ref.geqrf_ref(a[i]))
-        close((r1[i], v2[i], tau2[i], t2[i]),
-              ref.tsqrf_ref(torch.triu(a[i]), c1[i]))
+        close((r1[i], v2[i], tau2[i], t2[i]), ref.tsqrf_ref(r[i], c1[i]))
         close((q1[i],), (ref.apply_qt_ref(rv[i], t[i], c2[i]),))
         close((s1[i], s2[i]), ref.apply_tsqt_ref(v2[i], t2[i], c1[i], c2[i]))
 
@@ -97,18 +111,20 @@ def test_ops_check_operands(cuda):
         ops.geqrf(nc)
 
 
-def test_modes_bitwise_equal_and_match_cpu(cuda):
-    a = np.random.default_rng(1).standard_normal((256, 256)).astype(
+@pytest.mark.parametrize("n,b", [(256, 32), (512, 64)])
+def test_modes_bitwise_equal_and_match_cpu(cuda, n, b):
+    a = np.random.default_rng(1).standard_normal((n, n)).astype(
         np.float32)
     kernel.reset_counts()
-    rs = {m: qr.run_qr(a, tile=32, mode=m, nr_queues=4, device=cuda)[0]
+    rs = {m: qr.run_qr(a, tile=b, mode=m, nr_queues=4, device=cuda)[0]
           for m in MODES}
     torch.cuda.synchronize()
     assert all(v > 0 for v in kernel.LAUNCHES.values()), kernel.LAUNCHES
+    assert kernel.LAUNCHES["qr_walk"] == 1       # the engine's one plan
     assert all(v == 0 for v in kernel.PLAIN_CALLS.values())
     for m in MODES[1:]:
         assert torch.equal(rs[m], rs["sequential"]), m
-    want = qr.run_qr(a, tile=32, mode="engine", device="cpu")[0].numpy()
+    want = qr.run_qr(a, tile=b, mode="engine", device="cpu")[0].numpy()
     assert_allclose(rs["engine"].cpu().numpy(), want,
                     atol=1e-4 * np.abs(want).max(), rtol=1e-4)
 
@@ -126,6 +142,106 @@ def test_threaded_workers_launch_on_the_callers_stream(cuda):
     side.synchronize()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+WALK_TOL = 1e-4
+
+
+def qr_table(n, b):
+    mt = n // b
+    s, _ = qr.make_qr_graph(mt, mt, nr_queues=4)
+    st = qr._TileState({(i, j): torch.empty(0) for i in range(mt)
+                        for j in range(mt)})
+    return engine.lower_tables(lower(s, 4), s, st.batch_registry(),
+                               arg_width=engine.QR_ARG_WIDTH,
+                               row_access=engine.qr_row_access)
+
+
+def qr_stack(n, b, seed, device):
+    a = rand((n, n), seed, device)
+    mt = n // b
+    tiles = torch.stack([a[i * b:(i + 1) * b, j * b:(j + 1) * b]
+                         for j in range(mt) for i in range(mt)]).contiguous()
+    return tiles, torch.zeros_like(tiles)
+
+
+def walk_once(tab, init):
+    """One engine walk of ``tab`` over a copy of ``init``, as execute_plan
+    hands it (desc and offsets uploaded together)."""
+    tiles, tmat = (x.clone() for x in init)
+    desc, phases = engine.upload_phases(tab.desc, tab.phase_offsets,
+                                        tiles.device)
+    engine.qr_round_fn(desc, phases, (), (tiles, tmat))
+    torch.cuda.synchronize()
+    return tiles, tmat
+
+
+@pytest.mark.parametrize("n,b", [(256, 32), (1024, 16), (2048, 64)])
+def test_walk_one_launch_matches_plain_walk(cuda, n, b):
+    """K5 in one launch against the plain walk, per tile; at 1024²/16² the
+    longest phase (1,135 rows) is longer than the resident grid, so blocks
+    take a phase's rows in turns."""
+    tab = qr_table(n, b)
+    init = qr_stack(n, b, n + b, cuda)
+    kernel.reset_counts()
+    got = walk_once(tab, init)
+    assert kernel.LAUNCHES["qr_walk"] == 1
+    assert kernel.PLAIN_CALLS["qr_walk"] == 0
+    if n == 1024:
+        assert tab.stats["max_phase_len"] > kernel.walk_grid(b)
+    want = tuple(x.clone() for x in init)
+    engine.qr_walk_plain(tab.desc, tab.phase_offsets, *want)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        err = (g - w).abs().amax((1, 2)) / w.abs().amax((1, 2)).clamp_min(1)
+        assert float(err.max()) <= WALK_TOL
+
+
+@pytest.mark.parametrize("fault", ["slot", "bounds", "tuple", "copy"])
+def test_walk_refuses_bad_tables_on_card(cuda, fault):
+    """The card walk checks every call: a slot past the stack or bounds
+    past the rows (in the host copy its phases record), phases not made
+    by upload_phases, or a desc other than the uploaded one raise before
+    the launch, and nothing is written."""
+    tab = qr_table(256, 32)
+    if fault == "slot":
+        tab.desc[len(tab.desc) // 2, 2] = 64       # 64 tiles: 0..63
+    bounds = list(tab.phase_offsets)
+    if fault == "bounds":
+        bounds[-1] += 1
+    init = qr_stack(256, 32, 7, cuda)
+    tiles, tmat = (x.clone() for x in init)
+    desc, phases = engine.upload_phases(tab.desc, bounds, cuda)
+    if fault == "tuple":
+        phases = tuple(phases)
+    if fault == "copy":
+        desc = desc.clone()
+    kernel.reset_counts()
+    with pytest.raises(ValueError):
+        engine.qr_round_fn(desc, phases, (), (tiles, tmat))
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["qr_walk"] == 0
+    assert torch.equal(tiles, init[0]) and torch.equal(tmat, init[1])
+
+
+def test_walk_repeats_bitwise(cuda):
+    tab = qr_table(512, 64)
+    init = qr_stack(512, 64, 5, cuda)
+    first, again = walk_once(tab, init), walk_once(tab, init)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_walk_noop_table_leaves_state(cuda):
+    """A table of QR_NOOP rows (the barrier floor chip_smoke.py times) is
+    one launch and touches nothing."""
+    tab = qr_table(512, 64)
+    tab.desc[:, 0] = engine.QR_NOOP
+    init = qr_stack(512, 64, 6, cuda)
+    kernel.reset_counts()
+    got = walk_once(tab, init)
+    assert kernel.LAUNCHES["qr_walk"] == 1
+    assert all(torch.equal(x, y) for x, y in zip(got, init))
 
 
 NB_RTOL, NB_ATOL = 2e-4, 1e-5
@@ -706,6 +822,28 @@ def test_flash_kernel_matches_plain_on_card(cuda, bh, s, hd, bq, bk, dtype,
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == 1
     assert fa.PLAIN_CALLS["flash_attention"] == 0
+    want = far.attention_ref(q, k, v, causal=causal)
+    tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
+           else dict(atol=2e-5, rtol=1e-4))
+    assert got.dtype == dtype
+    assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    **tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [257, 320, 512])
+def test_flash_kernel_takes_wide_heads_on_card(cuda, hd, dtype, causal):
+    """hd > 256 (the chunked path), Sq != Sk, at the existing limits."""
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as far
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = (torch.randn(2, 192, hd, generator=g, device=cuda) * 0.5).to(dtype)
+    k, v = ((torch.randn(2, 128, hd, generator=g, device=cuda) * 0.5)
+            .to(dtype) for _ in range(2))
+    fa.reset_counts()
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 1
     want = far.attention_ref(q, k, v, causal=causal)
     tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
            else dict(atol=2e-5, rtol=1e-4))

@@ -112,8 +112,9 @@ class TestStructure:
 
     def test_plan_and_table_counts_at_paper_size(self):
         """The main path's structure at 2048²/64² with 4 lanes: 94 rounds,
-        125 write-colored phases (one walk launch each), largest phase
-        296 rows, 649 host dispatches in rounds mode."""
+        125 write-colored phases (one grid barrier each, all in one walk
+        launch), largest phase 296 rows, 649 host dispatches in rounds
+        mode."""
         from repro_torch import engine
         from repro_torch.core import lower
         s, _ = qr.make_qr_graph(32, 32, nr_queues=4)
@@ -126,4 +127,11 @@ class TestStructure:
         assert (plan.nr_rounds, t.nr_phases, t.nr_items,
                 t.stats["max_phase_len"]) == (94, 125, 11440, 296)
         host, launches = qr.dispatch_counts(np.empty((2048, 2048)), 64, 4)
-        assert (host, launches) == (649, 125)
+        assert (host, launches) == (649, 1)
+
+    def test_dispatch_counts_match_reference(self):
+        """One walk launch a plan, as the reference's one jitted dispatch,
+        and the same host dispatches of the per-round path."""
+        a = rand_matrix(256)
+        assert qr.dispatch_counts(a, 32, 4) == jqr.dispatch_counts(
+            jnp.asarray(a), 32, 4)

@@ -132,6 +132,40 @@ def test_householder_guards(case):
           **FACT)
 
 
+def _float32_excess(fn, seed, b=64):
+    """How far the plain float32 ``fn`` lies past the kernel-vs-plain
+    limit (FACT) from the same function in float64, on one seeded tile:
+    > 0 where float32 rounding alone misses the limit."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((b, b))
+    r = np.triu(rng.standard_normal((b, b)))
+    lo = fn(torch.tensor(a, dtype=torch.float32),
+            torch.tensor(r, dtype=torch.float32))
+    hi = fn(torch.tensor(a), torch.tensor(r))
+    return max(float((np.abs(x.double().numpy() - y.numpy())
+                      - (FACT["atol"] + FACT["rtol"] * np.abs(y.numpy())))
+                     .max()) for x, y in zip(lo, hi))
+
+
+@pytest.mark.parametrize("case,conditioned", [
+    ("geqrf, dense tile", True),
+    ("tsqrf, random triangle R", True),
+    ("tsqrf, R = 0", False),
+])
+def test_float32_conditioning_of_the_card_test_data(case, conditioned):
+    """Why the card tests (tests/test_torch_gpu.py, chip_smoke.py) give
+    tsqrf a random triangle R and put the zero tiles in the dense inputs:
+    at b = 64, over 40 seeded tiles, the plain float32 geqrf and tsqrf
+    with such an R stay inside the kernel-vs-plain limit of float64, so two
+    float32 orders can be held to it; tsqrf with R = 0 leaves T and V2
+    ill-conditioned, and float32 alone misses the limit there."""
+    fn = {"geqrf, dense tile": lambda a, r: ref.geqrf_ref(a),
+          "tsqrf, random triangle R": lambda a, r: ref.tsqrf_ref(r, a),
+          "tsqrf, R = 0": lambda a, r: ref.tsqrf_ref(0 * r, a)}[case]
+    worst = max(_float32_excess(fn, seed) for seed in range(40))
+    assert (worst <= 0) == conditioned, worst
+
+
 def test_ops_cpu_tensors_take_plain_path():
     """A CPU tensor gets the plain version, counted in PLAIN_CALLS and never
     in LAUNCHES; a stack of tiles loops the single-tile version, so the
