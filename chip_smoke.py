@@ -21,27 +21,30 @@ Phases, each fatal when it fails:
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
  2. build the kernels (nvcc, sm_90a) and report the build time;
  3. K1-K4 (geqrf, tsqrf, apply_qt, apply_tsqt) against their plain
-    PyTorch versions on the card, b in {1, 7, 16, 32, 33, 64}, batch 1
-    and 8 (a zero column, a triangular and a zero tile among the 8);
+    PyTorch versions on the card, b in {1, 7, 16, 32, 33, 64, 96, 128}
+    (past 64 the global-memory bodies), batch 1 and 8 (a zero column, a
+    triangular and a zero tile among the 8);
  4. K5 (the QR task-table walk, one cooperative launch a plan) against the
-    plain walk at 256² / 32² tiles and on the 2048² / 64² plan, whose
+    plain walk at 256² / 32² tiles, on the 2048² / 64² plan, whose
     longest phase (296 rows) is longer than the resident grid (264
-    blocks), one launch each;
+    blocks), and at 1024² / 128², one launch each;
  5. the QR path: run_qr at 2048²/64² in sequential, threaded, rounds and
     engine modes on the card — bitwise equal across modes, R valid (Gram
     identity, float64 LAPACK up to signs), the engine's R equal to the
     plain path's on the CPU within tolerance, and the launch counters
     showing that every QR kernel ran, the engine's plan took one walk
-    launch and no plain version ran on the card;
+    launch and no plain version ran on the card; then the same at
+    1024² / 128² (the global-memory bodies; its launches counted apart);
  6. QR timings (CUDA events, median of 3 after warm-up): run_qr per mode
     at 2048² and engine mode at 4096², launches per plan (one), the walk
     of the 2048² plan beside its barrier floor (the same table with every
-    row a QR_NOOP: 125 grid barriers, one launch), each kernel at b = 64
-    beside its bound, its plain version and a PyTorch yardstick
-    (torch.geqrf, torch.ormqr, torch.linalg.qr — never called by the port);
+    row a QR_NOOP: 125 grid barriers, one launch) and of the 1024² /
+    128² plan beside its own, each kernel at b = 64 and 128 beside its
+    bound, its plain version and a PyTorch yardstick (torch.geqrf,
+    torch.ormqr, torch.linalg.qr — never called by the port);
  7. K6/K7 (acc_pair, acc_self) against their plain versions on the card,
-    Ni, Nj in {1, 37, 58, 100, 128, 463}, with coincident particles and
-    zero masses;
+    Ni, Nj in {1, 30, 37, 58, 100, 128, 463, 1000}, with coincident
+    particles and zero masses, two launches bitwise equal;
  8. K8 (the Barnes-Hut walk) against the plain walk at 20k particles;
  9. the BH path at 100k particles (n_max 100, n_task 1000, seed 42): solve
     in the four modes on the card, pairwise within 1e-4 per particle, the
@@ -58,7 +61,7 @@ Phases, each fatal when it fails:
     graph, lowering and execution; the walk over the whole 1M plan; K6 and
     K7 at the path's shapes, each beside its bound and plain version (no
     single PyTorch call computes softened gravity, so they have no
-    library yardstick);
+    library yardstick), and K6 at 30 x 0 (no source: its launch floor);
 12. K10 (paged GQA decode) against its plain version on the card: the
     reduced and the published widths of qwen3-1.7b (16/8 heads) and
     starcoder2-7b (36/4), page 8 and 16, fp32 and bf16, bs 1, 3 and 8,
@@ -90,9 +93,11 @@ Phases, each fatal when it fails:
     within the qwen3 limit, a planted fault above it at every step;
 15. K11 (paged MLA decode) against its plain version on the card: H 4 /
     lat 32 / rope 16 (--reduced), lat 16 / rope 8, and H 128 / lat 512 /
-    rope 64 (published), page 8 and 16, fp32 and bf16, bs 1, 3 and 8; 8
-    slots at positions 256-319 (up to 40 pages); stale non-finite tails,
-    NaN unlisted pages, a second slot's pages bitwise untouched;
+    rope 64 (published), page 8 and 16, fp32 and bf16 (bf16: the
+    tensor-core kernel), H 6 / lat 40 / rope 12 and H 3 / lat 20 / rope 4
+    in bf16, bs 1, 3 and 8; 8 slots at positions 256-319 (up to 40
+    pages); stale non-finite tails, NaN unlisted pages, a second slot's
+    pages bitwise untouched, two bf16 launches bitwise equal;
 16. the MoE + MLA serving path: deepseek-v3-671b at full width, 5 layers
     (3 dense, 2 MoE of 256 routed + 1 shared experts), bf16, after the
     qwen3 model is freed, through GenerateService on "auto" for the same
@@ -103,10 +108,10 @@ Phases, each fatal when it fails:
     vs gather logits over 16 teacher-forced steps (the median step within
     a limit that every step of a planted fault exceeds); workload (a)
     token for token in an fp32 copy of 1 dense + 1 MoE layer;
-17. K11 timings at the path's shapes (28 layer pools in a CUDA graph)
-    beside its bound (bytes), its plain version and
-    F.scaled_dot_product_attention with one shared KV head (the yardstick,
-    never called by the port);
+17. K11 timings at the path's shapes, workload (b)'s 8 slots x 37 pages
+    and (a)'s 4 x 3 (28 layer pools in a CUDA graph), beside its bound
+    (bytes), its plain version and F.scaled_dot_product_attention with one
+    shared KV head (the yardstick, never called by the port);
 18. K9 (the pipeline F/B/U walk) against its plain walk on the card at
     (S, M, Bt, D) in (3, 6, 4, 8), (8, 64, 4, 32) (the reference's widths),
     S, M or Bt = 1, D = 40 and 100: every state buffer within rtol 1e-5,
@@ -159,9 +164,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 N_MAIN, B_MAIN = 2048, 64        # the paper's benchmark matrix and tile
+N_WIDE, B_WIDE = 1024, 128       # tiles past 64: the global-memory bodies
 # K1-K4 tile sizes: edges of the kernels' 4-row and 4-thread blocks, the
-# reference tests' and run_qr's 32, and the paper's 64
-OP_SIZES = (1, 7, 16, 32, 33, 64)
+# reference tests' and run_qr's 32, the paper's 64, and tiles past 64
+# (the global-memory bodies)
+OP_SIZES = (1, 7, 16, 32, 33, 64, 96, 128)
 N_LARGE = 4096
 LANES = 4
 MODES = ("sequential", "threaded", "rounds", "engine")
@@ -391,12 +398,12 @@ def walk_tiles(torch, np, tables, a, b):
 
 
 def phase_walk(torch, np):
-    """K5 against the plain walk at 256² / 32² and on the main path's
+    """K5 against the plain walk at 256² / 32², on the main path's
     2048² / 64² plan, whose longest phase is longer than the resident
-    grid."""
+    grid, and at 1024² / 128² (the global-memory bodies)."""
     from repro_torch.kernels.qr_tile import kernel
     out = {"abs": 0.0, "rel": 0.0}
-    for n, b in ((256, 32), (N_MAIN, B_MAIN)):
+    for n, b in ((256, 32), (N_MAIN, B_MAIN), (N_WIDE, B_WIDE)):
         tables = plan_tables(torch, n, b)
         grid = kernel.walk_grid(b)
         longest = int(tables.stats["max_phase_len"])
@@ -415,39 +422,50 @@ def phase_walk(torch, np):
             f"max|Δ| {worst_abs:.3e}; plain walk {plain_ms:.1f} ms")
         if n == N_MAIN:
             out["plain_ms"], out["grid"] = plain_ms, grid
+        if n == N_WIDE:
+            out["plain_ms_wide"], out["grid_wide"] = plain_ms, grid
     return out
 
 
-def run_mode(torch, qr, a, mode):
+def run_mode(torch, qr, a, mode, tile=B_MAIN):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r, _ = qr.run_qr(a, tile=B_MAIN, mode=mode, nr_queues=LANES,
+    r, _ = qr.run_qr(a, tile=tile, mode=mode, nr_queues=LANES,
                      device="cuda")
     torch.cuda.synchronize()
     return r, time.perf_counter() - t0
 
 
 def phase_main(torch, np):
+    """run_qr at 2048² / 64² (the main path: its launches are the kernels
+    line's), then at 1024² / 128² (the global-memory bodies), each in the
+    four modes with every check."""
+    a, total, vs_cpu = qr_modes(torch, np, N_MAIN, B_MAIN, "main")
+    wide = qr_modes(torch, np, N_WIDE, B_WIDE, "main-wide")
+    return a, total, vs_cpu, {"launches": wide[1], "vs_cpu": wide[2]}
+
+
+def qr_modes(torch, np, n, b, tag):
     from repro_torch.apps import qr
     from repro_torch.kernels.qr_tile import kernel
-    a_np = np.random.default_rng(2048).standard_normal(
-        (N_MAIN, N_MAIN)).astype(np.float32)
+    a_np = np.random.default_rng(n).standard_normal((n, n)).astype(
+        np.float32)
     a = torch.tensor(a_np, device="cuda")
     rs, per_mode, total = {}, {}, dict.fromkeys(kernel.LAUNCHES, 0)
     for mode in MODES:
         kernel.reset_counts()
-        rs[mode], secs = run_mode(torch, qr, a, mode)
+        rs[mode], secs = run_mode(torch, qr, a, mode, b)
         per_mode[mode] = dict(kernel.LAUNCHES)
         if any(kernel.PLAIN_CALLS.values()):
             fail(f"{mode}: a plain version ran on the card "
                  f"{kernel.PLAIN_CALLS}")
         for k, v in kernel.LAUNCHES.items():
             total[k] += v
-        log(f"[main] {mode}: {secs:.3f} s (first run), launches "
+        log(f"[{tag}] {mode}: {secs:.3f} s (first run), launches "
             f"{per_mode[mode]}")
     missing = [k for k, v in total.items() if v == 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the {n}² / {b}² path: {missing}")
     if per_mode["engine"]["qr_walk"] != 1:
         fail(f"the engine's plan took {per_mode['engine']['qr_walk']} walk "
              f"launches, not one")
@@ -465,11 +483,11 @@ def phase_main(torch, np):
     s = np.sign(np.diag(r)) * np.sign(np.diag(r64))
     lap = float(np.linalg.norm(r * s[:, None] - r64) / np.linalg.norm(r64))
     t0 = time.perf_counter()
-    r_cpu, _ = qr.run_qr(a_np, tile=B_MAIN, mode="engine", device="cpu")
+    r_cpu, _ = qr.run_qr(a_np, tile=b, mode="engine", device="cpu")
     cpu_s = time.perf_counter() - t0
     r_cpu = r_cpu.double().numpy()
     vs_cpu = float(np.linalg.norm(r - r_cpu) / np.linalg.norm(r_cpu))
-    log(f"[main] {N_MAIN}² / {B_MAIN}² tiles, {LANES} lanes: four modes "
+    log(f"[{tag}] {n}² / {b}² tiles, {LANES} lanes: four modes "
         f"bitwise equal; Gram {gram:.3e} (bound {GRAM_TOL}); LAPACK fp64 "
         f"up to signs {lap:.3e} (bound {LAPACK_TOL}); engine vs plain CPU "
         f"path {vs_cpu:.3e} (bound {CPU_TOL}; CPU run {cpu_s:.1f} s)")
@@ -477,7 +495,7 @@ def phase_main(torch, np):
                            LAPACK_TOL), ("CPU", vs_cpu, CPU_TOL)):
         if not val < tol:
             fail(f"{name} check {val:.3e} >= {tol}")
-    log(f"[main] launches over the four modes: {total}")
+    log(f"[{tag}] launches over the four modes: {total}")
     return a, total, vs_cpu
 
 
@@ -542,7 +560,8 @@ def graph_ms(torch, fn, reps=50):
     return e0.elapsed_time(e1) / reps
 
 
-def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, card):
+def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
+                 card):
     from repro_torch import engine
     from repro_torch.apps import qr
     from repro_torch.kernels.qr_tile import kernel, ops, ref
@@ -574,124 +593,153 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, card):
         f"{per_plan_large} at {N_LARGE}²; {card}")
 
     # per-op kernels at b = 64, batch 1 (the run_one shape) and at the
-    # largest batch the rounds mode gives them
-    b, rng, dev = B_MAIN, np.random.default_rng(7), torch.device("cuda")
-
-    def rand(n):
-        return torch.tensor(rng.standard_normal((n, b, b)),
-                            dtype=torch.float32, device=dev)
-
-    def inputs(n):         # factors for the applies, from the kernels
-        x, c1, c2 = rand(n), rand(n), rand(n)
-        rv, tau, t = ops.geqrf(x)
-        r1, v2, tau2, t2 = ops.tsqrf(torch.triu(x), c1)
-        return dict(x=x, r0=torch.triu(x), rv=rv, tau=tau, t=t, c1=c1,
-                    c2=c2, r1=r1, v2=v2, tau2=tau2, t2=t2,
-                    out=torch.empty_like(x),
-                    o2=torch.empty_like(x), o3=torch.empty_like(x),
-                    tv=torch.empty(x.shape[:2], device=dev))
-
-    def launchers(d):      # the bare launches: outputs preallocated
-        return {
-            "geqrf": lambda: kernel.geqrf(d["x"], d["out"], d["tv"], d["o2"]),
-            "tsqrf": lambda: kernel.tsqrf(d["r0"], d["c1"], d["out"],
-                                          d["o2"], d["tv"], d["o3"]),
-            "apply_qt": lambda: kernel.apply_qt(d["rv"], d["t"], d["c1"],
-                                                d["out"]),
-            "apply_tsqt": lambda: kernel.apply_tsqt(d["v2"], d["t2"],
-                                                    d["c1"], d["c2"],
-                                                    d["out"], d["o2"]),
-        }
-
-    one = inputs(1)
-    fns = launchers(one)
-    plains = {
-        "geqrf": lambda: ref.geqrf_ref(one["x"][0]),
-        "tsqrf": lambda: ref.tsqrf_ref(torch.triu(one["x"][0]),
-                                       one["c1"][0]),
-        "apply_qt": lambda: ref.apply_qt_ref(one["rv"][0], one["t"][0],
-                                             one["c1"][0]),
-        "apply_tsqt": lambda: ref.apply_tsqt_ref(one["v2"][0], one["t2"][0],
-                                                 one["c1"][0], one["c2"][0]),
-    }
-    # the library yardsticks, on the same inputs: tsqrf is the LAPACK QR of
-    # the stacked [R; A] (the top reflector block stays e_j, R being upper
-    # triangular), and apply_tsqt is ormqr with those stacked reflectors
-    # [R'; V2] (R' has nothing below its diagonal) on [C1; C2]
-    ra = torch.cat([one["r0"], one["c1"]], -2)
-    rv2 = torch.cat([torch.triu(one["r1"]), one["v2"]], -2)
-    cc = torch.cat([one["c1"], one["c2"]], -2)
-    libs = {
-        "geqrf": lambda: torch.geqrf(one["x"]),
-        "tsqrf": lambda: torch.geqrf(ra),
-        "apply_qt": lambda: torch.ormqr(one["rv"], one["tau"], one["c1"],
-                                        left=True, transpose=True),
-        "apply_tsqt": lambda: torch.ormqr(rv2, one["tau2"], cc, left=True,
-                                          transpose=True),
-    }
-    lib_check(torch, one, ra, rv2, cc)
+    # largest batch the rounds mode gives them; then at b = 128 (the
+    # global-memory bodies), batch 1
+    dev = torch.device("cuda")
     replaces = {"geqrf": "src/repro/kernels/qr_tile/kernel.py:173",
                 "tsqrf": "src/repro/kernels/qr_tile/kernel.py:190",
                 "apply_qt": "src/repro/kernels/qr_tile/kernel.py:208",
                 "apply_tsqt": "src/repro/kernels/qr_tile/kernel.py:221"}
     batch_main = {"apply_qt": 31, "apply_tsqt": 286}  # largest rounds batch
     source = "src/repro_torch/kernels/qr_tile/csrc/qr_tile.cu"
+
+    def op_times(b):
+        rng = np.random.default_rng(7)
+
+        def rand(n):
+            return torch.tensor(rng.standard_normal((n, b, b)),
+                                dtype=torch.float32, device=dev)
+
+        def inputs(n):         # factors for the applies, from the kernels
+            x, c1, c2 = rand(n), rand(n), rand(n)
+            rv, tau, t = ops.geqrf(x)
+            r1, v2, tau2, t2 = ops.tsqrf(torch.triu(x), c1)
+            return dict(x=x, r0=torch.triu(x), rv=rv, tau=tau, t=t, c1=c1,
+                        c2=c2, r1=r1, v2=v2, tau2=tau2, t2=t2,
+                        out=torch.empty_like(x),
+                        o2=torch.empty_like(x), o3=torch.empty_like(x),
+                        tv=torch.empty(x.shape[:2], device=dev))
+
+        def launchers(d):      # the bare launches: outputs preallocated
+            return {
+                "geqrf": lambda: kernel.geqrf(d["x"], d["out"], d["tv"],
+                                              d["o2"]),
+                "tsqrf": lambda: kernel.tsqrf(d["r0"], d["c1"], d["out"],
+                                              d["o2"], d["tv"], d["o3"]),
+                "apply_qt": lambda: kernel.apply_qt(d["rv"], d["t"],
+                                                    d["c1"], d["out"]),
+                "apply_tsqt": lambda: kernel.apply_tsqt(
+                    d["v2"], d["t2"], d["c1"], d["c2"], d["out"], d["o2"]),
+            }
+
+        one = inputs(1)
+        fns = launchers(one)
+        plains = {
+            "geqrf": lambda: ref.geqrf_ref(one["x"][0]),
+            "tsqrf": lambda: ref.tsqrf_ref(torch.triu(one["x"][0]),
+                                           one["c1"][0]),
+            "apply_qt": lambda: ref.apply_qt_ref(one["rv"][0], one["t"][0],
+                                                 one["c1"][0]),
+            "apply_tsqt": lambda: ref.apply_tsqt_ref(
+                one["v2"][0], one["t2"][0], one["c1"][0], one["c2"][0]),
+        }
+        # the library yardsticks, on the same inputs: tsqrf is the LAPACK
+        # QR of the stacked [R; A] (the top reflector block stays e_j, R
+        # being upper triangular), and apply_tsqt is ormqr with those
+        # stacked reflectors [R'; V2] (R' has nothing below its diagonal)
+        # on [C1; C2]
+        ra = torch.cat([one["r0"], one["c1"]], -2)
+        rv2 = torch.cat([torch.triu(one["r1"]), one["v2"]], -2)
+        cc = torch.cat([one["c1"], one["c2"]], -2)
+        libs = {
+            "geqrf": lambda: torch.geqrf(one["x"]),
+            "tsqrf": lambda: torch.geqrf(ra),
+            "apply_qt": lambda: torch.ormqr(one["rv"], one["tau"],
+                                            one["c1"], left=True,
+                                            transpose=True),
+            "apply_tsqt": lambda: torch.ormqr(rv2, one["tau2"], cc,
+                                              left=True, transpose=True),
+        }
+        lib_check(torch, one, ra, rv2, cc)
+        out = {}
+        for name, fn in fns.items():
+            ms = median_of(lambda: events_ms(torch, fn, 50 if b <= 64
+                                             else 10))
+            plain = median_of(lambda: events_ms(torch, plains[name], 3))
+            lib = median_of(lambda: events_ms(torch, libs[name], 20))
+            bms, by = bound_ms(2 * macs(name, b), tile_bytes(name, b))
+            out[name] = (ms, plain, lib, bms, by)
+            extra = ""
+            if b == B_MAIN and name in batch_main:
+                nb = batch_main[name]
+                fb = launchers(inputs(nb))[name]
+                bms_b, by_b = bound_ms(2 * macs(name, b) * nb,
+                                       tile_bytes(name, b, nb))
+                extra = (f"; batch {nb}: "
+                         f"{median_of(lambda: events_ms(torch, fb, 20)):.5f}"
+                         f" ms, bound {bms_b:.5f} ms ({by_b})")
+            log(f"[time] {name} b={b} batch 1: {ms:.5f} ms, bound "
+                f"{bms:.6f} ms ({by}), plain {plain:.3f} ms, library "
+                f"{lib:.5f} ms{extra}; {card}")
+        return out
+
+    per_op = op_times(B_MAIN)
+    per_op_wide = op_times(B_WIDE)
     rows = []
-    for name, fn in fns.items():
-        ms = median_of(lambda: events_ms(torch, fn, 50))
-        plain = median_of(lambda: events_ms(torch, plains[name], 3))
-        lib = (median_of(lambda: events_ms(torch, libs[name], 20))
-               if name in libs else None)
-        bms, by = bound_ms(2 * macs(name, b), tile_bytes(name, b))
+    for name, (ms, plain, lib, bms, by) in per_op.items():
+        wms, wplain, wlib, wbms, _ = per_op_wide[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces[name],
                      "launches": launches[name],
                      "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-                     "bound_ms": bms, "bound_by": by, "library_ms": lib})
-        extra = ""
-        if name in batch_main:
-            nb = batch_main[name]
-            fb = launchers(inputs(nb))[name]
-            bms_b, by_b = bound_ms(2 * macs(name, b) * nb,
-                                   tile_bytes(name, b, nb))
-            extra = (f"; batch {nb}: {median_of(lambda: events_ms(torch, fb, 20)):.5f}"
-                     f" ms, bound {bms_b:.5f} ms ({by_b})")
-        log(f"[time] {name} b={b} batch 1: {ms:.5f} ms, bound {bms:.6f} ms "
-            f"({by}), plain {plain:.3f} ms, library "
-            f"{'-' if lib is None else f'{lib:.5f}'} ms{extra}")
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                     "ms_b128": wms, "plain_ms_b128": wplain,
+                     "bound_ms_b128": wbms, "library_ms_b128": wlib,
+                     "launches_1024_b128": wide["launches"][name]})
 
     # K5: the whole walk of the 2048² plan, on fresh copies of the stack,
     # desc and offsets uploaded beforehand (as execute_plan does); beside
-    # it the barrier floor: the same table with every row a no-op
-    init = stack_of(torch, a, b)
-    noops = tables.desc.copy()
-    noops[:, 0] = engine.QR_NOOP
+    # it the barrier floor: the same table with every row a no-op; then
+    # the 1024² / 128² plan (the global-memory bodies)
+    def walk_times(mat, b):
+        tab = plan_tables(torch, mat.shape[0], b)
+        init = stack_of(torch, mat, b)
+        noops = tab.desc.copy()
+        noops[:, 0] = engine.QR_NOOP
 
-    def walk_ms_of(table):
-        desc, phases = engine.upload_phases(table, tables.phase_offsets, dev)
+        def walk_ms_of(table):
+            desc, phases = engine.upload_phases(table, tab.phase_offsets,
+                                                dev)
 
-        def once():
-            tiles, tmat = init[0].clone(), init[1].clone()
-            torch.cuda.synchronize()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            engine.qr_round_fn(desc, phases, (), (tiles, tmat))
-            e1.record()
-            torch.cuda.synchronize()
-            return e0.elapsed_time(e1)
+            def once():
+                tiles, tmat = init[0].clone(), init[1].clone()
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                engine.qr_round_fn(desc, phases, (), (tiles, tmat))
+                e1.record()
+                torch.cuda.synchronize()
+                return e0.elapsed_time(e1)
 
-        once()
-        return median_of(once)
+            once()
+            return median_of(once)
 
-    walk_ms, floor_ms = walk_ms_of(tables.desc), walk_ms_of(noops)
+        etypes = tab.desc[:, 0]
+        names = ("geqrf", "apply_qt", "tsqrf", "apply_tsqt")  # QR_* order
+        flops = sum(2 * macs(nm, b) * int((etypes == k).sum())
+                    for k, nm in enumerate(names))
+        nbytes = tab.desc.nbytes + 3 * init[0].numel() * 4
+        return (tab, walk_ms_of(tab.desc), walk_ms_of(noops),
+                *bound_ms(flops, nbytes), flops)
+
+    tables, walk_ms, floor_ms, wbms, wby, walk_flops = walk_times(a, B_MAIN)
     walk_plain_ms = walk_err["plain_ms"]
-    etypes = tables.desc[:, 0]
-    names = ("geqrf", "apply_qt", "tsqrf", "apply_tsqt")   # QR_* order
-    walk_flops = sum(2 * macs(nm, b) * int((etypes == k).sum())
-                     for k, nm in enumerate(names))
-    walk_bytes = tables.desc.nbytes + 3 * init[0].numel() * 4
-    wbms, wby = bound_ms(walk_flops, walk_bytes)
+    mid = torch.tensor(np.random.default_rng(N_WIDE).standard_normal(
+        (N_WIDE, N_WIDE)), dtype=torch.float32, device="cuda")
+    tab_w, walk_w, floor_w, wbms_w, _, flops_w = walk_times(mid, B_WIDE)
+    lib_w = median_of(lambda: events_ms(
+        torch, lambda: torch.linalg.qr(mid, mode="r"), 3))
     rows.append({"name": "qr_walk", "route": "cuda", "source": source,
                  "replaces": "src/repro/engine/megakernel.py:236",
                  "launches": launches["qr_walk"],
@@ -703,7 +751,13 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, card):
                  "launches_per_plan": per_plan, "phases": tables.nr_phases,
                  "barrier_floor_ms": floor_ms,
                  "resident_grid": walk_err["grid"],
-                 "library": "torch.linalg.qr(mode='r'), 2048² fp32"})
+                 "library": "torch.linalg.qr(mode='r'), 2048² fp32",
+                 "ms_1024_b128": walk_w, "barrier_floor_ms_1024_b128": floor_w,
+                 "plain_ms_1024_b128": walk_err["plain_ms_wide"],
+                 "bound_ms_1024_b128": wbms_w, "library_ms_1024": lib_w,
+                 "launches_1024_b128": wide["launches"]["qr_walk"],
+                 "rel_fro_vs_cpu_1024_b128": wide["vs_cpu"],
+                 "resident_grid_b128": walk_err["grid_wide"]})
     log(f"[time] qr_walk {N_MAIN}² plan ({tables.nr_items} rows, "
         f"{tables.nr_phases} phases, {per_plan} launch, "
         f"{walk_err['grid']} resident blocks): {walk_ms:.3f} ms (median of "
@@ -711,6 +765,12 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, card):
         f"{wbms:.4f} ms ({wby}, {walk_flops / 1e9:.3f} GFLOP), plain walk "
         f"{walk_plain_ms:.1f} ms (one run, phase 4), torch.linalg.qr "
         f"{lib_qr:.3f} ms; {card}")
+    log(f"[time] qr_walk {N_WIDE}² / {B_WIDE}² plan ({tab_w.nr_items} rows, "
+        f"{tab_w.nr_phases} phases, one launch, {walk_err['grid_wide']} "
+        f"resident blocks): {walk_w:.3f} ms (median of 3), barrier floor "
+        f"{floor_w:.4f} ms, bound {wbms_w:.4f} ms ({flops_w / 1e9:.3f} "
+        f"GFLOP), plain walk {walk_err['plain_ms_wide']:.1f} ms (one run, "
+        f"phase 4), torch.linalg.qr {N_WIDE}² {lib_w:.3f} ms; {card}")
     return rows
 
 
@@ -748,9 +808,10 @@ def vec_check(np, name, got, want, axis):
 
 
 def phase_nbody_ops(torch, np):
-    """K6/K7 against their plain versions on the card."""
+    """K6/K7 against their plain versions on the card; each launch again
+    gives the same bits."""
     from repro_torch.kernels.nbody import ops, ref
-    sizes = (1, 37, 58, 100, 128, 463)
+    sizes = (1, 30, 37, 58, 100, 128, 463, 1000)
     rng = np.random.default_rng(6)
     errs = {"acc_pair": [0.0, 0.0], "acc_self": [0.0, 0.0]}
 
@@ -761,7 +822,11 @@ def phase_nbody_ops(torch, np):
                          device="cuda")
         return x, m
 
-    def keep(name, got, want):
+    def keep(name, op, *args):
+        got = op(*args)
+        if not torch.equal(got, op(*args)):
+            fail(f"{name}: two launches differ")
+        want = getattr(ref, name + "_ref")(*args)
         e = vec_check(np, name, got, want, axis=0)
         errs[name] = [max(a, b) for a, b in zip(errs[name], e)]
 
@@ -770,18 +835,17 @@ def phase_nbody_ops(torch, np):
         if ni > 2:                     # a pair of coincident particles and
             xi[:, 1] = xi[:, 0]        # a zero mass inside the self set
             mi[ni // 2] = 0.0
-        keep("acc_self", ops.acc_self(xi, mi), ref.acc_self_ref(xi, mi))
+        keep("acc_self", ops.acc_self, xi, mi)
         for nj in sizes:
             xj, mj = cloud(nj)
             xj[:, : min(3, nj)] = xi[:, :1]      # sources on a target
             mj[nj - nj // 4:] = 0.0              # zero-mass tail
-            keep("acc_pair", ops.acc_pair(xi, xj, mj),
-                 ref.acc_pair_ref(xi, xj, mj))
+            keep("acc_pair", ops.acc_pair, xi, xj, mj)
     torch.cuda.synchronize()
     log(f"[nbody] K6/K7 match their plain versions, Ni, Nj in {sizes}, "
         f"coincident particles and zero masses, per target ‖Δa‖ <= "
-        f"{NB_RTOL}‖a‖ + {NB_ATOL}: max |err|, worst share of the bound "
-        f"{errs}")
+        f"{NB_RTOL}‖a‖ + {NB_ATOL}, two launches bitwise equal: max |err|, "
+        f"worst share of the bound {errs}")
     return errs
 
 
@@ -1155,8 +1219,15 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
     xi, mi = cloud(30)
     xj, mj = cloud(30)
     xc, mc = cloud(460)
+    x0, m0 = cloud(0)
     out = torch.empty((3, 30), device="cuda")
     eps2 = ref.DEFAULT_EPS ** 2
+    # K6's launch floor: 30 targets and no source, through the binding, in
+    # the same kind of CUDA graph as the readings below
+    floor = median_of(lambda: graph_ms(
+        torch, lambda: nbk.acc_pair(xi, x0, m0, eps2, out)))
+    log(f"[bh-time] acc_pair 30x0 (the launch floor): {floor:.5f} ms on the "
+        f"device (CUDA graph of 50, median of 3); {card}")
     # (kernel, plain, pairs, bytes: targets, sources + masses and the
     # output each moved once, float32)
     shapes = {
@@ -1197,7 +1268,8 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
                "ms": ms, "launch_from_python_ms": enq, "plain_ms": pms,
                "bound_ms": bms, "bound_by": by,
                "library_ms": None, "library": none,
-               "shape": "30x30" if name == "acc_pair" else "30"}
+               "shape": "30x30" if name == "acc_pair" else "30",
+               "floor_ms_30x0": floor}
         if name == "acc_pair":
             row.update(ms_pc_30x460=times["acc_pair_pc"][0],
                        plain_ms_pc_30x460=times["acc_pair_pc"][1],
@@ -1462,12 +1534,13 @@ def run_service(torch, np, params, cfg, work, slots, plen, new, path):
 # the paged decode kernel each attention kind's decode path launches, by
 # cfg.mla: its launch-count key, its op in kernels/paged_attention/ops.py
 # (the plain version is the op's name + "_ref" in ref.py) and its CUDA
-# kernel's symbol as the profiler names it
+# kernels' symbols as the profiler names them (K11: bf16 on the tensor
+# cores, float32 on the CUDA cores)
 PAGED_KERNELS = {
     False: dict(key="paged_gqa", op="paged_gqa_decode",
-                symbol="gqa_decode_kernel"),
+                symbols=("gqa_decode_kernel",)),
     True: dict(key="paged_mla", op="paged_mla_decode",
-               symbol="mla_decode_kernel")}
+               symbols=("mla_mma_kernel", "mla_decode_kernel"))}
 
 
 def paged_kernel(cfg):
@@ -1698,8 +1771,9 @@ def profile_ticks(torch, np, params, cfg, n_ticks=8):
             "busy share not measured")
         return None
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    symbol = paged_kernel(cfg)["symbol"]
-    paged = sum(v for k, v in kernels.items() if symbol in k)
+    symbols = paged_kernel(cfg)["symbols"]
+    paged = sum(v for k, v in kernels.items()
+                if any(sym in k for sym in symbols))
     experts = (expert_product_us(torch, prof, cfg.n_experts)
                if cfg.n_experts else 0.0)
     out = {"ticks": n_ticks, "wall_ms_per_tick": wall_us / n_ticks / 1e3,
@@ -1987,17 +2061,23 @@ MLA_FP32_LAYERS = (2, 1)   # the fp32 copy: 1 dense + 1 MoE layer, 55.8 GB
 # (H, lat, rope, page, dtype, scale): deepseek-v3-671b --reduced (H 4, lat
 # 32, rope 16, scale (nope 32 + rope 16)^-0.5), the reference's property
 # test (lat 16, rope 8, scale (lat + rope)^-0.5) and the published widths
-# (scale (nope 128 + rope 64)^-0.5), page 8 and 16, fp32 and bf16.  The
-# tolerances are K10's (PAGED_TOL): fp32 the reference's kernel-vs-oracle
-# one; bf16 one ulp of the output, since both compute in float from the
-# same bf16 operands and round once.
+# (scale (nope 128 + rope 64)^-0.5), page 8 and 16, fp32 and bf16 (bf16:
+# the tensor-core kernel), and two widths off its tiles in bf16 (rope 12
+# and 4: element loads; H 6 and 3).  The tolerances are K10's
+# (PAGED_TOL): fp32 the reference's kernel-vs-oracle one; bf16 one ulp of
+# the output, since both compute in float from the same bf16 operands and
+# round once (the kernel keeps p as two bf16 parts for p . c).
 MLA_SHAPES = ((4, 32, 16, 8, "float32", 48 ** -0.5),
               (4, 32, 16, 16, "bfloat16", 48 ** -0.5),
+              (4, 32, 16, 8, "bfloat16", 48 ** -0.5),
               (4, 16, 8, 8, "float32", 24 ** -0.5),
+              (4, 16, 8, 8, "bfloat16", 24 ** -0.5),
               (128, 512, 64, 8, "float32", 192 ** -0.5),
               (128, 512, 64, 16, "float32", 192 ** -0.5),
               (128, 512, 64, 8, "bfloat16", 192 ** -0.5),
-              (128, 512, 64, 16, "bfloat16", 192 ** -0.5))
+              (128, 512, 64, 16, "bfloat16", 192 ** -0.5),
+              (6, 40, 12, 8, "bfloat16", 0.1),
+              (3, 20, 4, 16, "bfloat16", 0.2))
 MLA_SCALE = 192 ** -0.5
 # deepseek kernel vs gather logits over the teacher-forced bf16 steps, every
 # step's ‖Δ‖/‖logits‖, as for qwen3.  On an H100 the largest step is 4.43e-2
@@ -2055,13 +2135,25 @@ def phase_k11(torch, np):
                                       lat=512, rope=64)
     other_slot_untouched(torch, "K11", ops.paged_mla_decode, ops_, rows, pos,
                          8, scale=MLA_SCALE)
+    # the bf16 split walk merges in a fixed order: two launches, same bits
+    ops_, rows, pos = ref.random_case(8, 8, torch.bfloat16, 21, "cuda",
+                                      mla=True, pos=SERVE_DEPTH_POS,
+                                      max_pages=40, n_heads=128, lat=512,
+                                      rope=64)
+    first, again = (ops.paged_mla_decode(*[x.clone() for x in ops_],
+                                         page_size=8, scale=MLA_SCALE)[0]
+                    for _ in range(2))
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        fail("K11 bf16: two launches on the same inputs differ")
     log(f"[k11] paged_mla_decode vs plain on the card: {n + 1} cases (bs 1, "
         f"3, 8 x {len(MLA_SHAPES)} shapes: H 4 / lat 32 / rope 16, lat 16 / "
-        f"rope 8, H 128 / lat 512 / rope 64, page 8 and 16, fp32 and bf16; 8 "
-        f"slots at positions {SERVE_DEPTH_POS[0]}-{SERVE_DEPTH_POS[-1]}, "
-        f"page 8 and 16; stale non-finite tails; NaN unlisted pages; a second"
-        f" slot untouched); max |err| fp32 {errs['float32']:.3e}, bf16 "
-        f"{errs['bfloat16']:.3e}")
+        f"rope 8, H 128 / lat 512 / rope 64, page 8 and 16, fp32 and bf16, "
+        f"H 6 / lat 40 / rope 12 and H 3 / lat 20 / rope 4 in bf16; 8 slots "
+        f"at positions {SERVE_DEPTH_POS[0]}-{SERVE_DEPTH_POS[-1]}, page 8 "
+        f"and 16; stale non-finite tails; NaN unlisted pages; a second slot "
+        f"untouched; two bf16 launches bitwise equal); max |err| fp32 "
+        f"{errs['float32']:.3e}, bf16 {errs['bfloat16']:.3e}")
     return errs
 
 
@@ -2799,9 +2891,9 @@ def main():
     phase_build()
     errs = phase_ops(torch, np)
     walk_err = phase_walk(torch, np)
-    a, launches, vs_cpu = phase_main(torch, np)
+    a, launches, vs_cpu, wide = phase_main(torch, np)
     rows = phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu,
-                        card)
+                        wide, card)
     del a
     torch.cuda.empty_cache()
     nb_errs = phase_nbody_ops(torch, np)

@@ -7,15 +7,26 @@
 //
 // K6 / K7 replace src/repro/kernels/nbody/kernel.py::acc_pair and
 // ::acc_self.  The Pallas kernels padded both sets to 128 lanes (ops.py)
-// and held the whole source set in VMEM; here one thread owns one target,
-// the sources pass through shared memory in chunks of NB_CHUNK, and the
-// ragged edge is masked, so nothing is padded.  What bounds them on this
-// card: on the path's shapes (about 30 targets against 30 or 460 sources)
-// a launch is one block of a few thousand interactions, far below both
-// the fp32 rate and the memory rate, so they are latency-bound; the
-// design keeps each call to one launch with no padding copies.  Operands
-// may be strided views (a cell's slice of the (3, N) positions, a gather
-// of COM rows), so the launchers take the strides and nothing is copied.
+// and held the whole source set in VMEM; here the ragged edge is masked,
+// so nothing is padded.  What bounds them on this card: on the path's
+// shapes (about 30 targets against 30 or 460 sources) a call is a few
+// thousand interactions, far below both the fp32 rate and the memory
+// rate, so they are latency-bound: the floor is the launch itself.  The
+// first form gave each target one thread that walked every source in turn
+// (one warp's worth of lanes at work, a dependent chain of rsqrt and FMAs
+// as long as the source set).  Now a block covers targets x source
+// slices: lane = target and warp = one contiguous slice of each staged
+// chunk for ni <= 32 (8 slices, and up to 32 where nj is large, about
+// NB_PAIR_SLICE sources a slice), 64 targets and 4 or more slices for
+// ni <= 64, 128 targets and 2 or more slices above, with a grid over
+// target groups.  A chunk of NB_PAIR_CHUNK sources is staged once for the
+// whole block with coalesced loads from the strided views; each thread
+// keeps two sources in flight in two accumulators; the slices' partial
+// sums of a target are then added in slice order 0, 1, ... by one thread
+// through shared memory, so a result repeats bit for bit and does not
+// depend on scheduling (no atomics).  One launch a call.  Operands may be
+// strided views (a cell's slice of the (3, N) positions, a gather of COM
+// rows), so the launchers take the strides and nothing is copied.
 //
 // K8 replaces src/repro/engine/megakernel.py::_bh_kernel, walked by
 // _grid_walk (its pallas_call) from bh_round_fn.  The Pallas walk ran one
@@ -36,8 +47,8 @@
 // and used by every target thread.  Measured by chip_smoke.py on an NVIDIA
 // H100 80GB HBM3 at 700 W: 7.1-7.6 ms for the 1M plan (6 launches), so
 // the walk is latency-bound (one 64-thread block per bucket, two barriers
-// per row), and K6/K7 take 2.2-2.7 us on the device at 30 x 30 and 12 us
-// at 30 x 460 against a 17-28 us launch from Python.
+// per row); K6/K7 (first form) took 2.2-2.7 us on the device at 30 x 30
+// and 12 us at 30 x 460 against a 17-28 us launch from Python.
 
 #include <cstdint>
 
@@ -45,28 +56,72 @@
 
 namespace {
 
+// targets one K6/K7 block covers (a power of two); the block's other
+// threads are source slices: 8 of them up to 32 targets, 4 up to 64, 2
+// above ...
+inline int nb_pair_targets(int ni) {
+  return ni <= 32 ? 32 : (ni <= 64 ? 64 : 128);
+}
+
+// ... and twice as many, up to NB_PAIR_MAX_THREADS threads, while a slice
+// would walk more than NB_PAIR_SLICE sources: the block's threads
+inline int nb_pair_threads(int ti, int nj) {
+  int slices = NB_PAIR_THREADS / ti;
+  while (slices * ti < NB_PAIR_MAX_THREADS && slices * NB_PAIR_SLICE < nj)
+    slices *= 2;
+  return slices * ti;
+}
+
+// one source j of the staged planes s on the target (px, py, pz), into
+// (ax, ay, az); the source `skip` (the target itself in a self set)
+// weighs zero
+__device__ __forceinline__ void nb_pull(const float (*s)[NB_PAIR_CHUNK],
+                                        int j, int skip, float px, float py,
+                                        float pz, float eps2, float& ax,
+                                        float& ay, float& az) {
+  const float dx = s[0][j] - px;
+  const float dy = s[1][j] - py;
+  const float dz = s[2][j] - pz;
+  const float r2 = dx * dx + dy * dy + dz * dz + eps2;
+  float w = rsqrtf(r2);
+  w = w * w * w * s[3][j];
+  if (j == skip) w = 0.0f;
+  ax += dx * w;
+  ay += dy * w;
+  az += dz * w;
+}
+
 // K6 (SELF = false) and K7 (SELF = true): out (3, ni) contiguous gets the
 // pull of the sources (xj, mj) on the targets xi; x operands are (3, n)
 // with strides (sd, sn), masses (n) with stride sm.  K7 takes xj = xi.
+// ti = nb_pair_targets(ni): thread x is target x % ti of the block's
+// group and slice x / ti of every staged chunk.
 template <bool SELF>
-__global__ void __launch_bounds__(NB_THREADS)
+__global__ void __launch_bounds__(NB_PAIR_MAX_THREADS)
 acc_kernel(const float* __restrict__ xi, int64_t sdi, int64_t sni, int ni,
            const float* __restrict__ xj, int64_t sdj, int64_t snj,
            const float* __restrict__ mj, int64_t smj, int nj, float eps2,
-           float* __restrict__ out) {
-  __shared__ float s[4][NB_CHUNK];
-  const int i = blockIdx.x * NB_THREADS + threadIdx.x;
+           float* __restrict__ out, int ti) {
+  __shared__ float s[4][NB_PAIR_CHUNK];
+  __shared__ float part[3][NB_PAIR_MAX_THREADS];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lg = __ffs(ti) - 1;                  // ti is a power of two
+  const int tl = tid & (ti - 1), slice = tid >> lg;
+  const int n_slices = nt >> lg;
+  const int i = blockIdx.x * ti + tl;
   float px = 0.0f, py = 0.0f, pz = 0.0f;
   if (i < ni) {
     px = xi[i * sni];
     py = xi[sdi + i * sni];
     pz = xi[2 * sdi + i * sni];
   }
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  for (int j0 = 0; j0 < nj; j0 += NB_CHUNK) {
-    const int n = min(NB_CHUNK, nj - j0);
+  // two accumulators: sources j and j + 1 of the slice are in flight at
+  // once
+  float ax = 0.0f, ay = 0.0f, az = 0.0f, bx = 0.0f, by = 0.0f, bz = 0.0f;
+  for (int j0 = 0; j0 < nj; j0 += NB_PAIR_CHUNK) {
+    const int n = min(NB_PAIR_CHUNK, nj - j0);
     __syncthreads();  // the previous chunk has been read by every thread
-    for (int t = threadIdx.x; t < n; t += NB_THREADS) {
+    for (int t = tid; t < n; t += nt) {
       const int64_t j = j0 + t;
       s[0][t] = xj[j * snj];
       s[1][t] = xj[sdj + j * snj];
@@ -74,14 +129,33 @@ acc_kernel(const float* __restrict__ xi, int64_t sdi, int64_t sni, int ni,
       s[3][t] = mj[j * smj];
     }
     __syncthreads();
-    if (i < ni)
-      nb_accumulate(s[0], s[1], s[2], s[3], n, SELF ? i - j0 : -1, px, py,
-                    pz, eps2, ax, ay, az);
+    const int per = (n + n_slices - 1) / n_slices;   // the slice's range
+    const int lo = min(n, slice * per), hi = min(n, lo + per);
+    const int skip = SELF ? i - j0 : -1;
+    if (i < ni) {
+      int j = lo;
+#pragma unroll 2
+      for (; j + 1 < hi; j += 2) {
+        nb_pull(s, j, skip, px, py, pz, eps2, ax, ay, az);
+        nb_pull(s, j + 1, skip, px, py, pz, eps2, bx, by, bz);
+      }
+      if (j < hi) nb_pull(s, j, skip, px, py, pz, eps2, ax, ay, az);
+    }
   }
-  if (i < ni) {
-    out[i] = ax;
-    out[ni + i] = ay;
-    out[2 * ni + i] = az;
+  part[0][tid] = ax + bx;
+  part[1][tid] = ay + by;
+  part[2][tid] = az + bz;
+  __syncthreads();
+  if (slice == 0 && i < ni) {        // slices 0, 1, ... in order
+    float sx = part[0][tl], sy = part[1][tl], sz = part[2][tl];
+    for (int k = 1; k < n_slices; ++k) {
+      sx += part[0][k * ti + tl];
+      sy += part[1][k * ti + tl];
+      sz += part[2][k * ti + tl];
+    }
+    out[i] = sx;
+    out[ni + i] = sy;
+    out[2 * ni + i] = sz;
   }
 }
 
@@ -203,25 +277,29 @@ __global__ void bh_walk_kernel(const int* __restrict__ desc, int width,
   }
 }
 
-int blocks_for(int n) { return (n + NB_THREADS - 1) / NB_THREADS; }
-
 }  // namespace
 
 // C interface, loaded with ctypes by repro_torch/kernels/nbody/kernel.py.
 extern "C" {
 
+// K6 and K7: one launch of ceil(ni / nb_pair_targets(ni)) blocks of
+// nb_pair_threads threads; nj may be 0 (the output is then zero).
 int nb_acc_pair(const float* xi, int64_t sdi, int64_t sni, int ni,
                 const float* xj, int64_t sdj, int64_t snj, const float* mj,
                 int64_t smj, int nj, float eps2, float* out, void* stream) {
-  acc_kernel<false><<<blocks_for(ni), NB_THREADS, 0, (cudaStream_t)stream>>>(
-      xi, sdi, sni, ni, xj, sdj, snj, mj, smj, nj, eps2, out);
+  const int ti = nb_pair_targets(ni);
+  acc_kernel<false><<<(ni + ti - 1) / ti, nb_pair_threads(ti, nj), 0,
+                      (cudaStream_t)stream>>>(xi, sdi, sni, ni, xj, sdj, snj,
+                                              mj, smj, nj, eps2, out, ti);
   return (int)cudaGetLastError();
 }
 
 int nb_acc_self(const float* x, int64_t sd, int64_t sn, const float* m,
                 int64_t sm, int n, float eps2, float* out, void* stream) {
-  acc_kernel<true><<<blocks_for(n), NB_THREADS, 0, (cudaStream_t)stream>>>(
-      x, sd, sn, n, x, sd, sn, m, sm, n, eps2, out);
+  const int ti = nb_pair_targets(n);
+  acc_kernel<true><<<(n + ti - 1) / ti, nb_pair_threads(ti, n), 0,
+                     (cudaStream_t)stream>>>(x, sd, sn, n, x, sd, sn, m, sm,
+                                             n, eps2, out, ti);
   return (int)cudaGetLastError();
 }
 

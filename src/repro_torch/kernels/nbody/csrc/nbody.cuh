@@ -1,7 +1,8 @@
 // Softened-gravity interaction math of the Barnes-Hut tree code (paper
-// §4.2) as device functions, shared by the per-op kernels (K6 acc_pair,
-// K7 acc_self) and the task-table walk (K8 bh_walk) in nbody.cu, as
-// qr_tile.cuh is shared by the QR kernels.
+// §4.2) as device functions for the task-table walk (K8 bh_walk) in
+// nbody.cu, and the constants of the per-op kernels (K6 acc_pair, K7
+// acc_self), which take the same pair arithmetic (nbody.cu::nb_pull) over
+// slices of the sources.
 //
 // Replaces the value-level body the TPU kernels share,
 // src/repro/kernels/nbody/kernel.py::acc_block:
@@ -19,8 +20,10 @@
 
 #include <cuda_runtime.h>
 
-#define NB_THREADS 128      // blockDim of K6/K7: one thread per target
-#define NB_CHUNK 128        // sources staged in shared memory per step
+#define NB_PAIR_THREADS 256 // K6/K7: least blockDim, targets x source slices
+#define NB_PAIR_MAX_THREADS 1024   // K6/K7: most blockDim
+#define NB_PAIR_SLICE 32    // K6/K7: sources a slice walks before slices double
+#define NB_PAIR_CHUNK 512   // K6/K7: sources staged in shared memory at once
 #define NB_MAX_P 1024       // K8: one thread per particle of a leaf block
 #define NB_MAX_CHILDREN 8   // K8: COM slots of a COM_INNER or PC row
 

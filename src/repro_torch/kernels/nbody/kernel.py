@@ -1,11 +1,12 @@
 """ctypes binding of the hand-written Barnes-Hut CUDA kernels (``csrc/``).
 
 ``csrc/nbody.cuh`` holds the softened-gravity sum as a ``__device__``
-function; ``csrc/nbody.cu`` wraps it in the per-op kernels ``acc_pair``
-(K6) and ``acc_self`` (K7), one thread per target, and in the task-table
-walk ``bh_walk`` (K8), one block per bucket of a launch group, and exports
-a plain C launcher for each.  They replace the Pallas kernels
-``repro/kernels/nbody/kernel.py::acc_pair``, ``acc_self`` and the walk
+function; ``csrc/nbody.cu`` holds the per-op kernels ``acc_pair`` (K6) and
+``acc_self`` (K7), one template whose blocks cover targets x source slices
+(the slices' partial sums added in slice order, so a call repeats bit for
+bit), and the task-table walk ``bh_walk`` (K8), one block per bucket of a
+launch group, and exports a plain C launcher for each.  They replace the
+Pallas kernels ``repro/kernels/nbody/kernel.py::acc_pair``, ``acc_self`` and the walk
 ``repro/engine/megakernel.py::bh_round_fn``.
 
 The library is built from those sources by ``repro_torch._build`` at the
@@ -68,7 +69,8 @@ def lib() -> ctypes.CDLL:
 
 def acc_pair(xi, xj, mj, eps2: float, out) -> None:
     """out (3,Ni) <- the pull of (xj (3,Nj), mj (Nj,)) on xi (3,Ni); the
-    inputs may be strided views.  Ni >= 1."""
+    inputs may be strided views.  Ni >= 1; Nj may be 0 (out is then
+    zero)."""
     _check(lib().nb_acc_pair(_ptr(xi), *xi.stride(), xi.shape[1], _ptr(xj),
                              *xj.stride(), _ptr(mj), mj.stride(0),
                              xj.shape[1], eps2, _ptr(out), _stream()),

@@ -296,7 +296,10 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
   return (int)cudaGetLastError();
 }
 
-// K11: weight-absorbed MLA decode against the compressed latent pool.
+// K11: weight-absorbed MLA decode against the compressed latent pool, in
+// two kernels: mla_mma_kernel for bf16 (the serving path; the design
+// note below it), mla_decode_kernel for float32 (the token-for-token
+// stream check: float32 has no tensor-core form while TF32 stays off).
 //
 // Replaces src/repro/kernels/paged_attention/kernel.py::paged_mla_call
 // (_mla_kernel, _online_softmax_walk): one Pallas program per slot, in order
@@ -307,7 +310,8 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
 // scores (q_eff . c + q_rope . r) * scale, and writes ctx = sum w c / l
 // (bs, H, lat) in q_eff's storage type.
 //
-// All 128 heads of one slot do not fit one block (their queries alone are
+// float32 (mla_decode_kernel, the first form, kept as it was): all 128
+// heads of one slot do not fit one block (their queries alone are
 // 128 x 576 floats, 295 KB, over the 227 KB a block can have), so a block
 // serves MLA_WARPS heads of one slot, a warp each: a grid of H / hg x bs
 // blocks (128 at 8 slots, for 132 SMs).  Per block:
@@ -340,18 +344,14 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
 // for bf16 operands on the tensor cores (bf16 products are exact in float,
 // so that rate computes the same function), against 4.9 MB of bytes (the
 // latent rows once, 2.7 MB, the queries and the output), 0.00147 ms at
-// 3.35 TB/s.  The design reads each staged row once per block into shared
-// memory for its 8 heads (16 blocks of a slot read the same rows, mostly
-// from L2) and does the arithmetic in float on the CUDA cores, where the
-// operations alone take 0.0096 ms at 67 TFLOP/s.  It is a first, simple
-// kernel: one launch per layer, no tensor cores, no TMA, two block
-// barriers per chunk of 32 positions.  On an H100 it takes ~175x its
-// bound: each SM holds one block of 8 warps, and each warp issues a
-// shared-memory load for every multiply-add, so issue and latency, not the
-// multiply-adds, set its time.  Loading a warp's rows all at once and one
-// reduce-scatter per chunk in place of 32 warp reductions were tried and
-// were slower (more registers, same issue count).  The two products of a
-// chunk (scores, context) are the work for tensor cores.
+// 3.35 TB/s.  The float32 form reads each staged row once per block into
+// shared memory for its 8 heads (16 blocks of a slot read the same rows,
+// mostly from L2) and does the arithmetic in float on the CUDA cores,
+// where the operations alone take 0.0096 ms at 67 TFLOP/s: one launch per
+// layer, no tensor cores, two block barriers per chunk of 32 positions.
+// In bf16 it took ~175x its bound on an H100 (each warp issues a
+// shared-memory load for every multiply-add), which is why bf16 now runs
+// mla_mma_kernel.
 
 template <typename T>
 __global__ void __launch_bounds__(MLA_WARPS * 32)
@@ -503,6 +503,590 @@ int launch_mla(const void* q_eff, const void* q_rope, const void* c_new,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K11, bf16: the two products on the tensor cores (mla_mma_kernel).
+//
+// The work of a slot is two products, S = Q [c r]^T, (H x (lat + rope)) .
+// ((lat + rope) x positions), and O = P c, (H x positions) . (positions x
+// lat): at 8 slots x 37 pages and the published widths 0.644 GFLOP against
+// 4.9 MB, so it belongs on the tensor cores and, beside them, is bound by
+// bytes.  The design:
+//   * products: bf16 mma.sync m16n8k16 with float accumulation, heads the
+//     M dimension.  A block holds MLA_HT (64) heads x MLA_CB (256) latent
+//     columns of one slot and one split of its positions, in 8 warps: head
+//     group (16 heads, one m16 tile) x column half (128 columns, 16 n8
+//     tiles of O in registers, 64 floats a lane; O for 64 heads x 512
+//     columns would be 32K floats, so the columns split across warps and
+//     blocks, as FlashMLA splits them across warpgroups).  The scores of a
+//     chunk of MLA_CH (16) positions: the two warps of a head group each
+//     sum half of the 576-deep k-steps (the warp's k-steps go round four
+//     accumulators, their fragments loaded four steps at a time, so eight
+//     mma chains are in flight), then add the two halves through shared
+//     memory (a + b is b + a, so both warps hold the same bits).  p . c
+//     loads four column pairs' fragments before their mma, hi products
+//     before lo ones;
+//   * softmax: online, in float, per head row (the fragment's rows g and
+//     g + 8, reduced over the four lanes sharing a row), as K12's;
+//   * P for the second product: p is split into a bf16 high part and a
+//     bf16 low part (p - hi), two mma on the same c fragments, so P c
+//     keeps about 16 bits of each weight: rounding p to bf16 alone would
+//     move the output by up to 2^-9 of its largest terms, past one output
+//     ulp on the elements that cancel;
+//   * staging: Q (64 heads x [q_eff | q_rope]) once a block, and the
+//     chunk's latent and RoPE rows ([c | r], one row a position) by
+//     cp.async into a ring of MLA_STAGES (4) chunks in shared memory,
+//     three chunks ahead of the one computing (a ring one chunk ahead
+//     left chunks waiting on their loads), once a block for all its heads
+//     (the first
+//     form staged each row in all 16 blocks of a slot); rows padded by 16
+//     bytes so ldmatrix meets no bank conflict;
+//   * split-KV: the grid is (head tiles x column blocks, slot, split);
+//     split s walks the slot's listed pages s * pps .. s * pps + pps - 1,
+//     pps chosen by the wrapper (kernel.py::mla_pages_per_split: about
+//     MLA_BLOCKS blocks, a split
+//     at least MLA_SPLIT_CHUNKS chunks of the longest walk the rows hold,
+//     at most MLA_MAX_SPLIT splits; sized from page_rows.shape[1], never
+//     from pos).  Each split writes its (m, l, O) to scratch from
+//     torch.empty and takes an integer ticket; the last of the slot's
+//     splits to arrive merges them in split order and resets the ticket,
+//     as K10 does: two launches are bitwise equal and the launch can be
+//     captured in a CUDA graph.  The merge keeps 8 groups of four columns
+//     a thread and issues their loads for two splits at once.  A slot
+//     walked by one split writes O / l at once.
+// What bounds it now: latency, not bytes or the tensor cores.  On an H100,
+// cutting the kernel short at each stage showed the chunk loop (8 warps an
+// SM, since one 157 KB block fills an SM's shared memory, so few mma
+// chains hide each other's latency), the queries' staging (each of a
+// slot's blocks reads its 74 KB of Q) and the partials' round trip
+// through global memory before the ticket as the three large parts.  A
+// second launch for the merge, and a merge inside a thread-block cluster
+// through distributed shared memory, were tried in place of the ticket
+// and were no faster; fewer splits lengthen the walk by more than they
+// save.  Each part is work for a later form (Q in fewer bytes or shared
+// by a cluster, wgmma with more of the block's warps on the products).
+// Every rule of the float32 form holds: every listed page id is checked
+// (0. above) and a failure gives NaN (written by split 0) and nothing
+// else; exactly one block of the slot (head tile 0, column block 0, the
+// split holding page pos / ps) writes the new latent and RoPE cell, and
+// every block takes position pos from c_new / r_new; positions after pos
+// are never loaded (a chunk's rows past them are zero, so 0 x stale NaN
+// cannot reach O); only listed pages are read.  Heads past H and columns
+// past lat are masked (zero queries, no store), so the reduced widths
+// (H 4, lat 32, rope 16; lat 16, rope 8) run too.
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t mla_smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously
+__device__ __forceinline__ void mla_cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   mla_smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void mla_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void mla_cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mla_ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(mla_smem_addr(p)));
+}
+
+__device__ __forceinline__ void mla_ldsm_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(mla_smem_addr(p)));
+}
+
+// c (16 x 8, float) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
+__device__ __forceinline__ void mla_mma(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t mla_pack(bf16 lo, bf16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;                             // the lower column in the low half
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// p as hi + lo, both bf16: lo = bf16(p - hi) carries the bits hi drops
+__device__ __forceinline__ void mla_split(float p, bf16& hi, bf16& lo) {
+  hi = __float2bfloat16_rn(p);
+  lo = __float2bfloat16_rn(p - __bfloat162float(hi));
+}
+
+// One row [a (na) | b (nb) | 0 .. kp) of bf16 into dst (a zero row
+// unless on), in 8-element units u0, u0 + tpr, ... of it: the row's tpr
+// threads find its sources once and share its units.  cp.async where vec
+// (na, nb multiples of 8, every source on 16 bytes), element by element
+// otherwise.
+__device__ __forceinline__ void mla_stage_row(bf16* dst, const bf16* a,
+                                              const bf16* b, bool on, int u0,
+                                              int tpr, int na, int nb,
+                                              int kp, bool vec) {
+  for (int col = u0 * 8; col < kp; col += tpr * 8) {
+    bf16* d = dst + col;
+    if (!on) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec) {
+      if (col < na)
+        mla_cp_async16(d, a + col);
+      else if (col < na + nb)
+        mla_cp_async16(d, b + (col - na));
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = col + e;
+        d[e] = c < na ? a[c]
+                      : (c < na + nb ? b[c - na] : __float2bfloat16(0.0f));
+      }
+    }
+  }
+}
+
+// the fragments of k-step kk of the scores: A (Q) and B (the chunk's
+// rows, positions 0 .. 7 in b[0..1], 8 .. 15 in b[2..3])
+__device__ __forceinline__ void mla_score_frags(uint32_t (&a)[4],
+                                                uint32_t (&b)[4],
+                                                const bf16* qa,
+                                                const bf16* kt, int kk) {
+  mla_ldsm_x4(a, qa + kk * 16);
+  mla_ldsm_x4(b, kt + kk * 16);
+}
+
+// acc[n] (positions n * 8 .. n * 8 + 7 of the chunk) += a . b
+__device__ __forceinline__ void mla_score_mma(float (&acc)[2][4],
+                                              const uint32_t (&a)[4],
+                                              const uint32_t (&b)[4]) {
+  mla_mma(acc[0], a, b[0], b[1]);
+  mla_mma(acc[1], a, b[2], b[3]);
+}
+
+// shared memory of one block (kernel.py::mla_smem_bytes repeats it): the
+// block's queries, a ring of MLA_STAGES chunks, the score exchange
+inline size_t mla_mma_smem_bytes(int lat, int rope) {
+  const size_t ld = ((lat + rope + 15) / 16) * 16 + 8;
+  return sizeof(bf16) * (MLA_HT + MLA_STAGES * MLA_CH) * ld
+         + sizeof(float) * MLA_MMA_WARPS * 32 * 8;
+}
+
+__global__ void __launch_bounds__(MLA_MMA_WARPS * 32, 1)
+mla_mma_kernel(const bf16* __restrict__ q_eff, const bf16* __restrict__ q_rope,
+               const bf16* __restrict__ c_new, const bf16* __restrict__ r_new,
+               bf16* c_pool, bf16* r_pool, const int* __restrict__ page_rows,
+               const int* __restrict__ pos, bf16* __restrict__ ctx,
+               float* __restrict__ part_ml, float* __restrict__ part_o,
+               int* __restrict__ tickets, int n_heads, int lat, int rope,
+               int ps, int max_pages, int n_pages, int pps, int n_cb,
+               int vec, float scale) {
+  extern __shared__ __align__(16) unsigned char mla_smem[];
+  const int kp = (lat + rope + 15) / 16 * 16;   // k of the scores, padded
+  const int ld = kp + 8;                        // 16 bytes a row apart
+  bf16* qs = reinterpret_cast<bf16*>(mla_smem);         // MLA_HT x ld
+  bf16* cs = qs + MLA_HT * ld;          // MLA_STAGES x MLA_CH x ld: the ring
+  float* xs = reinterpret_cast<float*>(cs + MLA_STAGES * MLA_CH * ld);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hg = warp & 3, half = warp >> 2;    // head group, column half
+  const int g = lane >> 2, tg = lane & 3;       // fragment row, column
+  const int ht = blockIdx.x / n_cb, cb = blockIdx.x - ht * n_cb;
+  const int t = blockIdx.y, split = blockIdx.z, n_split = gridDim.z;
+  const int h0 = ht * MLA_HT;
+  const int col0 = cb * MLA_CB + half * 128;    // the warp's first column
+  const int* row = page_rows + (int64_t)t * max_pages;
+
+  const int p_t = pos[t];
+  const bool pos_ok = p_t >= 0 && p_t < max_pages * ps;
+  const int last = pos_ok ? p_t / ps : -1;
+  const int n_need = pos_ok ? last / pps + 1 : 0;   // splits holding a
+  //                                                   position
+  // 0. every page id the walk will read lies in the pool, or nothing is
+  // written: all threads check a share of row[0 .. last] and agree
+  bool mine = pos_ok;
+  for (int p = tid; p <= last; p += blockDim.x)
+    mine = mine && row[p] >= 0 && row[p] < n_pages;
+  if (!__syncthreads_and(mine)) {
+    if (split == 0)
+      for (int i = tid; i < MLA_HT * MLA_CB; i += blockDim.x) {
+        const int h = h0 + i / MLA_CB, c = cb * MLA_CB + i % MLA_CB;
+        if (h < n_heads && c < lat)
+          ctx[((int64_t)t * n_heads + h) * lat + c] = __float2bfloat16(NAN);
+      }
+    return;                       // every block of the slot returns here
+  }
+  if (split >= n_need) return;
+  const bf16* cn = c_new + (int64_t)t * lat;
+  const bf16* rn = r_new + (int64_t)t * rope;
+  // 1. the new cell, by one block of the slot
+  if (split == n_need - 1 && blockIdx.x == 0) {
+    const int64_t cell = (int64_t)row[last] * ps + p_t % ps;
+    for (int d = tid; d < lat; d += blockDim.x) c_pool[cell * lat + d] = cn[d];
+    for (int d = tid; d < rope; d += blockDim.x)
+      r_pool[cell * rope + d] = rn[d];
+  }
+  const int npos = pps * ps, p0 = split * npos;
+  const int nv = min(npos, p_t - p0 + 1);      // the split's positions <= pos
+  const int n_chunks = (nv + MLA_CH - 1) / MLA_CH;
+
+  // 2. stage the block's queries (4 threads a head) and chunks 0 ..
+  // MLA_STAGES - 2 (16 threads a position), one cp.async group each (the
+  // queries with chunk 0); chunk c + MLA_STAGES - 1 is issued while chunk
+  // c computes.  A thread stages one row of a chunk, so it loads one page
+  // id a chunk, one chunk ahead of its issue.
+  constexpr int NT = MLA_MMA_WARPS * 32;
+  {
+    const int r = tid / (NT / MLA_HT), h = h0 + r;
+    const int64_t q = ((int64_t)t * n_heads + h) * lat;
+    mla_stage_row(qs + r * ld, q_eff + q, q_rope + q / lat * rope,
+                  h < n_heads, tid % (NT / MLA_HT), NT / MLA_HT, lat, rope,
+                  kp, vec);
+  }
+  const int rc = tid / (NT / MLA_CH), uc = tid % (NT / MLA_CH);
+  auto page_of = [&](int c) {             // this thread's row's page id
+    const int j = c * MLA_CH + rc;
+    return j < nv ? row[(p0 + j) / ps] : 0;
+  };
+  auto stage_chunk = [&](int c, int id) {
+    const int j = c * MLA_CH + rc, p = p0 + j;   // after pos: a zero row
+    const int64_t cell = (int64_t)id * ps + p % ps;
+    const bool own = p == p_t;            // position pos: c_new, r_new
+    mla_stage_row(cs + ((c % MLA_STAGES) * MLA_CH + rc) * ld,
+                  own ? cn : c_pool + cell * lat,
+                  own ? rn : r_pool + cell * rope, j < nv, uc, NT / MLA_CH,
+                  lat, rope, kp, vec);
+  };
+  int issued = 0, id = page_of(0);      // id: chunk `issued`'s page
+  auto issue = [&]() {                  // the next chunk, if any, as a
+    if (issued < n_chunks) {            // group (an empty one past the end)
+      stage_chunk(issued, id);
+      if (++issued < n_chunks) id = page_of(issued);
+    }
+    mla_cp_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < MLA_STAGES - 1; ++k) issue();
+
+  // ldmatrix row addresses: A (Q) and B (c for the scores) non-transposed,
+  // c for the context transposed
+  const bf16* qa = qs + (hg * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld
+                   + (lane >> 4) * 8;
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8;
+  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+  const int ksteps = kp / 16;
+  const bool heads = h0 + hg * 16 < n_heads;    // warp-uniform
+  const int ncols = lat - col0;                 // the warp's columns (<= 0:
+  //                                               none)
+  float o[16][4];
+#pragma unroll
+  for (int d = 0; d < 16; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+  for (int c = 0; c < n_chunks; ++c) {
+    mla_cp_wait<MLA_STAGES - 2>();
+    __syncthreads();   // chunk c landed; every warp is done with chunk c - 1
+    issue();           // into chunk c - 1's slot
+    const bf16* ct = cs + (c % MLA_STAGES) * MLA_CH * ld;
+    // 3. the warp's half of the k-steps (kk = half, half + 2, ...) in
+    // four accumulators, step i into acc[i % 4]: every fragment of four
+    // steps is loaded before their mma, so eight mma chains are in flight
+    float acc[4][2][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[q][n][e] = 0.0f;
+    if (heads) {
+      const bf16* kt = ct + k_off;
+      int kk = half;
+      for (; kk + 6 < ksteps; kk += 8) {
+        uint32_t a[4][4], b[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mla_score_frags(a[q], b[q], qa, kt, kk + 2 * q);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mla_score_mma(acc[q], a[q], b[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        if (kk + 2 * q < ksteps) {
+          uint32_t a[4], b[4];
+          mla_score_frags(a, b, qa, kt, kk + 2 * q);
+          mla_score_mma(acc[q], a, b);
+        }
+    }
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = (acc[0][n][e] + acc[1][n][e])
+                  + (acc[2][n][e] + acc[3][n][e]);
+    float4* mine4 = reinterpret_cast<float4*>(xs + (warp * 32 + lane) * 8);
+    mine4[0] = make_float4(s[0][0], s[0][1], s[0][2], s[0][3]);
+    mine4[1] = make_float4(s[1][0], s[1][1], s[1][2], s[1][3]);
+    __syncthreads();
+    const float4* other =
+        reinterpret_cast<const float4*>(xs + ((warp ^ 4) * 32 + lane) * 8);
+    const float4 x0 = other[0], x1 = other[1];
+    const float ox[2][4] = {{x0.x, x0.y, x0.z, x0.w}, {x1.x, x1.y, x1.z, x1.w}};
+    // the two halves' sum (the same bits in both warps), scaled; positions
+    // after pos or past the split are -inf
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = c * MLA_CH + n * 8 + tg * 2 + (e & 1);
+        s[n][e] = j < nv ? (s[n][e] + ox[n][e]) * scale : -INFINITY;
+      }
+    // 4. the online softmax, in float, rows g and g + 8
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float corr = expf(m[i] - mx[i]);     // 0 on the first chunk
+      m[i] = mx[i];
+      l[i] *= corr;
+#pragma unroll
+      for (int d = 0; d < 16; ++d) {
+        o[d][2 * i] *= corr;
+        o[d][2 * i + 1] *= corr;
+      }
+    }
+    // p = exp(s - m), summed in float, then as bf16 hi + lo A fragments
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = expf(s[n][e] - mx[e >> 1]);
+      l[0] += p[0] + p[1];
+      l[1] += p[2] + p[3];
+      bf16 hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mla_split(p[e], hi[e], lo[e]);
+      ph[2 * n] = mla_pack(hi[0], hi[1]);
+      ph[2 * n + 1] = mla_pack(hi[2], hi[3]);
+      pl[2 * n] = mla_pack(lo[0], lo[1]);
+      pl[2 * n + 1] = mla_pack(lo[2], lo[3]);
+    }
+    // 5. o += p . c over the warp's columns, in two halves of 64: every
+    // fragment of a half is loaded first, then the hi products, then the
+    // lo ones (no mma waits on the one before it)
+    if (heads) {
+      const bf16* vt = ct + v_off + col0;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        uint32_t b[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if ((hf * 4 + q) * 16 < ncols)
+            mla_ldsm_x4_trans(b[q], vt + (hf * 4 + q) * 16);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if ((hf * 4 + q) * 16 < ncols) {
+            mla_mma(o[2 * (hf * 4 + q)], ph, b[q][0], b[q][1]);
+            mla_mma(o[2 * (hf * 4 + q) + 1], ph, b[q][2], b[q][3]);
+          }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if ((hf * 4 + q) * 16 < ncols) {
+            mla_mma(o[2 * (hf * 4 + q)], pl, b[q][0], b[q][1]);
+            mla_mma(o[2 * (hf * 4 + q) + 1], pl, b[q][2], b[q][3]);
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+
+  // 6. a slot walked by one split writes o / l; otherwise the partials,
+  // and the last split to arrive merges them in split order
+  const bool single = n_need == 1;
+  if (heads) {
+#pragma unroll
+    for (int d = 0; d < 16; ++d)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int h = h0 + hg * 16 + g + 8 * i;
+        const int col = col0 + d * 8 + tg * 2;
+        if (h >= n_heads || col >= lat) continue;
+        if (single) {
+          bf16* out = ctx + ((int64_t)t * n_heads + h) * lat + col;
+          out[0] = __float2bfloat16(o[d][2 * i] / l[i]);
+          if (col + 1 < lat) out[1] = __float2bfloat16(o[d][2 * i + 1] / l[i]);
+          continue;
+        }
+        float* out =
+            part_o + (((int64_t)t * n_heads + h) * n_split + split) * lat + col;
+        if ((lat & 1) == 0)        // col is even: 8 bytes, aligned
+          *reinterpret_cast<float2*>(out) =
+              make_float2(o[d][2 * i], o[d][2 * i + 1]);
+        else {
+          out[0] = o[d][2 * i];
+          if (col + 1 < lat) out[1] = o[d][2 * i + 1];
+        }
+      }
+    if (!single && half == 0 && tg == 0)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int h = h0 + hg * 16 + g + 8 * i;
+        if (h >= n_heads) continue;
+        float* ml = part_ml
+            + ((((int64_t)t * n_cb + cb) * n_heads + h) * n_split + split) * 2;
+        ml[0] = m[i];
+        ml[1] = l[i];
+      }
+  }
+  if (single) return;
+  __shared__ int merge;
+  __syncthreads();                // every thread's partial is written ...
+  if (tid == 0) {
+    // ... and, by one fence (cumulative over the barrier), visible before
+    // the ticket
+    __threadfence();
+    int* ticket = tickets + (int64_t)t * gridDim.x + blockIdx.x;
+    merge = atomicAdd(ticket, 1) == n_need - 1;
+    if (merge) *ticket = 0;       // every split of the group has arrived
+  }
+  __syncthreads();
+  if (!merge) return;
+  __threadfence();
+  // the merge, in split order.  First each head's split weights, w_s =
+  // e^(m_s - M) / sum_s' l_s' e^(m_s' - M), M = max_s m_s, into shared
+  // memory (free now; MLA_MAX_SPLIT x MLA_HT floats fit the exchange
+  // room alone) ...
+  float* wsm = reinterpret_cast<float*>(mla_smem);
+  for (int i = tid; i < MLA_HT; i += blockDim.x) {
+    const int h = h0 + i;
+    if (h >= n_heads) continue;
+    const float* ml =
+        part_ml + (((int64_t)t * n_cb + cb) * n_heads + h) * n_split * 2;
+    float mm = -INFINITY;
+    for (int sp = 0; sp < n_need; ++sp) mm = fmaxf(mm, __ldcg(ml + 2 * sp));
+    float ll = 0.0f;
+    for (int sp = 0; sp < n_need; ++sp)
+      ll += __ldcg(ml + 2 * sp + 1) * expf(__ldcg(ml + 2 * sp) - mm);
+    for (int sp = 0; sp < n_need; ++sp)
+      wsm[i * n_need + sp] = expf(__ldcg(ml + 2 * sp) - mm) / ll;
+  }
+  __syncthreads();
+  // ... then o = sum_s o_s w_s, four columns of MLA_G groups a thread in
+  // each of two passes: the groups' loads of one split are all in flight
+  // at once
+  constexpr int G4 = MLA_CB / 4, MLA_G = MLA_HT * G4 / NT / 2;
+  const bool v4 = lat % 4 == 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    float a[MLA_G][4];
+#pragma unroll
+    for (int k = 0; k < MLA_G; ++k) a[k][0] = a[k][1] = a[k][2] = a[k][3] = 0.0f;
+    for (int s0 = 0; s0 < n_need; s0 += 2) {
+      float4 x[2][MLA_G];               // every load of two splits first
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int k = 0; k < MLA_G; ++k) {
+          const int i = tid + (pass * MLA_G + k) * NT, hl = i / G4;
+          const int h = h0 + hl, c = cb * MLA_CB + (i - hl * G4) * 4;
+          const float* po = part_o
+              + (((int64_t)t * n_heads + h) * n_split + s0 + j) * lat + c;
+          x[j][k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (s0 + j >= n_need || h >= n_heads || c >= lat) continue;
+          if (v4) {
+            x[j][k] = __ldcg(reinterpret_cast<const float4*>(po));
+          } else {
+            float* xe = reinterpret_cast<float*>(&x[j][k]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (c + e < lat) xe[e] = __ldcg(po + e);
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (s0 + j >= n_need) break;
+#pragma unroll
+        for (int k = 0; k < MLA_G; ++k) {       // splits in order
+          const int hl = (tid + (pass * MLA_G + k) * NT) / G4;
+          const float w = wsm[hl * n_need + s0 + j];
+          a[k][0] = fmaf(x[j][k].x, w, a[k][0]);
+          a[k][1] = fmaf(x[j][k].y, w, a[k][1]);
+          a[k][2] = fmaf(x[j][k].z, w, a[k][2]);
+          a[k][3] = fmaf(x[j][k].w, w, a[k][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < MLA_G; ++k) {
+      const int i = tid + (pass * MLA_G + k) * NT, hl = i / G4;
+      const int h = h0 + hl, c = cb * MLA_CB + (i - hl * G4) * 4;
+      if (h >= n_heads) continue;
+      bf16* out = ctx + ((int64_t)t * n_heads + h) * lat;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < lat) out[c + e] = __float2bfloat16(a[k][e]);
+    }
+  }
+}
+
+int launch_mla_mma(const void* q_eff, const void* q_rope, const void* c_new,
+                   const void* r_new, void* c_pool, void* r_pool,
+                   const int* page_rows, const int* pos, void* ctx,
+                   float* part_ml, float* part_o, int* tickets, int bs,
+                   int n_heads, int lat, int rope, int ps, int max_pages,
+                   int n_pages, int pps, int vec, float scale, void* stream) {
+  if (lat < 1 || lat > MLA_MAX_LAT || rope < 1 || rope > MLA_MAX_ROPE
+      || n_heads < 1 || ps < 1 || pps < 1 || max_pages < 1
+      || (max_pages + pps - 1) / pps > MLA_MAX_SPLIT)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = mla_mma_smem_bytes(lat, rope);
+  const cudaError_t err = cudaFuncSetAttribute(
+      mla_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_ht = (n_heads + MLA_HT - 1) / MLA_HT;
+  const int n_cb = (lat + MLA_CB - 1) / MLA_CB;
+  const dim3 grid(n_ht * n_cb, bs, (max_pages + pps - 1) / pps);
+  mla_mma_kernel<<<grid, MLA_MMA_WARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const bf16*)q_eff, (const bf16*)q_rope, (const bf16*)c_new,
+      (const bf16*)r_new, (bf16*)c_pool, (bf16*)r_pool, page_rows, pos,
+      (bf16*)ctx, part_ml, part_o, tickets, n_heads, lat, rope, ps, max_pages,
+      n_pages, pps, n_cb, vec, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -557,16 +1141,23 @@ int pa_mla_decode_f32(const void* q_eff, const void* q_rope,
                            max_pages, n_pages, scale, stream);
 }
 
+// bf16 (the tensor-core kernel): scratch from the wrapper, part_ml (bs,
+// ceil(lat / MLA_CB), n_heads, n_split, 2) and part_o (bs, n_heads,
+// n_split, lat) float, n_split = ceil(max_pages / pps); tickets (bs,
+// ceil(n_heads / MLA_HT) * ceil(lat / MLA_CB)) int32, zero before the
+// launch and left zero.  vec: lat and rope are multiples of 8 and every
+// operand starts on 16 bytes.
 int pa_mla_decode_bf16(const void* q_eff, const void* q_rope,
                        const void* c_new, const void* r_new, void* c_pool,
                        void* r_pool, const int* page_rows, const int* pos,
-                       void* ctx, int bs, int n_heads, int lat, int rope,
-                       int ps, int max_pages, int n_pages, float scale,
-                       void* stream) {
-  return launch_mla<__nv_bfloat16>(q_eff, q_rope, c_new, r_new, c_pool,
-                                   r_pool, page_rows, pos, ctx, bs, n_heads,
-                                   lat, rope, ps, max_pages, n_pages, scale,
-                                   stream);
+                       void* ctx, float* part_ml, float* part_o,
+                       int* tickets, int bs, int n_heads, int lat, int rope,
+                       int ps, int max_pages, int n_pages, int pps, int vec,
+                       float scale, void* stream) {
+  return launch_mla_mma(q_eff, q_rope, c_new, r_new, c_pool, r_pool,
+                        page_rows, pos, ctx, part_ml, part_o, tickets, bs,
+                        n_heads, lat, rope, ps, max_pages, n_pages, pps, vec,
+                        scale, stream);
 }
 
 }  // extern "C"

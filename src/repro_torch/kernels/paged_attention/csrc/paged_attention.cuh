@@ -13,10 +13,21 @@
                             //      least one: max(1, 32 / ps) pages)
 #define PA_MAX_HD 256       // the wrappers refuse wider heads
 
-#define MLA_WARPS 8         // K11: query heads a block serves, a warp each
-#define MLA_CHUNK 32        // K11: positions staged at once, a score a lane
-#define MLA_MAX_LAT 512     // K11: latent width, 16 accumulators a lane
-#define MLA_MAX_ROPE 64     // K11: RoPE width, 2 query values a lane
+#define MLA_WARPS 8         // K11 fp32: query heads a block serves, a warp
+                            //           each
+#define MLA_CHUNK 32        // K11 fp32: positions staged at once, a score a
+                            //           lane
+#define MLA_MAX_LAT 512     // K11: latent width (fp32: 16 accumulators a
+                            //      lane; bf16: two blocks of 256 columns)
+#define MLA_MAX_ROPE 64     // K11: RoPE width, 2 query values a lane (fp32)
+
+#define MLA_MMA_WARPS 8     // K11 bf16: 4 head groups x 2 column halves
+#define MLA_HT 64           // K11 bf16: heads a block (4 m16 tiles)
+#define MLA_CB 256          // K11 bf16: latent columns a block (2 x 128)
+#define MLA_CH 16           // K11 bf16: positions a chunk (one k16 of p.c)
+#define MLA_STAGES 4        // K11 bf16: chunks in the cp.async ring
+#define MLA_BLOCKS 128      // K11 bf16: blocks the split aims at (132 SMs)
+#define MLA_MAX_SPLIT 32    // K11 bf16: splits at most (the merge's weights)
 
 template <typename T>
 __device__ __forceinline__ float pa_to_float(T x);

@@ -1,7 +1,8 @@
 """ctypes binding of the hand-written paged decode kernels in
 ``csrc/paged_attention.cu``: K10 (GQA), which replaces
 ``repro/kernels/paged_attention/kernel.py::paged_gqa_call``, and K11
-(weight-absorbed MLA), which replaces ``::paged_mla_call``.
+(weight-absorbed MLA), which replaces ``::paged_mla_call`` (bf16 on the
+tensor cores, float32 on the CUDA cores).
 
 The library is built from that source by ``repro_torch._build`` at the
 first launch, never at import, so this module imports on a machine with
@@ -30,9 +31,16 @@ GROUP = 4          # PA_GROUP in csrc/paged_attention.cuh: heads a block
 SPLIT_POS = 32     # PA_SPLIT_POS: positions a split walks (whole pages)
 MAX_HD = 256       # PA_MAX_HD
 MAX_SMEM = 227 * 1024
-MLA_CHUNK = 32     # MLA_CHUNK: positions K11 stages at once
-MLA_MAX_LAT = 512  # MLA_MAX_LAT: 16 accumulators a lane
+MLA_CHUNK = 32     # MLA_CHUNK: positions K11 (fp32) stages at once
+MLA_MAX_LAT = 512  # MLA_MAX_LAT
 MLA_MAX_ROPE = 64  # MLA_MAX_ROPE
+MLA_HT = 64        # MLA_HT: heads a K11 bf16 block (4 m16 tiles)
+MLA_CB = 256       # MLA_CB: latent columns a K11 bf16 block
+MLA_CH = 16        # MLA_CH: positions a K11 bf16 chunk
+MLA_STAGES = 4     # MLA_STAGES: chunks in the K11 bf16 cp.async ring
+MLA_BLOCKS = 128   # MLA_BLOCKS: blocks the K11 bf16 split aims at
+MLA_MAX_SPLIT = 32  # MLA_MAX_SPLIT: K11 bf16 splits at most
+MLA_SPLIT_CHUNKS = 4   # K11 bf16: chunks of MLA_CH a split walks at least
 
 # kernel launches, and plain-version calls taken because the tensors lay on
 # the CPU; chip_smoke.py zeroes both before the main path and reads them
@@ -45,9 +53,10 @@ _LIB = None
 _P, _I, _F = _binding.P, _binding.I, _binding.F
 _ARGS = (_P,) * 11 + (_I,) * 8 + (_F, _P)
 _MLA_ARGS = (_P,) * 9 + (_I,) * 7 + (_F, _P)
+_MLA_MMA_ARGS = (_P,) * 12 + (_I,) * 9 + (_F, _P)
 _SIGNATURES = {"pa_gqa_decode_f32": _ARGS, "pa_gqa_decode_bf16": _ARGS,
                "pa_mla_decode_f32": _MLA_ARGS,
-               "pa_mla_decode_bf16": _MLA_ARGS}
+               "pa_mla_decode_bf16": _MLA_MMA_ARGS}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -138,23 +147,68 @@ def paged_gqa(q, k_new, v_new, k_pool, v_pool, page_rows, pos, o) -> None:
     count(LAUNCHES, "paged_gqa")
 
 
-def mla_smem_bytes(lat: int, rope: int) -> int:
-    """Dynamic shared memory of one K11 block (the launcher's formula)."""
+def mla_smem_bytes(lat: int, rope: int,
+                   dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one K11 block (the launchers' formulas).
+    bf16: the block's MLA_HT queries and a ring of MLA_STAGES
+    MLA_CH-position chunks, rows of the padded width (lat + rope rounded up
+    to 16, plus 8), and the score exchange of its 8 warps; float32:
+    MLA_CHUNK rows as float."""
+    if dtype == torch.bfloat16:
+        ld = -(-(lat + rope) // 16) * 16 + 8
+        return 2 * (MLA_HT + MLA_STAGES * MLA_CH) * ld + 4 * 8 * 32 * 8
     return 4 * MLA_CHUNK * (lat + rope)
+
+
+def mla_pages_per_split(bs: int, n_heads: int, lat: int, max_pages: int,
+                        page_size: int) -> int:
+    """Listed pages one K11 bf16 split walks: the slots' (head tile,
+    column block) units times the splits come to about ``MLA_BLOCKS``
+    blocks, at most ``MLA_MAX_SPLIT`` splits, each of at least
+    ``MLA_SPLIT_CHUNKS`` chunks of the longest walk the rows hold (a split
+    costs its queries' staging and a merge), from the page rows' width
+    alone (no read of pos)."""
+    units = bs * -(-n_heads // MLA_HT) * -(-lat // MLA_CB)
+    chunks = -(-max_pages * page_size // MLA_CH)
+    want = max(1, min(max_pages, MLA_MAX_SPLIT, MLA_BLOCKS // max(units, 1),
+                      -(-chunks // MLA_SPLIT_CHUNKS)))
+    return -(-max_pages // want)
 
 
 def paged_mla(q_eff, q_rope, c_new, r_new, c_pool, r_pool, page_rows, pos,
               ctx, scale: float) -> None:
     """ctx (bs, H, lat) <- the walk; the new latent and RoPE cells land in
-    the pools in place.  All operands checked by the caller."""
+    the pools in place.  All operands checked by the caller.  In bf16 the
+    partials of the split walk go to scratch allocated here; the grid is
+    sized from ``page_rows.shape[1]``, so nothing is read back from the
+    card."""
     bs, n_heads, lat = q_eff.shape
     n_pages, ps, _ = c_pool.shape
+    rope, max_pages = q_rope.shape[2], page_rows.shape[1]
     ptr = _binding.ptr
     fn = getattr(lib(), f"pa_mla_decode_{_SUFFIX[q_eff.dtype]}")
-    _binding.check(fn(ptr(q_eff), ptr(q_rope), ptr(c_new), ptr(r_new),
-                      ptr(c_pool), ptr(r_pool), ptr(page_rows), ptr(pos),
-                      ptr(ctx), bs, n_heads, lat, q_rope.shape[2], ps,
-                      page_rows.shape[1], n_pages, scale,
-                      _binding.stream()),
-                   "paged_mla")
+    if q_eff.dtype == torch.bfloat16:
+        pps = mla_pages_per_split(bs, n_heads, lat, max_pages, ps)
+        n_split = -(-max_pages // pps)
+        n_cb = -(-lat // MLA_CB)
+        part_ml = torch.empty((bs, n_cb, n_heads, n_split, 2),
+                              dtype=torch.float32, device=q_eff.device)
+        part_o = torch.empty((bs, n_heads, n_split, lat),
+                             dtype=torch.float32, device=q_eff.device)
+        tickets = _tickets(q_eff.device,
+                           bs * -(-n_heads // MLA_HT) * n_cb)
+        operands = (q_eff, q_rope, c_new, r_new, c_pool, r_pool)
+        vec = (lat % 8 == 0 and rope % 8 == 0
+               and all(x.data_ptr() % 16 == 0 for x in operands))
+        err = fn(ptr(q_eff), ptr(q_rope), ptr(c_new), ptr(r_new),
+                 ptr(c_pool), ptr(r_pool), ptr(page_rows), ptr(pos),
+                 ptr(ctx), ptr(part_ml), ptr(part_o), ptr(tickets), bs,
+                 n_heads, lat, rope, ps, max_pages, n_pages, pps, int(vec),
+                 scale, _binding.stream())
+    else:
+        err = fn(ptr(q_eff), ptr(q_rope), ptr(c_new), ptr(r_new),
+                 ptr(c_pool), ptr(r_pool), ptr(page_rows), ptr(pos),
+                 ptr(ctx), bs, n_heads, lat, rope, ps, max_pages, n_pages,
+                 scale, _binding.stream())
+    _binding.check(err, "paged_mla")
     count(LAUNCHES, "paged_mla")

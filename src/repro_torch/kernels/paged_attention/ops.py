@@ -153,7 +153,7 @@ def check_mla_operands(q_eff, q_rope, c_new, r_new, c_pool, r_pool,
         raise ValueError(f"K11 takes a latent width up to "
                          f"{kernel.MLA_MAX_LAT} and a RoPE width up to "
                          f"{kernel.MLA_MAX_ROPE}, got {lat} and {rope}")
-    if kernel.mla_smem_bytes(lat, rope) > kernel.MAX_SMEM:
+    if kernel.mla_smem_bytes(lat, rope, q_eff.dtype) > kernel.MAX_SMEM:
         raise ValueError(f"lat {lat} + rope {rope} does not fit in shared "
                          f"memory")
 

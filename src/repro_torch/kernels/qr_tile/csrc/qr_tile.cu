@@ -23,11 +23,19 @@
 // register-blocked 4 x 4 a thread from float4 shared-memory reads — and
 // the walk is one launch, so no phase waits on a host launch.  Two blocks
 // fit an SM (six 18 KB tile slots at b = 64); the grid is every resident
-// block (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), capped at
-// the longest phase, and a phase with more rows than the grid takes them
-// in turns.  A tile a row reads may have been written by another SM in an
-// earlier phase, and L1 is not coherent across SMs: every tile and T load
-// bypasses L1 (__ldcg); the grid barrier orders the writes.
+// block (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, for the
+// shared memory the body that runs takes), capped at the longest phase,
+// and a phase with more rows than the grid takes them in turns.  A tile a
+// row reads may have been written by another SM in an earlier phase, and
+// L1 is not coherent across SMs: every tile and T load bypasses L1
+// (__ldcg); the grid barrier orders the writes.
+//
+// Tiles wider than QR_MAX_B run the wide bodies of qr_tile.cuh on the
+// tiles in global memory, in place, with qr_wide_floats(b) floats of
+// global scratch a block from the wrapper (ws): every kernel and the walk
+// choose the body by b, so at any b the four modes run one body per op.
+// The per-op kernels copy their inputs into their outputs and run the
+// body there, as the walk runs it on the tile stack.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,9 +95,39 @@ __device__ __forceinline__ void store_vec(float* dst, const float* src,
   for (int i = threadIdx.x; i < b; i += QR_THREADS) dst[i] = src[i];
 }
 
+// b > QR_MAX_B: a (b,b) tile global -> global, ahead of a wide body that
+// works on dst in place (the caller syncs)
+__device__ __forceinline__ void copy_tile(float* dst, const float* src,
+                                          int b) {
+  const size_t n = (size_t)b * b;
+  for (size_t e = threadIdx.x; e < n; e += QR_THREADS)
+    qr_gs(dst + e, qr_gl(src + e));
+}
+
+// this block's global scratch of the wide bodies: W (b x b), u, taus
+struct Wide {
+  float *w, *u, *taus;
+};
+
+__device__ __forceinline__ Wide qr_wide(float* ws, int b) {
+  Wide x;
+  x.w = ws + (size_t)blockIdx.x * qr_wide_floats(b);
+  x.u = x.w + (size_t)b * b;
+  x.taus = x.u + b;
+  return x;
+}
+
 __global__ void __launch_bounds__(QR_THREADS, 2)
-geqrf_kernel(const float* a, float* rv, float* tau, float* t, int b) {
+geqrf_kernel(const float* a, float* rv, float* tau, float* t, float* ws,
+             int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
+  if (b > QR_MAX_B) {
+    copy_tile(rv + off, a + off, b);
+    __syncthreads();
+    geqrf_wide(rv + off, t + off, tau + (size_t)blockIdx.x * b,
+               qr_wide(ws, b).u, qr_smem, b);
+    return;
+  }
   Slots s = qr_slots(b);
   load_tile(s.t[0], a + off, b);
   __syncthreads();
@@ -101,8 +139,16 @@ geqrf_kernel(const float* a, float* rv, float* tau, float* t, int b) {
 
 __global__ void __launch_bounds__(QR_THREADS, 2)
 tsqrf_kernel(const float* r, const float* a, float* r1, float* v2,
-             float* tau, float* t, int b) {
+             float* tau, float* t, float* ws, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
+  if (b > QR_MAX_B) {
+    copy_tile(r1 + off, r + off, b);
+    copy_tile(v2 + off, a + off, b);
+    __syncthreads();
+    tsqrf_wide(r1 + off, v2 + off, t + off, tau + (size_t)blockIdx.x * b,
+               qr_wide(ws, b).u, qr_smem, b);
+    return;
+  }
   Slots s = qr_slots(b);
   load_tile(s.t[0], r + off, b);
   load_tile(s.t[1], a + off, b);
@@ -116,8 +162,14 @@ tsqrf_kernel(const float* r, const float* a, float* r1, float* v2,
 
 __global__ void __launch_bounds__(QR_THREADS, 2)
 apply_qt_kernel(const float* rv, const float* t, const float* c, float* out,
-                int b) {
+                float* ws, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
+  if (b > QR_MAX_B) {
+    copy_tile(out + off, c + off, b);
+    __syncthreads();
+    apply_qt_wide(rv + off, t + off, out + off, qr_wide(ws, b).w, b);
+    return;
+  }
   Slots s = qr_slots(b);
   load_tile(s.t[0], rv + off, b);
   load_tile(s.t[1], t + off, b);
@@ -129,8 +181,16 @@ apply_qt_kernel(const float* rv, const float* t, const float* c, float* out,
 
 __global__ void __launch_bounds__(QR_THREADS, 2)
 apply_tsqt_kernel(const float* v2, const float* t, const float* c1,
-                  const float* c2, float* o1, float* o2, int b) {
+                  const float* c2, float* o1, float* o2, float* ws, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
+  if (b > QR_MAX_B) {
+    copy_tile(o1 + off, c1 + off, b);
+    copy_tile(o2 + off, c2 + off, b);
+    __syncthreads();
+    apply_tsqt_wide(v2 + off, t + off, o1 + off, o2 + off, qr_wide(ws, b).w,
+                    b);
+    return;
+  }
   Slots s = qr_slots(b);
   load_tile(s.t[0], v2 + off, b);
   load_tile(s.t[1], t + off, b);
@@ -140,6 +200,32 @@ apply_tsqt_kernel(const float* v2, const float* t, const float* c1,
   apply_tsqt_tile(s.t[0], s.t[1], s.t[2], s.t[3], s.t[4], s.t[5], b);
   store_tile(o1 + off, s.t[2], b);
   store_tile(o2 + off, s.t[3], b);
+}
+
+// One row [etype, s0, s1, s2] of the table, by the whole block, b >
+// QR_MAX_B: the wide bodies on the tile stack in place.
+__device__ __forceinline__ void qr_row_wide(const int* row, float* tiles,
+                                            float* tmat, const Wide& w,
+                                            int b) {
+  const size_t bb = (size_t)b * b;
+  const size_t s0 = row[1] * bb, s1 = row[2] * bb, s2 = row[3] * bb;
+  switch (row[0]) {
+    case 0:  // GEQRF [kk]
+      geqrf_wide(tiles + s0, tmat + s0, w.taus, w.u, qr_smem, b);
+      break;
+    case 1:  // LARFT [kk, kj]
+      apply_qt_wide(tiles + s0, tmat + s0, tiles + s1, w.w, b);
+      break;
+    case 2:  // TSQRF [kk, ik]
+      tsqrf_wide(tiles + s0, tiles + s1, tmat + s1, w.taus, w.u, qr_smem, b);
+      break;
+    case 3:  // SSRFT [ik, kj, ij]
+      apply_tsqt_wide(tiles + s0, tmat + s0, tiles + s1, tiles + s2, w.w, b);
+      break;
+    default:  // QR_NOOP and anything out of range: no-op
+      break;
+  }
+  __syncthreads();
 }
 
 // One row [etype, s0, s1, s2] of the table, by the whole block.
@@ -195,16 +281,24 @@ __device__ __forceinline__ void qr_row(const int* row, float* tiles,
 // coloring guarantees the rows of a phase touch disjoint tiles, so they
 // may run in any order and on any block; the grid barrier makes phase p's
 // stores visible before phase p + 1 loads.  tiles and tmat are (ntiles,
-// b, b) stacks in column-major tile order, updated in place.
+// b, b) stacks in column-major tile order, updated in place.  ws: the wide
+// bodies' scratch, qr_wide_floats(b) floats a block (b > QR_MAX_B only).
 __global__ void __launch_bounds__(QR_THREADS, 2)
 qr_walk_kernel(const int* __restrict__ desc, const int* __restrict__ offs,
-               int nphases, int width, float* tiles, float* tmat, int b) {
+               int nphases, int width, float* tiles, float* tmat, float* ws,
+               int b) {
   cg::grid_group grid = cg::this_grid();
+  const bool wide = b > QR_MAX_B;
   const Slots s = qr_slots(b);
+  const Wide w = qr_wide(ws, b);
   for (int p = 0; p < nphases; ++p) {
     const int q1 = offs[p + 1];
-    for (int q = offs[p] + blockIdx.x; q < q1; q += gridDim.x)
-      qr_row(desc + (size_t)q * width, tiles, tmat, s, b);
+    for (int q = offs[p] + blockIdx.x; q < q1; q += gridDim.x) {
+      if (wide)
+        qr_row_wide(desc + (size_t)q * width, tiles, tmat, w, b);
+      else
+        qr_row(desc + (size_t)q * width, tiles, tmat, s, b);
+    }
     if (p + 1 < nphases) grid.sync();
   }
 }
@@ -235,6 +329,12 @@ int qr_init(void) {
 
 int qr_max_b(void) { return QR_MAX_B; }
 
+// floats of global scratch a block of tile size b takes (0 at b <=
+// QR_MAX_B, whose bodies stay in shared memory)
+long long qr_scratch_floats(int b) {
+  return b > QR_MAX_B ? (long long)qr_wide_floats(b) : 0;
+}
+
 int qr_threads(void) { return QR_THREADS; }
 
 // Blocks of qr_walk resident on the current card at tile size b: the
@@ -251,49 +351,59 @@ int qr_walk_grid(int b, int* blocks) {
   return (int)err;
 }
 
-int qr_geqrf(const float* a, float* rv, float* tau, float* t, int n, int b,
-             void* stream) {
+// The per-op launchers: n tiles, one block each; ws holds n x
+// qr_scratch_floats(b) floats (unused, and may be null, at b <= QR_MAX_B).
+int qr_geqrf(const float* a, float* rv, float* tau, float* t, float* ws,
+             int n, int b, void* stream) {
   geqrf_kernel<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(
-      a, rv, tau, t, b);
+      a, rv, tau, t, ws, b);
   return (int)cudaGetLastError();
 }
 
 int qr_tsqrf(const float* r, const float* a, float* r1, float* v2,
-             float* tau, float* t, int n, int b, void* stream) {
+             float* tau, float* t, float* ws, int n, int b, void* stream) {
   tsqrf_kernel<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(
-      r, a, r1, v2, tau, t, b);
+      r, a, r1, v2, tau, t, ws, b);
   return (int)cudaGetLastError();
 }
 
 int qr_apply_qt(const float* rv, const float* t, const float* c, float* out,
-                int n, int b, void* stream) {
+                float* ws, int n, int b, void* stream) {
   apply_qt_kernel<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(
-      rv, t, c, out, b);
+      rv, t, c, out, ws, b);
   return (int)cudaGetLastError();
 }
 
 int qr_apply_tsqt(const float* v2, const float* t, const float* c1,
-                  const float* c2, float* o1, float* o2, int n, int b,
-                  void* stream) {
+                  const float* c2, float* o1, float* o2, float* ws, int n,
+                  int b, void* stream) {
   apply_tsqt_kernel<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(
-      v2, t, c1, c2, o1, o2, b);
+      v2, t, c1, c2, o1, o2, ws, b);
   return (int)cudaGetLastError();
 }
 
 // The whole plan: nphases phases, offs[0 .. nphases] the device row
 // offsets, max_rows the longest phase.  One cooperative launch of
 // min(resident blocks, max_rows) blocks; a refused launch (for example
-// cudaErrorCooperativeLaunchTooLarge) is returned, never retried.
+// cudaErrorCooperativeLaunchTooLarge) is returned, never retried.  At b >
+// QR_MAX_B, ws holds ws_blocks x qr_scratch_floats(b) floats and the grid
+// is cut to ws_blocks.
 int qr_walk(const int* desc, const int* offs, int nphases, int max_rows,
-            int width, float* tiles, float* tmat, int b, void* stream) {
+            int width, float* tiles, float* tmat, float* ws, int ws_blocks,
+            int b, void* stream) {
   int resident = 0;
   const int err = qr_walk_grid(b, &resident);
   if (err != 0) return err;
   if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int blocks = max_rows < resident ? (max_rows > 0 ? max_rows : 1)
-                                         : resident;
+  int blocks = max_rows < resident ? (max_rows > 0 ? max_rows : 1)
+                                   : resident;
+  if (b > QR_MAX_B) {
+    if (ws_blocks < 1) return (int)cudaErrorInvalidValue;
+    blocks = blocks < ws_blocks ? blocks : ws_blocks;
+  }
   void* args[] = {(void*)&desc, (void*)&offs, (void*)&nphases,
-                  (void*)&width, (void*)&tiles, (void*)&tmat, (void*)&b};
+                  (void*)&width, (void*)&tiles, (void*)&tmat, (void*)&ws,
+                  (void*)&b};
   const cudaError_t launch = cudaLaunchCooperativeKernel(
       (const void*)qr_walk_kernel, dim3(blocks), dim3(QR_THREADS), args,
       smem_bytes(b), (cudaStream_t)stream);

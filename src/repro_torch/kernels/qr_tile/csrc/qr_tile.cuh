@@ -1,5 +1,7 @@
 // Tile kernels of the tiled QR (paper §4.1) as device functions, one (b,b)
-// float32 tile per thread block of QR_THREADS threads, b <= 64.
+// float32 tile per thread block of QR_THREADS threads.  Tiles of b <= 64
+// (QR_MAX_B) run the shared-memory bodies below; wider tiles run the
+// global-memory bodies at the end of this file (qr_*_wide).
 //
 // Replaces the bodies of the TPU kernels in src/repro/kernels/qr_tile/
 // kernel.py: geqrf_math, tsqrf_math, apply_qt_math and apply_tsqt_math.
@@ -52,7 +54,9 @@
 #include <cuda_runtime.h>
 
 #define QR_THREADS 256   // one blockDim for every entry point
-#define QR_MAX_B 64      // a panel holds 4 threads x 16 rows of a column
+#define QR_WARPS (QR_THREADS / 32)
+#define QR_MAX_B 64      // widest tile of the shared-memory bodies: a panel
+                         // holds 4 threads x 16 rows of a column
 #define QR_TILES 6       // shared-memory tile slots of every kernel
 #define QR_TB 16         // column block of the T build
 
@@ -63,9 +67,17 @@ __host__ __device__ inline int qr_slot_floats(int b) {
 }
 
 // floats of dynamic shared memory every entry point takes for tile size b:
-// QR_TILES tile slots, two Householder-vector buffers and the taus
+// QR_TILES tile slots, two Householder-vector buffers and the taus; above
+// QR_MAX_B only the wide bodies' reduction buffer
 __host__ __device__ inline int qr_smem_floats(int b) {
-  return QR_TILES * qr_slot_floats(b) + 3 * QR_MAX_B;
+  return b > QR_MAX_B ? QR_WARPS
+                      : QR_TILES * qr_slot_floats(b) + 3 * QR_MAX_B;
+}
+
+// floats of global scratch one block of a wide body (b > QR_MAX_B) takes:
+// a b x b tile W, a b-vector u and the b taus
+__host__ __device__ inline size_t qr_wide_floats(int b) {
+  return (size_t)b * b + 2 * (size_t)b;
 }
 
 struct QrHouse {
@@ -475,6 +487,220 @@ __device__ __noinline__ void apply_tsqt_tile(const float* V2, const float* T,
   if (mine) {                            // C2 -= V2 X
     qr_mm_tn(V2T, W, ld, b, r0, c0, acc);
     qr_sub_block(C2, ld, b, acc, r0, c0);
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// b > QR_MAX_B: the four ops on tiles in global memory (row-major, leading
+// dimension b), a simple form.  Six 128^2 tiles are 384 KB, beyond the
+// 227 KB of shared memory a block may have, so the operands stay where they
+// lie and the wrapper gives each block qr_wide_floats(b) floats of global
+// scratch (W, u, taus).  A panel's column j: sigma^2 by a block reduction
+// in a fixed order, the Householder scalars by every thread from the same
+// bits (with the reference's guards, qr_householder), then one thread a
+// trailing column takes its dot and its update down the rows; T is built
+// after the loop a column at a time from the Gram column u = V^T v_j.  The
+// applies give each thread one column of C: every column is independent,
+// so the three products run without a barrier.  Every tile load and store
+// goes past L1 (__ldcg / __stcg): in the walk another SM may have written
+// the tile in an earlier phase, and L1 is not coherent across SMs.  Each
+// result depends only on b and blockDim, never on gridDim or on the block.
+
+__device__ __forceinline__ float qr_gl(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ void qr_gs(float* p, float x) { __stcg(p, x); }
+
+// sum of every thread's x over the block in a fixed order (a butterfly in
+// each warp, then the warps' sums 0, 1, ...); every thread gets the same
+// bits.  red: QR_WARPS floats of shared memory.
+__device__ __forceinline__ float qr_block_sum(float x, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  __syncthreads();                       // red's last readers are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < QR_WARPS; ++w) s += red[w];
+  return s;
+}
+
+// T (b x b, upper triangular, zero below) from the reflectors V and taus:
+// T[:j, j] = -tau_j T[:j, :j] u, u = V[:, :j]^T v_j, T[j][j] = tau_j.  TS:
+// V is V2, dense (tsqrf: the top identity blocks add nothing to u); else V
+// is the strict lower part of A with a unit diagonal (geqrf).  Thread c
+// owns row c of T.  u: b floats of scratch.
+template <bool TS>
+__device__ __forceinline__ void qr_build_t_wide(const float* V, float* T,
+                                                const float* taus, float* u,
+                                                int b) {
+  const int tid = threadIdx.x;
+  for (int j = 0; j < b; ++j) {
+    for (int c = tid; c < j; c += QR_THREADS) {
+      float s = TS ? 0.0f : qr_gl(V + (size_t)j * b + c);   // v_c[j] * 1
+      for (int i = TS ? 0 : j + 1; i < b; ++i)
+        s = fmaf(qr_gl(V + (size_t)i * b + c), qr_gl(V + (size_t)i * b + j),
+                 s);
+      qr_gs(u + c, s);
+    }
+    __syncthreads();
+    const float tj = qr_gl(taus + j);
+    for (int c = tid; c < b; c += QR_THREADS) {
+      float x = c == j ? tj : 0.0f;
+      if (c < j) {
+        float s = 0.0f;
+        for (int k = c; k < j; ++k)
+          s = fmaf(qr_gl(T + (size_t)c * b + k), qr_gl(u + k), s);
+        x = -tj * s;
+      }
+      qr_gs(T + (size_t)c * b + j, x);
+    }
+    __syncthreads();                     // u is read before it is rewritten
+  }
+}
+
+// GEQRF, b > QR_MAX_B: A -> RV in place, T, taus (b floats).  u: b
+// floats of scratch; red: QR_WARPS floats of shared memory.
+__device__ __noinline__ void geqrf_wide(float* A, float* T, float* taus,
+                                        float* u, float* red, int b) {
+  const int tid = threadIdx.x;
+  for (int j = 0; j < b; ++j) {
+    float s = 0.0f;
+    for (int i = j + 1 + tid; i < b; i += QR_THREADS) {
+      const float x = qr_gl(A + (size_t)i * b + j);
+      s = fmaf(x, x, s);
+    }
+    const float sigma2 = qr_block_sum(s, red);
+    const QrHouse h = qr_householder(qr_gl(A + (size_t)j * b + j), sigma2);
+    for (int i = j + 1 + tid; i < b; i += QR_THREADS) {   // v below row j
+      float* p = A + (size_t)i * b + j;
+      qr_gs(p, qr_gl(p) * h.inv);
+    }
+    if (tid == 0) qr_gs(taus + j, h.tau);
+    __syncthreads();
+    for (int m = j + 1 + tid; m < b; m += QR_THREADS) {   // trailing columns
+      float* aj = A + (size_t)j * b + m;
+      float w = qr_gl(aj);                                // v_j = 1
+      for (int i = j + 1; i < b; ++i)
+        w = fmaf(qr_gl(A + (size_t)i * b + j), qr_gl(A + (size_t)i * b + m),
+                 w);
+      const float tw = h.tau * w;
+      qr_gs(aj, qr_gl(aj) - tw);
+      for (int i = j + 1; i < b; ++i) {
+        float* p = A + (size_t)i * b + m;
+        qr_gs(p, fmaf(-qr_gl(A + (size_t)i * b + j), tw, qr_gl(p)));
+      }
+    }
+    if (tid == 0) qr_gs(A + (size_t)j * b + j, h.beta);
+    __syncthreads();
+  }
+  qr_build_t_wide<false>(A, T, taus, u, b);
+}
+
+// TSQRF, b > QR_MAX_B: [R; A] -> R' (upper triangle of R in place; the
+// strict lower part is neither read nor written), V2 in place of A, T,
+// taus.  u: b floats of scratch; red: QR_WARPS floats of shared memory.
+__device__ __noinline__ void tsqrf_wide(float* R, float* A, float* T,
+                                        float* taus, float* u, float* red,
+                                        int b) {
+  const int tid = threadIdx.x;
+  for (int j = 0; j < b; ++j) {
+    float s = 0.0f;
+    for (int i = tid; i < b; i += QR_THREADS) {
+      const float x = qr_gl(A + (size_t)i * b + j);
+      s = fmaf(x, x, s);
+    }
+    const float sigma2 = qr_block_sum(s, red);
+    const QrHouse h = qr_householder(qr_gl(R + (size_t)j * b + j), sigma2);
+    for (int i = tid; i < b; i += QR_THREADS) {           // v2 in column j
+      float* p = A + (size_t)i * b + j;
+      qr_gs(p, qr_gl(p) * h.inv);
+    }
+    if (tid == 0) qr_gs(taus + j, h.tau);
+    __syncthreads();
+    for (int m = j + 1 + tid; m < b; m += QR_THREADS) {
+      float* rj = R + (size_t)j * b + m;
+      const float rpm = qr_gl(rj);
+      float w = rpm;                     // w = R[j][m] + v2 . A[:, m]
+      for (int i = 0; i < b; ++i)
+        w = fmaf(qr_gl(A + (size_t)i * b + j), qr_gl(A + (size_t)i * b + m),
+                 w);
+      qr_gs(rj, fmaf(-h.tau, w, rpm));
+      for (int i = 0; i < b; ++i) {
+        float* p = A + (size_t)i * b + m;
+        qr_gs(p, fmaf(-h.tau, qr_gl(A + (size_t)i * b + j) * w, qr_gl(p)));
+      }
+    }
+    if (tid == 0) qr_gs(R + (size_t)j * b + j, h.beta);
+    __syncthreads();
+  }
+  qr_build_t_wide<true>(A, T, taus, u, b);
+}
+
+// w <- T^T w for the column m of W (T upper triangular), in place from
+// the bottom row up: row r needs w[0 .. r] only
+__device__ __forceinline__ void qr_tt_column(const float* T, float* W, int m,
+                                             int b) {
+  for (int r = b - 1; r >= 0; --r) {
+    float s = 0.0f;
+    for (int k = 0; k <= r; ++k)
+      s = fmaf(qr_gl(T + (size_t)k * b + r), qr_gl(W + (size_t)k * b + m), s);
+    qr_gs(W + (size_t)r * b + m, s);
+  }
+}
+
+// LARFT apply, b > QR_MAX_B: C <- C - V (T^T (V^T C)), V the unit-lower
+// part of RV (read only).  W: b x b scratch; thread m owns column m.
+__device__ __noinline__ void apply_qt_wide(const float* RV, const float* T,
+                                           float* C, float* W, int b) {
+  for (int m = threadIdx.x; m < b; m += QR_THREADS) {
+    for (int k = 0; k < b; ++k) {        // W = V^T C
+      float s = qr_gl(C + (size_t)k * b + m);
+      for (int i = k + 1; i < b; ++i)
+        s = fmaf(qr_gl(RV + (size_t)i * b + k), qr_gl(C + (size_t)i * b + m),
+                 s);
+      qr_gs(W + (size_t)k * b + m, s);
+    }
+    qr_tt_column(T, W, m, b);            // W <- T^T W
+    for (int i = 0; i < b; ++i) {        // C -= V W
+      float s = qr_gl(W + (size_t)i * b + m);
+      for (int k = 0; k < i; ++k)
+        s = fmaf(qr_gl(RV + (size_t)i * b + k), qr_gl(W + (size_t)k * b + m),
+                 s);
+      float* p = C + (size_t)i * b + m;
+      qr_gs(p, qr_gl(p) - s);
+    }
+  }
+  __syncthreads();
+}
+
+// SSRFT apply, b > QR_MAX_B: W = T^T (C1 + V2^T C2); C1 -= W; C2 -= V2 W.
+// W: b x b scratch; thread m owns column m.
+__device__ __noinline__ void apply_tsqt_wide(const float* V2, const float* T,
+                                             float* C1, float* C2, float* W,
+                                             int b) {
+  for (int m = threadIdx.x; m < b; m += QR_THREADS) {
+    for (int k = 0; k < b; ++k) {        // W = C1 + V2^T C2
+      float s = 0.0f;
+      for (int i = 0; i < b; ++i)
+        s = fmaf(qr_gl(V2 + (size_t)i * b + k), qr_gl(C2 + (size_t)i * b + m),
+                 s);
+      qr_gs(W + (size_t)k * b + m, qr_gl(C1 + (size_t)k * b + m) + s);
+    }
+    qr_tt_column(T, W, m, b);            // X = T^T W
+    for (int k = 0; k < b; ++k) {        // C1 -= X
+      float* p = C1 + (size_t)k * b + m;
+      qr_gs(p, qr_gl(p) - qr_gl(W + (size_t)k * b + m));
+    }
+    for (int i = 0; i < b; ++i) {        // C2 -= V2 X
+      float s = 0.0f;
+      for (int k = 0; k < b; ++k)
+        s = fmaf(qr_gl(V2 + (size_t)i * b + k), qr_gl(W + (size_t)k * b + m),
+                 s);
+      float* p = C2 + (size_t)i * b + m;
+      qr_gs(p, qr_gl(p) - s);
+    }
   }
   __syncthreads();
 }

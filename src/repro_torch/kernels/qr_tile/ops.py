@@ -6,7 +6,7 @@ Each op takes one (b,b) tile or a stack of n tiles (n,b,b), float32:
   stack loops the single-tile function, so a batched call is bitwise equal
   to the calls it stands for;
 * on a CUDA tensor it launches the hand-written kernel (``kernel``), one
-  block per tile, after checking device, dtype, shape (b <= 64) and
+  block per tile, after checking device, dtype, shape (any b >= 1) and
   contiguity, and raises if the kernel cannot build or launch.  It never
   falls back to the plain version.
 
@@ -44,10 +44,7 @@ def check_tiles(*xs: torch.Tensor) -> int:
                              f"{[tuple(y.shape) for y in xs]}")
         if not x.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
-    if not 1 <= b <= kernel.MAX_B:
-        raise ValueError(f"tile size {b} not supported: the CUDA kernels "
-                         f"take b <= {kernel.MAX_B} (a panel holds each "
-                         f"column in 4 threads x 16 rows of registers)")
+    kernel.check_shape(b)
     return b
 
 

@@ -5,7 +5,8 @@ card).  No jax import, so the file runs on the machine with the H100:
 
 Each kernel is held against its plain PyTorch version on the same CUDA
 inputs, at the reference's kernel-vs-oracle tolerance (QR: atol 2e-5,
-rtol 1e-4, tests/test_kernels_qr.py; N-body: rtol 2e-4, atol 1e-5,
+rtol 1e-4, tests/test_kernels_qr.py, at every tile size, past 64 through
+the global-memory bodies; N-body: rtol 2e-4, atol 1e-5,
 tests/test_kernels_nbody.py).  Across the four execution modes the card's
 QR R is bitwise equal (one set of ``__device__`` functions, one
 blockDim); against the plain path on the CPU it agrees to atol
@@ -21,8 +22,9 @@ PyTorch's blocked reductions).  Barnes-Hut's
 modes sum in different orders (a leaf's COM sources in one launch or in
 rows of 8), so they agree within 1e-4 per particle, relative, with each
 other and with the CPU plain path (the reference's cross-mode tolerance).
-The paged decode kernels K10 (GQA) and K11 (MLA) are held to
-``PAGED_TOL``: the reference's in fp32, one output ulp in bf16.  The
+The paged decode kernels K10 (GQA) and K11 (MLA; bf16 on the tensor
+cores) are held to ``PAGED_TOL``: the reference's in fp32, one output ulp
+in bf16.  The
 pipeline walk K9 is held to its plain walk on every state buffer at the
 reference's pipeline tolerance (rtol 1e-5, atol 1e-6,
 tests/test_backends.py) and is bitwise repeatable; the four pipeline modes
@@ -71,7 +73,13 @@ def close(got, want):
         assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
 
 
-@pytest.mark.parametrize("b", [1, 7, 16, 32, 33, 64])
+# K1-K4 tile sizes: the shared-memory bodies' edges (1, 7, 16, 33, 64),
+# the reference tests' and run_qr's 32, and the global-memory bodies past
+# 64 (65, 96, 128, 256)
+QR_SIZES = [1, 7, 16, 32, 33, 64, 65, 96, 128, 256]
+
+
+@pytest.mark.parametrize("b", QR_SIZES)
 @pytest.mark.parametrize("n", [1, 8])
 def test_kernels_match_plain_on_card(cuda, b, n):
     """K1-K4 against their plain versions.  At batch 8 each op's dense
@@ -103,16 +111,23 @@ def test_ops_check_operands(cuda):
     with pytest.raises(ValueError, match="float32"):
         ops.apply_qt(*(torch.zeros((8, 8), device=cuda,
                                    dtype=torch.float64),) * 3)
-    big = torch.zeros((128, 128), device=cuda)
-    with pytest.raises(ValueError, match="b <= 64"):
-        ops.geqrf(big)
+    empty = torch.zeros((0, 0), device=cuda)
+    with pytest.raises(ValueError, match="b >= 1"):
+        ops.geqrf(empty)
+    rv, tau, t = ops.geqrf(torch.eye(128, device=cuda))   # b > 64 is taken
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(rv).all()) and bool((tau == 0).all())
     nc = torch.zeros((16, 32), device=cuda)[:, :16]
     with pytest.raises(ValueError, match="contiguous"):
         ops.geqrf(nc)
 
 
-@pytest.mark.parametrize("n,b", [(256, 32), (512, 64)])
+@pytest.mark.parametrize("n,b", [(256, 32), (512, 64), (1024, 128)])
 def test_modes_bitwise_equal_and_match_cpu(cuda, n, b):
+    """The four modes bitwise equal on the card (at 1024² / 128² through
+    the global-memory bodies), one walk launch a plan, R valid (Gram and
+    float64 LAPACK up to row signs, chip_smoke.py's limits) and close to
+    the plain path on the CPU."""
     a = np.random.default_rng(1).standard_normal((n, n)).astype(
         np.float32)
     kernel.reset_counts()
@@ -124,6 +139,13 @@ def test_modes_bitwise_equal_and_match_cpu(cuda, n, b):
     assert all(v == 0 for v in kernel.PLAIN_CALLS.values())
     for m in MODES[1:]:
         assert torch.equal(rs[m], rs["sequential"]), m
+    r, a64 = rs["engine"].double().cpu().numpy(), a.astype(np.float64)
+    assert np.isfinite(r).all() and np.abs(np.tril(r, -1)).max() == 0.0
+    gram = np.linalg.norm(r.T @ r - a64.T @ a64) / np.linalg.norm(a64) ** 2
+    r64 = np.linalg.qr(a64, mode="r")
+    sign = np.sign(np.diag(r)) * np.sign(np.diag(r64))
+    lapack = np.linalg.norm(r * sign[:, None] - r64) / np.linalg.norm(r64)
+    assert gram < 1e-5 and lapack < 1e-4, (gram, lapack)
     want = qr.run_qr(a, tile=b, mode="engine", device="cpu")[0].numpy()
     assert_allclose(rs["engine"].cpu().numpy(), want,
                     atol=1e-4 * np.abs(want).max(), rtol=1e-4)
@@ -176,18 +198,20 @@ def walk_once(tab, init):
     return tiles, tmat
 
 
-@pytest.mark.parametrize("n,b", [(256, 32), (1024, 16), (2048, 64)])
+@pytest.mark.parametrize("n,b", [(256, 32), (1024, 16), (2048, 64),
+                                 (1024, 128)])
 def test_walk_one_launch_matches_plain_walk(cuda, n, b):
     """K5 in one launch against the plain walk, per tile; at 1024²/16² the
     longest phase (1,135 rows) is longer than the resident grid, so blocks
-    take a phase's rows in turns."""
+    take a phase's rows in turns; at 1024²/128² the rows run the
+    global-memory bodies."""
     tab = qr_table(n, b)
     init = qr_stack(n, b, n + b, cuda)
     kernel.reset_counts()
     got = walk_once(tab, init)
     assert kernel.LAUNCHES["qr_walk"] == 1
     assert kernel.PLAIN_CALLS["qr_walk"] == 0
-    if n == 1024:
+    if (n, b) == (1024, 16):
         assert tab.stats["max_phase_len"] > kernel.walk_grid(b)
     want = tuple(x.clone() for x in init)
     engine.qr_walk_plain(tab.desc, tab.phase_offsets, *want)
@@ -228,6 +252,14 @@ def test_walk_refuses_bad_tables_on_card(cuda, fault):
 def test_walk_repeats_bitwise(cuda):
     tab = qr_table(512, 64)
     init = qr_stack(512, 64, 5, cuda)
+    first, again = walk_once(tab, init), walk_once(tab, init)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_walk_repeats_bitwise_wide_tiles(cuda):
+    """The global-memory bodies (b = 128) repeat bit for bit too."""
+    tab = qr_table(512, 128)
+    init = qr_stack(512, 128, 5, cuda)
     first, again = walk_once(tab, init), walk_once(tab, init)
     assert all(torch.equal(x, y) for x, y in zip(first, again))
 
@@ -286,6 +318,42 @@ def test_nbody_kernels_match_plain_on_card(cuda, ni, nj):
                  (strided, nb_ref.acc_pair_ref(xi[:, : ni // 2 + 1],
                                                xj[:, 1:], mj[1:]))):
         close_vec(g, w, axis=0)
+
+
+NB_SIZES = [1, 30, 37, 58, 100, 128, 463, 1000]
+
+
+@pytest.mark.parametrize("ni", NB_SIZES)
+def test_nbody_pair_kernels_every_size_on_card(cuda, ni):
+    """K6 at every (Ni, Nj) of NB_SIZES and K7 at Ni, with coincident
+    particles and zero masses, against their plain versions; each launch
+    again gives the same bits (the slices' partial sums add in a fixed
+    order)."""
+    xi, mi = cloud(ni, 3 * ni, cuda)
+    if ni > 2:
+        xi[:, 1] = xi[:, 0]            # two coincident targets
+        mi[ni // 2] = 0.0
+    got = nb_ops.acc_self(xi, mi)
+    assert torch.equal(got, nb_ops.acc_self(xi, mi))
+    close_vec(got, nb_ref.acc_self_ref(xi, mi), axis=0)
+    for nj in NB_SIZES:
+        xj, mj = cloud(nj, 3 * ni + nj, cuda)
+        xj[:, : min(3, nj)] = xi[:, :1]          # sources on a target
+        mj[nj - nj // 4:] = 0.0                  # a zero-mass tail
+        got = nb_ops.acc_pair(xi, xj, mj)
+        assert torch.equal(got, nb_ops.acc_pair(xi, xj, mj))
+        close_vec(got, nb_ref.acc_pair_ref(xi, xj, mj), axis=0)
+    torch.cuda.synchronize()
+
+
+def test_nbody_pair_kernel_without_sources_is_zero(cuda):
+    """The launch floor chip_smoke.py times: Nj = 0 through the binding."""
+    xi, _ = cloud(30, 0, cuda)
+    empty = torch.empty((3, 0), device=cuda)
+    out = torch.full((3, 30), float("nan"), device=cuda)
+    nb_kernel.acc_pair(xi, empty, torch.empty(0, device=cuda), 1e-4, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
 
 
 def bh_lowered(n, seed, n_max, n_task, device):
@@ -617,11 +685,85 @@ def test_paged_mla_kernel_matches_plain_at_serving_depth(cuda, dtype, ps):
     mla_check(ops_, rows, pos, ps, 192 ** -0.5)
 
 
+# bf16 through the tensor-core kernel: every width chip_smoke.py's
+# MLA_SHAPES holds (deepseek-v3-671b --reduced, the reference property
+# test's, the published), each at page 8 and 16, and widths off the
+# kernel's tiles: H 6 / lat 40 / rope 12 (rope not on 16 bytes: element
+# loads) and H 3 / lat 20 / rope 4
+MLA_BF16_SHAPES = [(4, 32, 16, 48 ** -0.5), (4, 16, 8, 24 ** -0.5),
+                   (128, 512, 64, 192 ** -0.5), (6, 40, 12, 0.1),
+                   (3, 20, 4, 0.2)]
+
+
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("n_heads,lat,rope,scale", MLA_BF16_SHAPES)
+def test_paged_mla_bf16_kernel_every_width_on_card(cuda, n_heads, lat, rope,
+                                                   scale, ps):
+    """K11 bf16 at bs 1, 3 and 8 against its plain version (unwalked pages
+    NaN: only listed pages are read); two launches bitwise equal."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    for bs in (1, 3, 8):
+        ops_, rows, pos = pa_ref.random_case(bs, ps, torch.bfloat16, bs + 40,
+                                             cuda, mla=True, n_heads=n_heads,
+                                             lat=lat, rope=rope)
+        again = [x.clone() for x in ops_]
+        mla_check(ops_, rows, pos, ps, scale)
+        first = pa_ops.paged_mla_decode(*[x.clone() for x in again],
+                                        page_size=ps, scale=scale)[0]
+        second = pa_ops.paged_mla_decode(*again, page_size=ps,
+                                         scale=scale)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_paged_mla_bf16_kernel_at_the_timed_shape(cuda):
+    """deepseek-v3-671b's published widths at 8 slots x 37 pages (position
+    288 of 320, workload (b)'s middle, chip_smoke.py's timed shape):
+    against the plain version, two launches bitwise equal, and a launch
+    for slot 0 alone leaves every other cell of both pools as it was."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    scale = 192 ** -0.5
+    ops_, rows, pos = pa_ref.random_case(8, 8, torch.bfloat16, 31, cuda,
+                                         mla=True, max_pages=40,
+                                         pos=[288] * 8, n_heads=128, lat=512,
+                                         rope=64)
+    again = [x.clone() for x in ops_]
+    mla_check(ops_, rows, pos, 8, scale)
+    a = pa_ops.paged_mla_decode(*[x.clone() for x in again], page_size=8,
+                                scale=scale)[0]
+    b = pa_ops.paged_mla_decode(*[x.clone() for x in again], page_size=8,
+                                scale=scale)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    qe, qr_, cn, rn, cp, rp, pr, po = again
+    c0, r0 = cp.clone(), rp.clone()
+    pa_ops.paged_mla_decode(qe[:1].contiguous(), qr_[:1].contiguous(),
+                            cn[:1].contiguous(), rn[:1].contiguous(), cp, rp,
+                            pr[:1].contiguous(), po[:1].contiguous(),
+                            page_size=8, scale=scale)
+    torch.cuda.synchronize()
+    cell = (int(rows[0, 288 // 8]), 288 % 8)
+    for pool, old, new in ((cp, c0, cn), (rp, r0, rn)):
+        assert torch.equal(pool[cell], new[0])
+        pool[cell] = old[cell]
+        assert torch.equal(pool.isnan(), old.isnan())
+        assert torch.equal(pool.nan_to_num(), old.nan_to_num())
+
+
 def test_paged_mla_kernel_bad_page_id_writes_nothing(cuda):
     """A page id outside the pool among a slot's walked pages gives NaN
     for that slot's heads and writes neither of its cells."""
+    mla_bad_page(cuda, torch.float32)
+
+
+def test_paged_mla_bf16_kernel_bad_page_id_writes_nothing(cuda):
+    """The same through the bf16 tensor-core kernel (split walk)."""
+    mla_bad_page(cuda, torch.bfloat16)
+
+
+def mla_bad_page(cuda, dtype):
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    ops_, rows, pos = pa_ref.random_case(2, 8, torch.float32, 9, cuda,
+    ops_, rows, pos = pa_ref.random_case(2, 8, dtype, 9, cuda,
                                          mla=True, pos=[3, 20], n_heads=128,
                                          lat=512, rope=64)
     qe, qr, cn, rn, cp, rp, pr, po = ops_
@@ -631,9 +773,15 @@ def test_paged_mla_kernel_bad_page_id_writes_nothing(cuda):
                                         page_size=8, scale=192 ** -0.5)
     torch.cuda.synchronize()
     assert torch.isfinite(ctx[0]).all() and torch.isnan(ctx[1]).all()
-    for pool, old, width in ((cp, c0, 512), (rp, r0, 64)):
+    cell = (int(rows[0, pos[0] // 8]), int(pos[0] % 8))
+    for pool, old, new, width in ((cp, c0, cn, 512), (rp, r0, rn, 64)):
         changed = ~((pool == old) | (pool.isnan() & old.isnan()))
-        assert int(changed.sum()) == width      # slot 0's cell only
+        if dtype == torch.float32:   # bf16: a new value may equal the old
+            assert int(changed.sum()) == width  # slot 0's cell only
+        assert torch.equal(pool[cell], new[0])  # slot 0's cell written ...
+        pool[cell] = old[cell]                  # ... and nothing else
+        assert torch.equal(pool.isnan(), old.isnan())
+        assert torch.equal(pool.nan_to_num(), old.nan_to_num())
 
 
 def test_paged_mla_ops_check_operands(cuda):

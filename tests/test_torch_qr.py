@@ -27,7 +27,9 @@ from repro_torch.apps import qr  # noqa: E402
 from repro_torch.kernels.qr_tile import kernel  # noqa: E402
 
 MODES = ("sequential", "threaded", "rounds", "engine")
-CASES = [(96, 32), (128, 16)]        # (n, tile)
+# (n, tile): the reference tests' tiles, and tiles past 64 (on the card the
+# global-memory bodies; here the same plain ops)
+CASES = [(96, 32), (128, 16), (256, 128), (192, 96)]
 
 
 def rand_matrix(n, seed=0):

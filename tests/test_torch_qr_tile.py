@@ -25,7 +25,7 @@ from repro.kernels.qr_tile import kernel as jkernel  # noqa: E402
 from repro.kernels.qr_tile import ref as jref  # noqa: E402
 from repro_torch.kernels.qr_tile import kernel, ops, ref  # noqa: E402
 
-SIZES = [4, 8, 16, 32, 64]
+SIZES = [4, 8, 16, 32, 64, 128]
 FACT = dict(atol=2e-5, rtol=1e-4)     # reference: factorization tolerance
 APPLY = dict(atol=1e-5)               # reference: apply tolerance
 
@@ -166,6 +166,19 @@ def test_float32_conditioning_of_the_card_test_data(case, conditioned):
     assert (worst <= 0) == conditioned, worst
 
 
+@pytest.mark.parametrize("case", ["geqrf, dense tile",
+                                  "tsqrf, random triangle R"])
+def test_float32_conditioning_past_64(case):
+    """The card's limit holds past 64 too: at b = 128, on 5 seeded tiles,
+    the plain float32 geqrf and tsqrf with a random triangle R stay inside
+    the kernel-vs-plain limit of float64, so the global-memory bodies are
+    held to the same limit as the shared-memory ones."""
+    fn = {"geqrf, dense tile": lambda a, r: ref.geqrf_ref(a),
+          "tsqrf, random triangle R": lambda a, r: ref.tsqrf_ref(r, a)}[case]
+    worst = max(_float32_excess(fn, seed, b=128) for seed in range(5))
+    assert worst <= 0, worst
+
+
 def test_ops_cpu_tensors_take_plain_path():
     """A CPU tensor gets the plain version, counted in PLAIN_CALLS and never
     in LAUNCHES; a stack of tiles loops the single-tile version, so the
@@ -208,6 +221,18 @@ def test_launch_counts_exact_under_threads():
         sys.setswitchinterval(old)
     assert kernel.LAUNCHES["apply_tsqt"] == 16 * 2000
     kernel.reset_counts()
+
+
+def test_check_shape_takes_any_tile_size():
+    """The kernels take any b >= 1 (shared-memory bodies to 64, global-
+    memory bodies above, with a b x b tile and two b-vectors of scratch a
+    block); the check needs no card."""
+    for b in (1, 33, 64, 65, 96, 128, 256, 1000):
+        kernel.check_shape(b)
+    with pytest.raises(ValueError, match="b >= 1"):
+        kernel.check_shape(0)
+    assert kernel.scratch_floats(64) == 0
+    assert kernel.scratch_floats(128) == 128 * 128 + 2 * 128
 
 
 def test_ops_refuse_other_devices():
