@@ -45,7 +45,10 @@ Phases, each fatal when it fails:
  7. K6/K7 (acc_pair, acc_self) against their plain versions on the card,
     Ni, Nj in {1, 30, 37, 58, 100, 128, 463, 1000}, with coincident
     particles and zero masses, two launches bitwise equal;
- 8. K8 (the Barnes-Hut walk) against the plain walk at 20k particles;
+ 8. K8 (the Barnes-Hut walk, one warp a bucket over each leaf's real
+    particles) against the plain walk over the padded blocks at 20k
+    particles, on every real particle (the pads' acc left at zero), two
+    walks bitwise equal;
  9. the BH path at 100k particles (n_max 100, n_task 1000, seed 42): solve
     in the four modes on the card, pairwise within 1e-4 per particle, the
     engine within 1e-4 of the plain walk on the CPU, the counters showing
@@ -58,7 +61,9 @@ Phases, each fatal when it fails:
     100k and not at 1M: at 1M they would make about 800k per-op launches
     from Python, more than this script's time limit holds;
 11. BH timings: solve per mode at 100k and engine at 1M, split into tree,
-    graph, lowering and execution; the walk over the whole 1M plan; K6 and
+    graph, lowering and execution; the walk over the whole 1M plan, with
+    the pair interactions it evaluates beside those the data needs and
+    those a walk over the padded blocks evaluates; K6 and
     K7 at the path's shapes, each beside its bound and plain version (no
     single PyTorch call computes softened gravity, so they have no
     library yardstick), and K6 at 30 x 0 (no source: its launch floor);
@@ -123,12 +128,15 @@ Phases, each fatal when it fails:
     seed 0: pipelined_value_and_grad_plan in the four modes, each against a
     float64 autograd of the monolithic loss (loss and every gradient leaf
     within 1e-5 relative, a limit the sequential mode under TF32 must
-    fail), K9 launched once per non-empty phase (143), no plain version,
-    two engine runs bitwise equal;
+    fail), K9 launched once for the engine's plan (one cooperative launch
+    over its 143 phases), no plain version, two engine runs bitwise equal;
 20. pipeline timings: each mode's wall time, the K9 walk beside its bound
-    and beside K9 rebuilt with one reduction split a tile (what split-K
-    gains), the plain walk, and the float32 autograd of the monolithic
-    loss as context (no single PyTorch call computes K9's function);
+    (operations) and beside the row-by-row traffic floor (W_s re-read a
+    row, gW_s read and written a B row), with the share of each it
+    reaches, and beside K9 rebuilt with one reduction split a tile (what
+    split-K gains), the plain walk, and the float32 autograd of the
+    monolithic loss as context (no single PyTorch call computes K9's
+    function);
 21. K12 (flash attention) against its plain version on the card: fp32 and
     bf16, causal and not, (BH, S, hd) in (4, 128, 64), (4, 256, 64), (4,
     512, 64), (2, 128, 32), (2, 256, 128), blocks 64 and 128, and
@@ -860,7 +868,9 @@ def bh_table(torch, g, st):
 
 
 def phase_bh_walk(torch, np):
-    """K8 against the plain walk on the card, one table."""
+    """K8 against the plain walk on the card, one table: every real
+    particle (K8 walks only the real ones and leaves the pads' acc at
+    zero) and every COM row; two walks bitwise equal."""
     from repro_torch import engine
     from repro_torch.apps import barneshut as bh
     rng = np.random.default_rng(N_WALK)
@@ -871,7 +881,8 @@ def phase_bh_walk(torch, np):
     tab, lg = bh_table(torch, g, st)
     hooks = st.engine_hooks()
     statics = hooks.statics()
-    walked, plain = hooks.buffers(), hooks.buffers()
+    xs, ms, counts = statics
+    walked, again, plain = hooks.buffers(), hooks.buffers(), hooks.buffers()
     desc = torch.as_tensor(tab.desc[lg.order], device="cuda")
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -881,19 +892,31 @@ def phase_bh_walk(torch, np):
     e1.record()
     torch.cuda.synchronize()
     walk_ms = e0.elapsed_time(e1)
+    hooks.round_fn(desc, lg, statics, again)
     t0 = time.perf_counter()
-    engine.bh_walk_plain(tab.desc, *statics, *plain, st.eps)
+    engine.bh_walk_plain(tab.desc, xs, ms, *plain, st.eps)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    errs = [vec_check(np, f"bh_walk {name}", a, b, axis=1)
-            for name, a, b in zip(("acc", "com", "cmass"), walked, plain)]
+    if not all(torch.equal(a, b) for a, b in zip(walked, again)):
+        fail("bh_walk: two walks differ")
+    real = (torch.arange(xs.shape[2], device="cuda")[None, :]
+            < counts[:, None])
+    acc_w, acc_p = walked[0].permute(0, 2, 1), plain[0].permute(0, 2, 1)
+    if bool(acc_w[~real].any()):
+        fail("bh_walk wrote a pad particle's acceleration")
+    errs = [vec_check(np, "bh_walk acc", acc_w[real], acc_p[real], axis=1)]
+    errs += [vec_check(np, f"bh_walk {name}", a, b, axis=1)
+             for name, a, b in zip(("com", "cmass"), walked[1:], plain[1:])]
     err = {"abs": max(e[0] for e in errs), "ratio": max(e[1] for e in errs)}
     log(f"[bh-walk] K8 matches the plain walk at {N_WALK} particles (n_max "
         f"{NMAX_WALK}, {tab.nr_items} rows, {tab.nr_rounds} rounds, "
-        f"{lg.nr_groups} launches, {lg.nr_buckets} buckets): max |err| "
+        f"{lg.nr_groups} launches, {lg.nr_buckets} buckets; "
+        f"{int(real.sum())} real particles in {xs.shape[0]} blocks of "
+        f"{xs.shape[2]}) on every real particle: max |err| "
         f"{err['abs']:.3e}, worst share of the bound {err['ratio']:.3e}; "
-        f"walk {walk_ms:.3f} ms (first launch), plain walk {plain_ms:.1f} "
-        f"ms (one run)")
+        f"the pads' acc untouched; two walks bitwise equal; walk "
+        f"{walk_ms:.3f} ms (first launch), plain walk {plain_ms:.1f} ms "
+        f"(one run)")
     return err, walk_ms, plain_ms, tab.nr_items
 
 
@@ -1106,7 +1129,7 @@ def log_structure(np, keep, n):
     from repro_torch import engine
     tab, lg, st = keep["tab"], keep["lg"], keep["st"]
     c = st.g.counts
-    leaves, _, P, _ = st._leaf_slots()
+    leaves, _, P, _, _ = st._leaf_slots()
     names = ("COM_LEAF", "COM_INNER", "SELF", "PP", "PC")
     per = np.bincount(tab.desc[:, 0], minlength=len(names))
     log(f"[bh-structure] {n} particles: tasks {c['tasks']} (self "
@@ -1125,10 +1148,13 @@ def log_structure(np, keep, n):
 
 def walk_flops_bytes(np, tab, st):
     """Operations and bytes the 1M walk needs, counted from its rows with
-    the real leaf counts (zero-mass pads are not work the data needs), and
-    the pair interactions the padded walk evaluates."""
+    the real leaf counts (zero-mass pads are not work the data needs); the
+    pair interactions K8 evaluates (real targets x real sources, a SELF
+    row's diagonal weighed zero among them), the lane slots its warps
+    spend on them (32 lanes a target group of 32), and the pairs a walk
+    over the padded blocks evaluates."""
     from repro_torch import engine
-    leaves, _, P, _ = st._leaf_slots()
+    leaves, _, P, _, _ = st._leaf_slots()
     cnt = np.array([st.g.tree.cells[c].count for c in leaves], np.int64)
     d = tab.desc.astype(np.int64)
     et, w, a0 = d[:, 0], d[:, 1], d[:, 2]
@@ -1139,9 +1165,18 @@ def walk_flops_bytes(np, tab, st):
                                    ("pc", engine.BH_PC),
                                    ("leaf", engine.BH_COM_LEAF),
                                    ("inner", engine.BH_COM_INNER))}
-    pairs = (int((cnt[w[sel["self"]]] * (cnt[w[sel["self"]]] - 1)).sum())
-             + int((cnt[w[sel["pp"]]] * cnt[a0[sel["pp"]]]).sum())
-             + int((cnt[w[sel["pc"]]] * real[sel["pc"]]).sum()))
+    ns = cnt[w[sel["self"]]]
+    pp = cnt[w[sel["pp"]]] * cnt[a0[sel["pp"]]]
+    pc = cnt[w[sel["pc"]]] * real[sel["pc"]]
+    pairs = int((ns * (ns - 1)).sum()) + int(pp.sum()) + int(pc.sum())
+    evaluated = int((ns * ns).sum()) + int(pp.sum()) + int(pc.sum())
+    lanes = 32 * -(-cnt // 32)
+
+    def slots(mask, n_src):
+        return int((lanes[w[mask]] * n_src).sum())
+
+    lane_slots = (slots(sel["self"], ns) + slots(sel["pp"], cnt[a0[sel["pp"]]])
+                  + slots(sel["pc"], real[sel["pc"]]))
     padded = (int(sel["self"].sum() + sel["pp"].sum()) * P * P
               + int(sel["pc"].sum()) * P * engine.BH_MAX_CHILDREN)
     com_ops = 7 * (int(cnt[a0[sel["leaf"]]].sum()) + 8 * int(
@@ -1149,7 +1184,8 @@ def walk_flops_bytes(np, tab, st):
     flops = FLOPS_PER_PAIR * pairs + com_ops
     nbytes = (tab.desc.nbytes + len(leaves) * P * 4 * 4   # desc, xs, ms
               + len(leaves) * 3 * P * 4 + (ncells + 1) * 4 * 4)  # acc, com
-    return flops, nbytes, pairs, padded
+    return flops, nbytes, {"needed": pairs, "evaluated": evaluated,
+                           "lane_slots": lane_slots, "padded": padded}
 
 
 def phase_bh_timing(torch, np, firsts, launches, paper_launches,
@@ -1197,14 +1233,44 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
         return e0.elapsed_time(e1)
 
     walk_once()
-    walk_ms = median_of(walk_once)
-    flops, nbytes, pairs, padded = walk_flops_bytes(np, tab, st)
+    round_ms = median_of(walk_once)
+    # the kernel alone: the round function's 6 launches between two events,
+    # its table checks, bucket order and uploads made beforehand
+    from repro_torch import engine
+    xs, ms_, counts = statics
+    bo = lg.bucket_offsets
+    both = torch.as_tensor(np.concatenate(
+        [bo, engine.megakernel.bucket_order(lg)]).astype(np.int32),
+        device="cuda")
+    ptr, order = both[:len(bo)], both[len(bo):]
+    go = lg.group_offsets.tolist()
+
+    def launches_once():
+        acc, com, cmass = hooks.buffers()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for b0, b1 in zip(go, go[1:]):
+            nbk.bh_walk(desc, ptr, order, b0, b1, xs, ms_, counts, acc, com,
+                        cmass, st.eps ** 2)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1)
+
+    launches_once()
+    walk_ms = median_of(launches_once)
+    flops, nbytes, pairs = walk_flops_bytes(np, tab, st)
     wbms, wby = bound_ms(flops, nbytes)
     log(f"[bh-time] bh_walk over the {N_PAPER} plan ({tab.nr_items} rows, "
         f"{lg.nr_groups} launches, {lg.nr_buckets} buckets): {walk_ms:.3f} "
-        f"ms (median of 3), bound {wbms:.4f} ms ({wby}; {pairs:.4e} pair "
-        f"interactions the data needs, {padded:.4e} evaluated over padded "
-        f"blocks); {card}")
+        f"ms the launches alone (median of 3), {round_ms:.3f} ms the round "
+        f"function with its table checks, bucket order and uploads, bound "
+        f"{wbms:.4f} ms ({wby}); pair interactions: "
+        f"{pairs['evaluated']:.4e} evaluated (real targets x real sources; "
+        f"{pairs['lane_slots']:.4e} lane slots), {pairs['needed']:.4e} the "
+        f"data needs, {pairs['padded']:.4e} a walk over the padded blocks "
+        f"evaluates (the first form); {card}")
 
     # K6 / K7 at the path's shapes: a PP row's leaf pair (~30 x 30), a PC
     # task's leaf against its COM sources (~30 x 460), a self block (~30)
@@ -1283,14 +1349,17 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
                  "rounds_per_1m_plan": paper_rounds,
                  "max_abs_err": walk_err["abs"],
                  "err_share_of_bound": walk_err["ratio"],
-                 "ms": walk_ms, "plain_ms": walk20k["plain_ms"],
+                 "ms": walk_ms, "round_fn_ms": round_ms,
+                 "plain_ms": walk20k["plain_ms"],
                  "plain_size": f"{N_WALK} particles, {walk20k['rows']} rows",
                  "ms_at_plain_size": walk20k["ms"],
                  "bound_ms": wbms, "bound_by": wby, "library_ms": None,
                  "library": none, "shape": f"{N_PAPER} particles, "
                  f"{tab.nr_items} rows, {lg.nr_groups} launches",
-                 "pair_interactions": pairs,
-                 "padded_pair_interactions": padded})
+                 "pair_interactions": pairs["needed"],
+                 "evaluated_pair_interactions": pairs["evaluated"],
+                 "lane_slot_pairs": pairs["lane_slots"],
+                 "padded_pair_interactions": pairs["padded"]})
     return rows
 
 
@@ -2309,9 +2378,10 @@ PIPE_SHAPES = ((3, 6, 4, 8), (8, 64, 4, 32),        # the reference's widths
                (2, 4, 4, 40), (3, 2, 5, 100))              # D off the tile
 PIPE_TOL = dict(rtol=1e-5, atol=1e-6)   # the reference's pipeline tolerance
 #                   (tests/test_backends.py:224-227), K9 vs its plain walk
-PIPE_WIDE = (PIPE_FULL, (2, 3, 40, 600), (3, 2, 65, 513))   # D >= 512: F
-#                   and cot_in tiles of 3 to 8 reduction splits, the last
-#                   ragged; Bt 40 and 65: two and three row tiles
+PIPE_WIDE = (PIPE_FULL, (2, 3, 40, 600), (3, 2, 65, 513))   # D > 512: F
+#                   and cot_in tiles of 2 to 4 reduction splits, the last
+#                   ragged at 600 and 513; Bt 40 and 65: two and three row
+#                   tiles
 K9_REL_TOL = 1e-5   # K9 vs its plain walk at PIPE_WIDE, each state buffer,
 #                   ‖Δ‖_F / ‖plain‖_F.  Elementwise, PIPE_TOL fails there on
 #                   acts near 0 (|Δ| 1.7e-6: the splits and cuBLAS sum 2,048
@@ -2507,7 +2577,8 @@ def run_pipe(torch, pipe, params, micro, mode):
 def phase_pipe(torch, np):
     """The pipeline path at full width in the four modes, each against a
     float64 autograd of the monolithic loss; the engine bitwise repeatable,
-    K9 launched once per non-empty phase, no plain version."""
+    K9 launched once for the engine's plan, no plain version."""
+    from repro_torch import engine
     from repro_torch import pipeline as pipe
     from repro_torch.kernels.pipe_walk import kernel as pw_kernel
     S, M, Bt, D = PIPE_FULL
@@ -2527,9 +2598,10 @@ def phase_pipe(torch, np):
     plain = plain_calls()
     if plain:
         fail(f"a plain version ran on the card: {plain}")
-    if launches != phases:
-        fail(f"pipe_walk launched {launches} times, the plan has {phases} "
-             f"non-empty phases")
+    if launches != engine.PIPE_LAUNCHES_PER_PLAN:
+        fail(f"pipe_walk launched {launches} times for one engine plan of "
+             f"{phases} non-empty phases, not "
+             f"{engine.PIPE_LAUNCHES_PER_PLAN}")
     for mode, (lrel, grel) in gaps.items():
         if not (lrel < PIPE_REL_TOL and grel < PIPE_REL_TOL):
             fail(f"{mode}: loss gap {lrel:.3e}, worst gradient leaf "
@@ -2556,8 +2628,8 @@ def phase_pipe(torch, np):
         f"to float64 (loss, worst leaf; bound {PIPE_REL_TOL}): "
         + ", ".join(f"{m} ({a:.2e}, {b:.2e})" for m, (a, b) in gaps.items())
         + f"; sequential under TF32 (the control) ({control[0]:.2e}, "
-        f"{control[1]:.2e}); pipe_walk launches {launches} (one a non-empty "
-        f"phase), no plain version; two engine runs bitwise equal; first "
+        f"{control[1]:.2e}); pipe_walk launches {launches} (one a plan, over "
+        f"{phases} phases), no plain version; two engine runs bitwise equal; first "
         f"runs s: "
         + ", ".join(f"{m} {t:.3f}" for m, t in firsts.items()))
     return {"launches": launches, "phases": phases, "rows": tab.nr_items,
@@ -2589,7 +2661,7 @@ def walk_cost(tab, S, M, Bt, D):
 @contextlib.contextmanager
 def k9_one_split():
     """K9 rebuilt with one reduction split a tile (KSPLIT 4096 for the
-    shipped 256) in place of the shipped library, for the split-K
+    shipped one) in place of the shipped library, for the split-K
     comparison; the shipped library is back on exit."""
     from repro_torch import _build
     from repro_torch.kernels.pipe_walk import kernel as pw_kernel
@@ -2666,16 +2738,18 @@ def phase_pipe_timing(torch, np, k9_err, k9_wide, run, card):
     ctx_ms = median_of(lambda: events_ms(torch, autograd32, 3))
     flops, must, rows = walk_cost(tab, S, M, Bt, D)
     bms, by = bound_ms(flops, must)
+    row_ms = rows / HBM_RATE * 1e3
     log(f"[pipe-time] (S, M, Bt, D) = {PIPE_FULL}, fp32; wall s (median of "
         f"3): " + ", ".join(f"{m} {t:.4f}" for m, t in walls.items())
-        + f"; K9 walk {ms:.3f} ms ({run['launches']} launches, CUDA events, "
+        + f"; K9 walk {ms:.3f} ms ({run['launches']} launch, CUDA events, "
         f"median of 3; {ms_one:.3f} ms with one reduction split a tile), "
         f"bound {bms:.3f} ms ({by}: {flops / 1e9:.1f} GFLOP "
-        f"at 67 TFLOP/s fp32, {must / 1e9:.3f} GB to move at 3.35 TB/s; "
-        f"the walk's row-by-row traffic, {rows / 1e9:.1f} GB, would take "
-        f"{rows / HBM_RATE * 1e3:.2f} ms); plain walk {plain_ms:.2f} ms; "
-        f"float32 autograd of the monolithic loss (context, not a "
-        f"yardstick) {ctx_ms:.3f} ms; {card}")
+        f"at 67 TFLOP/s fp32, {must / 1e9:.3f} GB to move at 3.35 TB/s), "
+        f"{bms / ms:.3f} of it reached; the walk's row-by-row traffic, "
+        f"{rows / 1e9:.1f} GB, takes {row_ms:.2f} ms at 3.35 TB/s, "
+        f"{row_ms / ms:.3f} of that floor reached; plain walk "
+        f"{plain_ms:.2f} ms; float32 autograd of the monolithic loss "
+        f"(context, not a yardstick) {ctx_ms:.3f} ms; {card}")
     return {"name": "pipe_walk", "route": "cuda",
             "source": "src/repro_torch/kernels/pipe_walk/csrc/pipe_walk.cu",
             "replaces": "src/repro/engine/megakernel.py:427",
@@ -2687,7 +2761,8 @@ def phase_pipe_timing(torch, np, k9_err, k9_wide, run, card):
             "library_ms": None, "ms_one_split": ms_one,
             "library": "none: no single PyTorch call computes the pipelined "
                        "F/B/U walk",
-            "row_traffic_ms": rows / HBM_RATE * 1e3,
+            "row_traffic_ms": row_ms,
+            "share_of_bound": bms / ms, "share_of_row_traffic": row_ms / ms,
             "autograd_fp32_ms": ctx_ms,
             "wall_s": walls,
             "gaps_vs_float64": {m: list(g) for m, g in run["gaps"].items()},

@@ -399,9 +399,10 @@ class BHState:
     def _leaf_slots(self):
         """Leaf-block layout for the device engine: leaf cells in cid
         order, each owning a zero-mass-padded (3, P) particle block (P =
-        max leaf count).  Returns (leaves, slot of each leaf cid, P, and
-        each sorted particle's flat index ``slot * P + position`` into the
-        padded blocks, on the state's device).  The leaves tile the sorted
+        max leaf count).  Returns (leaves, slot of each leaf cid, P, each
+        sorted particle's flat index ``slot * P + position`` into the
+        padded blocks, and each block's real particle count as an int32
+        tensor, both on the state's device).  The leaves tile the sorted
         particles in cid order (depth-first build), which the flat index
         relies on."""
         if self._leaves is None:
@@ -420,7 +421,9 @@ class BHState:
                     pos = np.arange(self.g.tree.n) - np.repeat(starts, counts)
                     slot = {cid: s for s, cid in enumerate(leaves)}
                     flat = torch.as_tensor(k * P + pos, device=self.x.device)
-                    self._leaves = (leaves, slot, P, flat)
+                    real = torch.as_tensor(counts.astype(np.int32),
+                                           device=self.x.device)
+                    self._leaves = (leaves, slot, P, flat, real)
         return self._leaves
 
     def batch_registry(self) -> Dict[int, BatchSpec]:
@@ -486,14 +489,15 @@ class BHState:
     def engine_hooks(self) -> EngineHooks:
         """Engine-family hooks for the backend registry: the Barnes-Hut
         walk over zero-mass-padded leaf blocks, one launch per launch
-        group (``row_keys``).  The blocks are built on the device with one
-        scatter, and ``writeback`` gathers the padded accelerations back
-        with the same precomputed index.  Building the hooks costs
-        nothing until the engine runs."""
+        group (``row_keys``).  The statics are the blocks, built on the
+        device with one scatter, and each block's real particle count
+        (the walk on the card skips the pads); ``writeback`` gathers the
+        real particles' accelerations back with the same precomputed
+        index.  Building the hooks costs nothing until the engine runs."""
         dev = self.x.device
 
         def statics():
-            leaves, _, P, flat = self._leaf_slots()
+            leaves, _, P, flat, counts = self._leaf_slots()
             xs = torch.zeros((3, len(leaves) * P), dtype=torch.float32,
                              device=dev)
             ms = torch.zeros(len(leaves) * P, dtype=torch.float32,
@@ -501,10 +505,10 @@ class BHState:
             xs[:, flat] = self.x
             ms[flat] = self.m
             return (xs.view(3, len(leaves), P).permute(1, 0, 2).contiguous(),
-                    ms.view(len(leaves), P))
+                    ms.view(len(leaves), P), counts)
 
         def buffers():
-            leaves, _, P, _ = self._leaf_slots()
+            leaves, _, P, _, _ = self._leaf_slots()
             return (torch.zeros((len(leaves), 3, P), dtype=torch.float32,
                                 device=dev),
                     torch.zeros_like(self.com), torch.zeros_like(self.cmass))

@@ -4,8 +4,8 @@ Lower a prepared plan into ragged CSR task tables with write-colored
 sub-phases (``descriptors``), walk them with the family's CUDA kernel
 (``megakernel``), and drive the whole plan from one call with the state
 updated in place (``runner``).  All three families are ported: the tiled
-QR walks a whole plan in one cooperative launch, the pipeline F/B/U walk
-launches once per phase, Barnes-Hut once per launch group
+QR and the pipeline F/B/U walks each take a whole plan in one cooperative
+launch, Barnes-Hut launches once per launch group
 (``descriptors.launch_groups``).
 """
 
@@ -13,7 +13,8 @@ from .descriptors import (LaunchGroups, TaskTable, count_host_dispatches,
                           launch_groups, lower_tables, table_from_arrays)
 from .megakernel import (BH_ARG_WIDTH, BH_COM_INNER, BH_COM_LEAF,
                          BH_MAX_CHILDREN, BH_NOOP, BH_PC, BH_PP, BH_SELF,
-                         PIPE_ARG_WIDTH, PIPE_B, PIPE_F, PIPE_NOOP, PIPE_U,
+                         PIPE_ARG_WIDTH, PIPE_B, PIPE_F,
+                         PIPE_LAUNCHES_PER_PLAN, PIPE_NOOP, PIPE_U,
                          QR_ARG_WIDTH, QR_GEQRF, QR_LARFT,
                          QR_LAUNCHES_PER_PLAN, QR_NOOP, QR_SSRFT, QR_TSQRF,
                          bh_round_fn, bh_row_access, bh_row_keys,
@@ -34,4 +35,5 @@ __all__ = [
     "BH_COM_LEAF", "BH_COM_INNER", "BH_SELF", "BH_PP", "BH_PC", "BH_NOOP",
     "BH_ARG_WIDTH", "BH_MAX_CHILDREN",
     "PIPE_F", "PIPE_B", "PIPE_U", "PIPE_NOOP", "PIPE_ARG_WIDTH",
+    "PIPE_LAUNCHES_PER_PLAN",
 ]

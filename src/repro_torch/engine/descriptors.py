@@ -277,7 +277,7 @@ def table_from_arrays(*, desc, tids, round_offsets, phase_offsets,
 @dataclass(frozen=True)
 class LaunchGroups:
     """A task table cut for a walk that launches once per group, with one
-    block per bucket.  ``order`` lists the table's rows in walk order:
+    worker (a warp, in the Barnes-Hut walk) per bucket.  ``order`` lists the table's rows in walk order:
     group by group, and within a group bucket by bucket, each bucket's
     rows in table order.  ``bucket_offsets`` is the CSR of buckets over
     ``order`` and ``group_offsets`` the CSR of groups over buckets."""

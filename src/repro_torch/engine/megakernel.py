@@ -22,14 +22,16 @@ launch run concurrently, so each family states what it keeps in order:
   same accelerations.  It walks launch groups instead
   (``descriptors.launch_groups``): runs of whole rounds in which no row's
   write key is read or written by a row with another write key, each
-  bucketed by write key in table order.  One launch per group, one block
-  per bucket, the bucket's rows in table order
-  (``kernels/nbody/csrc``): at most one launch per round.
-* **Pipeline** (the canonical dense F/B/U family) launches once per
-  phase, as QR does: a row writes several keys (``act``/``cot``/``loss``
-  on F, ``gw``/``gb``/``cot`` on B), so launch groups, which want one
-  write key a row, do not apply.  A phase holds at most S rows, so each
-  row is split into tiles, one block a tile (``kernels/pipe_walk/csrc``).
+  bucketed by write key in table order.  One launch per group, one warp
+  per bucket, the bucket's rows in table order over each leaf's real
+  particles (``kernels/nbody/csrc``): at most one launch per round.
+* **Pipeline** (the canonical dense F/B/U family) walks a whole plan in
+  ONE cooperative launch too, as QR does: a row writes several keys
+  (``act``/``cot``/``loss`` on F, ``gw``/``gb``/``cot`` on B), so launch
+  groups, which want one write key a row, do not apply.  A phase holds at
+  most S rows, so each row is cut into tiles, and the resident blocks
+  take a phase's tiles from a counter, the longest kinds first, with a
+  grid-wide barrier between phases (``kernels/pipe_walk/csrc``).
 
 State stacks are updated in place, so the walks have no copy-in and no
 copy-out.  On CPU tensors each round function runs its plain walk, which
@@ -75,6 +77,7 @@ BH_ARG_WIDTH = 1 + BH_MAX_CHILDREN   # rows: [etype, write, a0..a7]
 # flat (stage, micro) indices into the stacked activation/cotangent slabs.
 PIPE_F, PIPE_B, PIPE_U, PIPE_NOOP = range(4)
 PIPE_ARG_WIDTH = 6
+PIPE_LAUNCHES_PER_PLAN = 1   # the walk is one cooperative launch a plan
 
 
 def qr_row_access(row: Sequence[int]) -> Tuple[Tuple, Tuple]:
@@ -291,8 +294,9 @@ def _check_bh_table(desc, groups: LaunchGroups, nleaves: int,
                          f"{nleaves} leaves / {ncells} cells")
 
 
-def _check_bh_state(desc, xs, ms, acc, com, cmass) -> None:
-    """Validate the walk's operands for a launch."""
+def _check_bh_state(desc, xs, ms, counts, acc, com, cmass) -> None:
+    """Validate the walk's operands for a launch (one device sync for the
+    counts' range)."""
     L, _, P = xs.shape
     shapes = {"xs": (xs, (L, 3, P)), "ms": (ms, (L, P)),
               "acc": (acc, (L, 3, P)), "com": (com, (com.shape[0], 3)),
@@ -305,8 +309,12 @@ def _check_bh_state(desc, xs, ms, acc, com, cmass) -> None:
                              f"{tuple(t.shape)} on {t.device}")
     if not 1 <= P <= nb_kernel.MAX_P:
         raise ValueError(f"leaf blocks of {P} particles not supported: the "
-                         f"walk takes one thread per particle, P <= "
-                         f"{nb_kernel.MAX_P}")
+                         f"walk takes at most {nb_kernel.MAX_P}")
+    if (counts.device != xs.device or counts.dtype != torch.int32
+            or tuple(counts.shape) != (L,) or not counts.is_contiguous()
+            or bool(((counts < 0) | (counts > P)).any())):
+        raise ValueError(f"counts must be a contiguous int32 ({L},) tensor "
+                         f"of leaf sizes in [0, {P}] on {xs.device}")
     if (desc.device != xs.device or desc.dtype != torch.int32
             or not desc.is_contiguous()
             or desc.shape[1] < 1 + BH_ARG_WIDTH):
@@ -314,38 +322,58 @@ def _check_bh_state(desc, xs, ms, acc, com, cmass) -> None:
                          f"{1 + BH_ARG_WIDTH}) table on the state's device")
 
 
+def bucket_order(groups: LaunchGroups) -> np.ndarray:
+    """The order the walk on the card takes each launch group's buckets
+    in: longest first (a warp walks a bucket, and a block holds its place
+    on the card until its slowest warp is done), ties in bucket order.
+    Buckets of a group are independent, so the order changes no result."""
+    lengths = np.diff(groups.bucket_offsets)
+    group = np.repeat(np.arange(len(groups.group_offsets) - 1),
+                      np.diff(groups.group_offsets))
+    top = int(lengths.max(initial=0))
+    key = group * (top + 1) + (top - lengths)   # group, then longest first
+    if key.max(initial=0) < 2 ** 16:
+        key = key.astype(np.uint16)             # a stable radix sort
+    return np.argsort(key, kind="stable")
+
+
 def bh_round_fn(eps: float):
     """Walk executor for the Barnes-Hut family:
-    ``(desc, groups, (xs, ms), (acc, com, cmass)) -> (acc, com, cmass)``,
-    updated in place.  ``desc`` holds the table's rows in the walk order
-    ``groups.order`` (``descriptors.launch_groups``); ``xs``/``ms`` are
-    (L, 3, P)/(L, P) zero-mass-padded leaf blocks (read only), ``acc`` is
-    (L, 3, P), and ``com``/``cmass`` are (ncells + 1, 3)/(ncells + 1, 1)
-    with the extra zero row as the pad target of COM_INNER and PC rows.
+    ``(desc, groups, (xs, ms, counts), (acc, com, cmass)) -> (acc, com,
+    cmass)``, updated in place.  ``desc`` holds the table's rows in the
+    walk order ``groups.order`` (``descriptors.launch_groups``); ``xs``/
+    ``ms`` are (L, 3, P)/(L, P) zero-mass-padded leaf blocks and
+    ``counts`` (L,) int32 their real sizes (read only), ``acc`` is (L, 3,
+    P), and ``com``/``cmass`` are (ncells + 1, 3)/(ncells + 1, 1) with the
+    extra zero row as the pad target of COM_INNER and PC rows.
 
     On CUDA tensors: one ``bh_walk`` launch per launch group, in order, on
-    the current stream, one block per bucket (``desc`` must be the device
-    copy, int32 contiguous).  On CPU tensors: ``bh_walk_plain`` over the
-    rows in that order, which per-destination table order makes bitwise
-    equal to the table order."""
+    the current stream, one warp per bucket, longest first
+    (``bucket_order``; ``desc`` must be the device copy, int32
+    contiguous); it walks only the real particles, so the pad particles'
+    accelerations stay as they were.  On CPU tensors:
+    ``bh_walk_plain`` over the rows in that order, which per-destination
+    table order makes bitwise equal to the table order."""
     eps = float(eps)
 
     def round_fn(desc, groups: LaunchGroups, statics, buffers):
-        xs, ms = statics
+        xs, ms, counts = statics
         acc, com, cmass = buffers
         _check_bh_table(desc, groups, xs.shape[0], com.shape[0] - 1)
         if acc.device.type == "cpu":
             nb_kernel.count(nb_kernel.PLAIN_CALLS, "bh_walk")
             bh_walk_plain(desc, xs, ms, acc, com, cmass, eps)
             return acc, com, cmass
-        _check_bh_state(desc, xs, ms, acc, com, cmass)
-        ptr = torch.as_tensor(groups.bucket_offsets.astype(np.int32),
-                              device=acc.device)
+        _check_bh_state(desc, xs, ms, counts, acc, com, cmass)
+        bo = groups.bucket_offsets
+        both = torch.as_tensor(np.concatenate(
+            [bo, bucket_order(groups)]).astype(np.int32), device=acc.device)
+        ptr, order = both[:len(bo)], both[len(bo):]
         go = groups.group_offsets
         for b0, b1 in zip(go.tolist(), go[1:].tolist()):
             if b1 > b0:
-                nb_kernel.bh_walk(desc, ptr, b0, b1, xs, ms, acc, com,
-                                  cmass, eps * eps)
+                nb_kernel.bh_walk(desc, ptr, order, b0, b1, xs, ms, counts,
+                                  acc, com, cmass, eps * eps)
         return acc, com, cmass
 
     return round_fn
@@ -468,16 +496,21 @@ def pipe_round_fn(inv_m: float):
     per-micro ``loss`` (M, 1).  ``inv_m`` = 1/M is the U rows' microbatch
     averaging.
 
-    On CUDA tensors: one ``pipe_walk`` launch per non-empty phase, in
-    order, on the current stream (``desc`` must be the device copy, int32
-    contiguous; one host copy of it gives the tile offsets).  On CPU
+    On CUDA tensors: ONE cooperative ``pipe_walk`` launch for all the
+    phases, on the current stream (``desc`` must be the device copy, int32
+    contiguous).  Its work list is cut on the host from the host copy that
+    ``phase_bounds`` records when it comes from ``runner.upload_phases``
+    (else from one copy of ``desc``) and uploaded in one copy.  On CPU
     tensors: ``pipe_walk_plain``."""
     inv_m = float(inv_m)
 
     def round_fn(desc, phase_bounds, statics, buffers):
         w, b, x, y = statics
         acts = buffers[0]
-        host = torch.as_tensor(desc).cpu().numpy()
+        host = getattr(phase_bounds, "host_desc", None)
+        if host is None or getattr(phase_bounds, "device_desc",
+                                   None) is not desc:
+            host = torch.as_tensor(desc).cpu().numpy()
         _check_pipe_table(host, phase_bounds, w.shape[0], x.shape[0])
         if acts.device.type == "cpu":
             pw_kernel.count(pw_kernel.PLAIN_CALLS, "pipe_walk")
@@ -485,19 +518,13 @@ def pipe_round_fn(inv_m: float):
             return buffers
         _check_pipe_state(desc, statics, buffers)
         M, bt, dim = x.shape
-        offs = pw_kernel.tile_offsets(host, bt, dim)
-        d_offs = torch.as_tensor(offs, device=acts.device)
-        bounds = [int(p) for p in phase_bounds]
-        rows = max((p1 - p0 for p0, p1 in zip(bounds, bounds[1:])),
-                   default=0)
-        scratch = pw_kernel.scratch(M, max(rows, 1), bt, dim, acts.device)
-        inv_numel = 1.0 / (bt * dim)
-        for p0, p1 in zip(bounds, bounds[1:]):
-            ntiles = int(offs[p1]) - int(offs[p0])
-            if ntiles > 0:
-                pw_kernel.pipe_walk(desc, d_offs, p0, p1, int(offs[p0]),
-                                    ntiles, statics, buffers, scratch, inv_m,
-                                    inv_numel)
+        work = pw_kernel.work_list(host, phase_bounds, bt, dim)
+        if work.max_tiles > 0:
+            pw_kernel.pipe_walk(
+                desc, work, pw_kernel.upload(work, acts.device), statics,
+                buffers, pw_kernel.scratch(acts.shape[0], M, work.max_rows,
+                                           bt, dim, acts.device),
+                inv_m, 1.0 / (bt * dim))
         return buffers
 
     return round_fn

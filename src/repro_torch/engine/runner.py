@@ -14,8 +14,8 @@ The schedule is one of two:
   QR walks them in ONE cooperative launch a plan: its blocks stride over
   each phase's rows and meet at a grid-wide barrier between phases, so
   the walk's time is the sum of each phase's slowest tile op and a
-  barrier, and no phase waits on the host.  The pipeline walk still
-  launches once per non-empty phase;
+  barrier, and no phase waits on the host.  The pipeline walk does the
+  same over its phases' tiles;
 * launch groups (Barnes-Hut, ``descriptors.launch_groups``): ``desc`` is
   uploaded in the groups' walk order and the walk launches once per
   group, at most once per round.

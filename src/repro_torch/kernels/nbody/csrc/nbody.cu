@@ -34,21 +34,32 @@
 // into launch groups (repro_torch/engine/descriptors.py::launch_groups):
 // runs of whole rounds in which no row's write key is read or written by
 // a row of another write key, bucketed by write key in table order.  One
-// launch walks one group with one block per bucket; the block walks its
-// bucket's rows in table order and keeps the destination leaf's
-// accelerations in registers across them (one thread per particle).  So
-// rows that write the same state run in table order, and a row never runs
-// before the rows whose writes it reads (they sit in earlier launches on
-// the same stream); 40 launches at most at the paper's 1M particles where
-// one launch per write-colored phase would take 2,148,304.  What bounds
-// it: pair interactions, 19 fp32 operations each (3.7e9 of them in the
-// padded 1M walk, 1.2e9 that the data needs), against 67 TFLOP/s: a bound
-// of 0.35 ms; the source block of a row is read once into shared memory
-// and used by every target thread.  Measured by chip_smoke.py on an NVIDIA
-// H100 80GB HBM3 at 700 W: 7.1-7.6 ms for the 1M plan (6 launches), so
-// the walk is latency-bound (one 64-thread block per bucket, two barriers
-// per row); K6/K7 (first form) took 2.2-2.7 us on the device at 30 x 30
-// and 12 us at 30 x 460 against a 17-28 us launch from Python.
+// launch walks one group (6 at the paper's 1M particles, where one launch
+// per write-colored phase would take 2,148,304) with one warp per bucket;
+// the warp walks its bucket's rows in table order and keeps the
+// destination leaf's accelerations in registers across them (a lane per
+// target, 32 apart).  So rows that write the same state run in table
+// order, and a row never runs before the rows whose writes it reads (they
+// sit in earlier launches on the same stream).  What bounds it: pair
+// interactions, 19 fp32 operations each, 1.234e9 that the 1M plan's data
+// needs, against 67 TFLOP/s: 0.35 ms.  The first form gave a bucket a
+// 64-thread block with two barriers a row and walked every source slot of
+// the padded (L, 3, P) blocks, 3.674e9 pairs at 1M (3.0x), in one
+// dependent chain a thread: 6.4-7.6 ms on an NVIDIA H100 80GB HBM3 at 700
+// W.  Now a row walks only its source leaf's real particles (counts, from
+// the tree; a pad source has zero mass at a finite position, so it adds
+// exactly 0 and skipping it changes no bit of a real target's sum) and
+// only the real targets; a warp needs no block barrier (__syncwarp); the
+// next step's descriptors and sources (up to NB_BATCH rows, so several
+// 8-source PC rows at once) are copied into shared memory by cp.async
+// while the current step computes, two rows' pulls in flight in
+// independent partial sums that join the running sum in table order.  A
+// group's buckets go longest first (the host's bucket_order), so the four
+// warps of a block end together.  Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W: the 1M plan's 6 launches take 2.35 ms alone (chip_smoke.py,
+// tools/compare_walks.py), where the first form's take 4.45 ms on the
+// same card; the round function, its table checks, bucket order and
+// uploads with them, 6.9 ms.
 
 #include <cstdint>
 
@@ -159,107 +170,158 @@ acc_kernel(const float* __restrict__ xi, int64_t sdi, int64_t sni, int ni,
   }
 }
 
-// floats in each shared-memory plane of the walk: a PC row stages 8 COM
+// sources a staging slot of the walk holds: a PC row stages 8 COM
 // sources even when the leaf blocks hold fewer particles
 __host__ __device__ inline int nb_plane(int P) {
   return P > NB_MAX_CHILDREN ? P : NB_MAX_CHILDREN;
 }
 
-// K8: blocks b0 .. b0 + gridDim.x - 1 of the bucket CSR (bucket_ptr) over
-// the bucket-ordered rows of desc (width int32 columns each).  State:
-// xs (L, 3, P) and ms (L, P) zero-mass-padded leaf blocks (read only),
-// acc (L, 3, P), com (ncells + 1, 3), cmass (ncells + 1, 1), updated in
-// place.  Shared memory: one source block (P particles, or a PC row's 8
-// COMs) as four planes of nb_plane(P) floats.
-__global__ void bh_walk_kernel(const int* __restrict__ desc, int width,
-                               const int* __restrict__ bucket_ptr, int b0,
-                               const float* __restrict__ xs,
-                               const float* __restrict__ ms, float* acc,
-                               float* com, float* cmass, int P, float eps2) {
-  extern __shared__ float smem[];
+// rows of a bucket the walk stages in one step (at most NB_BATCH), and
+// warps (buckets) a block: a warp's two steps take at most 8 KB
+__host__ __device__ inline int nb_batch(int P) {
   const int plane = nb_plane(P);
-  float* sx = smem;
-  float* sy = smem + plane;
-  float* sz = smem + 2 * plane;
-  float* sm = smem + 3 * plane;
-  const int b = b0 + blockIdx.x;
+  return plane <= 64 ? NB_BATCH : (plane <= 128 ? 2 : 1);
+}
+inline int nb_warps(int P) { return nb_plane(P) > 256 ? 1 : 4; }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// one source s = (x, y, z, m) on the target (px, py, pz), into (ax, ay,
+// az): nb_pull's arithmetic on a packed source; skip weighs it zero
+__device__ __forceinline__ void nb_pull4(float4 s, bool skip, float px,
+                                         float py, float pz, float eps2,
+                                         float& ax, float& ay, float& az) {
+  const float dx = s.x - px;
+  const float dy = s.y - py;
+  const float dz = s.z - pz;
+  const float r2 = dx * dx + dy * dy + dz * dz + eps2;
+  float w = rsqrtf(r2);
+  w = w * w * w * s.w;
+  if (skip) w = 0.0f;
+  ax += dx * w;
+  ay += dy * w;
+  az += dz * w;
+}
+
+// The rows of one step of an acc bucket (rows q .. q + nr - 1, nr <= rb)
+// into a warp's staging slots dst[r * plane ..] as (x, y, z, m): a PC
+// row's real COM sources (its cells up to the last that is not the pad
+// cell), a PP or SELF row's whole source block (cp.async, 4 bytes each,
+// nothing waited for).  n[r] gets each row's real source count (the
+// source leaf's count from counts, loaded here and read a step later) and
+// self bit r whether row r is a SELF row; other types get n 0.
+__device__ __forceinline__ void bh_stage(const int* __restrict__ desc,
+                                         int width, int q, int nr,
+                                         const float* __restrict__ xs,
+                                         const float* __restrict__ ms,
+                                         const int* __restrict__ counts,
+                                         const float* com, const float* cmass,
+                                         int P, int plane, int pad_cell,
+                                         int cnt, float4* dst,
+                                         int (&n)[NB_BATCH], int& self) {
+  const int lane = threadIdx.x & 31;
+  self = 0;
+#pragma unroll
+  for (int r = 0; r < NB_BATCH; ++r) {
+    n[r] = 0;
+    if (r >= nr) continue;
+    const int* row = desc + (int64_t)(q + r) * width;
+    const int et = __ldg(row);
+    float* d = reinterpret_cast<float*>(dst + r * plane);
+    if (et == BH_PC) {           // [leaf, s0..s7]: up to 8 COM sources
+      const int c = lane < NB_MAX_CHILDREN ? __ldg(row + 2 + lane) : pad_cell;
+      const unsigned real = __ballot_sync(0xffffffffu, c != pad_cell);
+      n[r] = real ? 32 - __clz(real) : 0;
+      if (lane < n[r]) {
+        cp_async4(d + 4 * lane, com + 3 * (int64_t)c);
+        cp_async4(d + 4 * lane + 1, com + 3 * (int64_t)c + 1);
+        cp_async4(d + 4 * lane + 2, com + 3 * (int64_t)c + 2);
+        cp_async4(d + 4 * lane + 3, cmass + c);
+      }
+    } else if (et == BH_PP || et == BH_SELF) {   // [leaf(, leaf_j)]
+      const int64_t src = __ldg(row + (et == BH_PP ? 2 : 1));
+      n[r] = et == BH_SELF ? cnt : __ldg(counts + src);
+      if (et == BH_SELF) self |= 1 << r;
+      for (int t = lane; t < P; t += 32) {
+        const int64_t o = src * 3 * P + t;
+        cp_async4(d + 4 * t, xs + o);
+        cp_async4(d + 4 * t + 1, xs + o + P);
+        cp_async4(d + 4 * t + 2, xs + o + 2 * P);
+        cp_async4(d + 4 * t + 3, ms + src * P + t);
+      }
+    }
+  }
+}
+
+// K8: the buckets bucket_order[b0 .. b1 - 1] of the bucket CSR
+// (bucket_ptr) over the bucket-ordered rows of desc (width int32 columns
+// each), one warp a bucket, blockDim / 32 buckets a block (the host orders
+// a group's buckets longest first, so a block's warps end together).  State: xs (L, 3, P) and ms (L,
+// P) zero-mass-padded leaf blocks and counts (L) their real sizes (read
+// only), acc (L, 3, P), com (ncells + 1, 3), cmass (ncells + 1, 1),
+// updated in place; pad_cell = ncells, the zero-mass pad of COM_INNER and
+// PC rows.  A bucket's rows share their write key (launch_groups), so it
+// holds COM rows of one cell or acc rows of one leaf.  Lane l owns target
+// particles l, l + 32, ... below the leaf's count (T a lane at most); the
+// pad targets' acc is never read or written.  rb rows are staged a step,
+// two steps' slots a warp (dynamic shared memory).
+template <int T>
+__global__ void __launch_bounds__(128)
+bh_walk_kernel(const int* __restrict__ desc, int width,
+               const int* __restrict__ bucket_ptr,
+               const int* __restrict__ bucket_order, int b0, int b1,
+               const float* __restrict__ xs, const float* __restrict__ ms,
+               const int* __restrict__ counts, float* acc, float* com,
+               float* cmass, int P, int pad_cell, float eps2) {
+  extern __shared__ float4 nb_slots[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pos = b0 + blockIdx.x * (blockDim.x >> 5) + warp;
+  if (pos >= b1) return;
+  const int b = bucket_order[pos];
   const int q0 = bucket_ptr[b], q1 = bucket_ptr[b + 1];
-  const int i = threadIdx.x;
-  const bool own = i < P;        // this thread owns target particle i
-  int leaf = -1;                 // the bucket's leaf, once an acc row came
-  float px = 0.0f, py = 0.0f, pz = 0.0f;
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  for (int q = q0; q < q1; ++q) {
-    const int* row = desc + (int64_t)q * width;
-    const int et = row[0], w = row[1];
-    if (et == BH_SELF || et == BH_PP || et == BH_PC) {
-      if (leaf < 0) {            // first acc row: load the running sums
-        leaf = w;
-        if (own) {
-          const int64_t o = (int64_t)leaf * 3 * P + i;
-          ax = acc[o];
-          ay = acc[o + P];
-          az = acc[o + 2 * P];
-          px = xs[o];
-          py = xs[o + P];
-          pz = xs[o + 2 * P];
-        }
-      }
-      int n = P, skip = -1;
-      __syncthreads();           // the previous row's sources are consumed
-      if (et == BH_PC) {         // [leaf, s0..s7]: up to 8 COM sources
-        n = NB_MAX_CHILDREN;
-        if (i < NB_MAX_CHILDREN) {
-          const int64_t c = row[2 + i];
-          sx[i] = com[3 * c];
-          sy[i] = com[3 * c + 1];
-          sz[i] = com[3 * c + 2];
-          sm[i] = cmass[c];
-        }
-      } else {                   // SELF [leaf] or PP [leaf_i, leaf_j]
-        const int64_t src = et == BH_PP ? row[2] : w;
-        if (et == BH_SELF) skip = i;
-        for (int t = i; t < P; t += blockDim.x) {
-          const int64_t o = src * 3 * P + t;
-          sx[t] = xs[o];
-          sy[t] = xs[o + P];
-          sz[t] = xs[o + 2 * P];
-          sm[t] = ms[src * P + t];
-        }
-      }
-      __syncthreads();
-      if (own) {                 // acc[leaf] += this row's pull, as the
-        float rx = 0.0f, ry = 0.0f, rz = 0.0f;   // plain walk adds it
-        nb_accumulate(sx, sy, sz, sm, n, skip, px, py, pz, eps2, rx, ry, rz);
-        ax += rx;
-        ay += ry;
-        az += rz;
-      }
-    } else if (et == BH_COM_LEAF && i == 0) {   // [cell, leaf]
-      const int64_t s = row[2];
-      const float* x = xs + s * 3 * P;
-      const float* m = ms + s * P;
+  if (q0 >= q1) return;
+  const int et0 = __ldg(desc + (int64_t)q0 * width);
+  if (et0 == BH_COM_LEAF || et0 == BH_COM_INNER) {
+    if (lane != 0) return;
+    for (int q = q0; q < q1; ++q) {
+      const int* row = desc + (int64_t)q * width;
+      const int et = row[0], w = row[1];
       float tot = 0.0f, cx = 0.0f, cy = 0.0f, cz = 0.0f;
-      for (int t = 0; t < P; ++t) {
-        tot += m[t];
-        cx += x[t] * m[t];
-        cy += x[P + t] * m[t];
-        cz += x[2 * P + t] * m[t];
-      }
-      const float d = fmaxf(tot, 1e-30f);
-      com[3 * (int64_t)w] = cx / d;
-      com[3 * (int64_t)w + 1] = cy / d;
-      com[3 * (int64_t)w + 2] = cz / d;
-      cmass[w] = tot;
-    } else if (et == BH_COM_INNER && i == 0) {  // [cell, c0..c7]
-      float tot = 0.0f, cx = 0.0f, cy = 0.0f, cz = 0.0f;
-      for (int k = 0; k < NB_MAX_CHILDREN; ++k) {
-        const int64_t c = row[2 + k];
-        const float m = cmass[c];
-        tot += m;
-        cx += com[3 * c] * m;
-        cy += com[3 * c + 1] * m;
-        cz += com[3 * c + 2] * m;
+      if (et == BH_COM_LEAF) {           // [cell, leaf]: its real particles
+        const int64_t s = row[2];        // (a pad adds exactly 0)
+        const float* x = xs + s * 3 * P;
+        const float* m = ms + s * P;
+        const int n = counts[s];
+        for (int t = 0; t < n; ++t) {
+          tot += m[t];
+          cx += x[t] * m[t];
+          cy += x[P + t] * m[t];
+          cz += x[2 * P + t] * m[t];
+        }
+      } else if (et == BH_COM_INNER) {   // [cell, c0..c7]
+        for (int k = 0; k < NB_MAX_CHILDREN; ++k) {
+          const int64_t c = row[2 + k];
+          const float m = cmass[c];
+          tot += m;
+          cx += com[3 * c] * m;
+          cy += com[3 * c + 1] * m;
+          cz += com[3 * c + 2] * m;
+        }
+      } else {
+        continue;                        // BH_NOOP and anything out of range
       }
       const float d = fmaxf(tot, 1e-30f);
       com[3 * (int64_t)w] = cx / d;
@@ -267,14 +329,138 @@ __global__ void bh_walk_kernel(const int* __restrict__ desc, int width,
       com[3 * (int64_t)w + 2] = cz / d;
       cmass[w] = tot;
     }
-    // BH_NOOP and any type out of range: no-op
+    return;
   }
-  if (leaf >= 0 && own) {
-    const int64_t o = (int64_t)leaf * 3 * P + i;
-    acc[o] = ax;
-    acc[o + P] = ay;
-    acc[o + 2 * P] = az;
+  if (et0 < BH_SELF || et0 > BH_PC) return;   // no-op rows only
+  const int leaf = __ldg(desc + (int64_t)q0 * width + 1);
+  const int cnt = __ldg(counts + leaf);
+  const int groups = (cnt + 31) / 32;   // target groups with a real target
+  const int plane = nb_plane(P), rb = nb_batch(P);
+  float4* slots = nb_slots + (size_t)warp * 2 * rb * plane;
+  float px[T], py[T], pz[T], ax[T], ay[T], az[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int i = lane + 32 * t;
+    px[t] = py[t] = pz[t] = ax[t] = ay[t] = az[t] = 0.0f;
+    if (i < cnt) {
+      const int64_t o = (int64_t)leaf * 3 * P + i;
+      ax[t] = acc[o];
+      ay[t] = acc[o + P];
+      az[t] = acc[o + 2 * P];
+      px[t] = xs[o];
+      py[t] = xs[o + P];
+      pz[t] = xs[o + 2 * P];
+    }
   }
+  // a two-step pipeline: step k + 1's sources are copied (and its counts
+  // loaded) while step k computes, step k + 2's rows prefetched into L1
+  int n_cur[NB_BATCH] = {}, n_nxt[NB_BATCH] = {}, self_cur = 0, self_nxt = 0;
+  const int nsteps = (q1 - q0 + rb - 1) / rb;
+  bh_stage(desc, width, q0, min(rb, q1 - q0), xs, ms, counts, com, cmass, P,
+           plane, pad_cell, cnt, slots, n_cur, self_cur);
+  cp_async_commit();
+  for (int k = 0; k < nsteps; ++k) {
+    const int q = q0 + k * rb, nr = min(rb, q1 - q);
+    if (k + 1 < nsteps)
+      bh_stage(desc, width, q + rb, min(rb, q1 - q - rb), xs, ms, counts,
+               com, cmass, P, plane, pad_cell, cnt,
+               slots + ((k + 1) & 1) * rb * plane, n_nxt, self_nxt);
+    cp_async_commit();
+    if (lane < rb && q + 2 * rb + lane < q1)
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(
+          desc + (int64_t)(q + 2 * rb + lane) * width));
+    cp_async_wait1();
+    __syncwarp();
+    const float4* st = slots + (k & 1) * rb * plane;
+    // rows r and r + 1 in flight at once, each into its own partial sums
+    // (one a target group of 32), a source read once for every group; the
+    // partials join the running sum in table order, as the plain walk
+    // adds each row's pull
+#pragma unroll
+    for (int r = 0; r < NB_BATCH; r += 2) {
+      if (r >= nr) break;
+      const float4* s0 = st + r * plane;
+      const float4* s1 = s0 + plane;
+      const int n0 = n_cur[r], n1 = r + 1 < nr ? n_cur[r + 1] : 0;
+      const int nmin = min(n0, n1);
+      // the source index a target skips in a SELF row (its own), else -1
+      const int k0 = (self_cur >> r) & 1 ? lane : -1 - 32 * T;
+      const int k1 = (self_cur >> (r + 1)) & 1 ? lane : -1 - 32 * T;
+      float a0[T][3], a1[T][3];
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) a0[t][c] = a1[t][c] = 0.0f;
+      int j = 0;
+#pragma unroll 2
+      for (; j < nmin; ++j) {
+        const float4 u0 = s0[j], u1 = s1[j];
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          if (t >= groups) break;
+          nb_pull4(u0, j == k0 + 32 * t, px[t], py[t], pz[t], eps2, a0[t][0],
+                   a0[t][1], a0[t][2]);
+          nb_pull4(u1, j == k1 + 32 * t, px[t], py[t], pz[t], eps2, a1[t][0],
+                   a1[t][1], a1[t][2]);
+        }
+      }
+      for (int jj = j; jj < n0; ++jj) {
+        const float4 u0 = s0[jj];
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          if (t >= groups) break;
+          nb_pull4(u0, jj == k0 + 32 * t, px[t], py[t], pz[t], eps2,
+                   a0[t][0], a0[t][1], a0[t][2]);
+        }
+      }
+      for (int jj = j; jj < n1; ++jj) {
+        const float4 u1 = s1[jj];
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+          if (t >= groups) break;
+          nb_pull4(u1, jj == k1 + 32 * t, px[t], py[t], pz[t], eps2,
+                   a1[t][0], a1[t][1], a1[t][2]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        ax[t] += a0[t][0];
+        ay[t] += a0[t][1];
+        az[t] += a0[t][2];
+        ax[t] += a1[t][0];
+        ay[t] += a1[t][1];
+        az[t] += a1[t][2];
+      }
+    }
+    __syncwarp();                // every lane is done with this step's slots
+#pragma unroll
+    for (int r = 0; r < NB_BATCH; ++r) n_cur[r] = n_nxt[r];
+    self_cur = self_nxt;
+  }
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int i = lane + 32 * t;
+    if (i < cnt) {
+      const int64_t o = (int64_t)leaf * 3 * P + i;
+      acc[o] = ax[t];
+      acc[o + P] = ay[t];
+      acc[o + 2 * P] = az[t];
+    }
+  }
+}
+
+template <int T>
+int bh_launch(const int* desc, int width, const int* bucket_ptr,
+              const int* bucket_order, int b0, int nb, const float* xs,
+              const float* ms, const int* counts,
+              float* acc, float* com, float* cmass, int P, int pad_cell,
+              float eps2, cudaStream_t stream) {
+  const int warps = nb_warps(P);
+  const size_t smem = sizeof(float4) * warps * 2 * nb_batch(P) * nb_plane(P);
+  bh_walk_kernel<T><<<(nb + warps - 1) / warps, 32 * warps, smem, stream>>>(
+      desc, width, bucket_ptr, bucket_order, b0, b0 + nb, xs, ms, counts, acc,
+      com, cmass, P, pad_cell, eps2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -303,16 +489,26 @@ int nb_acc_self(const float* x, int64_t sd, int64_t sn, const float* m,
   return (int)cudaGetLastError();
 }
 
-// One launch walks buckets [b0, b0 + nb): blockDim is P rounded up to a
-// whole warp (P <= NB_MAX_P), shared memory four planes of nb_plane(P).
-int bh_walk(const int* desc, int width, const int* bucket_ptr, int b0,
-            int nb, const float* xs, const float* ms, float* acc, float* com,
-            float* cmass, int P, float eps2, void* stream) {
-  const int threads = ((P + 31) / 32) * 32;
-  bh_walk_kernel<<<nb, threads, 4 * nb_plane(P) * sizeof(float),
-                   (cudaStream_t)stream>>>(desc, width, bucket_ptr, b0, xs,
-                                           ms, acc, com, cmass, P, eps2);
-  return (int)cudaGetLastError();
+// One launch walks buckets bucket_order[b0 .. b0 + nb - 1]: one warp a
+// bucket, nb_warps(P)
+// a block, T = ceil(P / 32) targets a lane at most (rounded up to a power
+// of two; P <= NB_MAX_P).
+int bh_walk(const int* desc, int width, const int* bucket_ptr,
+            const int* bucket_order, int b0, int nb, const float* xs,
+            const float* ms, const int* counts,
+            float* acc, float* com, float* cmass, int P, int pad_cell,
+            float eps2, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define NB_WALK(T)                                                         \
+  return bh_launch<T>(desc, width, bucket_ptr, bucket_order, b0, nb, xs,   \
+                      ms, counts, acc, com, cmass, P, pad_cell, eps2, st)
+  if (P <= 32) NB_WALK(1);
+  if (P <= 64) NB_WALK(2);
+  if (P <= 128) NB_WALK(4);
+  if (P <= 256) NB_WALK(8);
+  if (P <= 512) NB_WALK(16);
+  NB_WALK(32);
+#undef NB_WALK
 }
 
 }  // extern "C"

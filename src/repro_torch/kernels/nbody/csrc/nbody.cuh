@@ -1,8 +1,7 @@
-// Softened-gravity interaction math of the Barnes-Hut tree code (paper
-// §4.2) as device functions for the task-table walk (K8 bh_walk) in
-// nbody.cu, and the constants of the per-op kernels (K6 acc_pair, K7
-// acc_self), which take the same pair arithmetic (nbody.cu::nb_pull) over
-// slices of the sources.
+// Constants of the Barnes-Hut tree code's kernels (paper §4.2) in
+// nbody.cu: the per-op kernels (K6 acc_pair, K7 acc_self, nbody.cu::nb_pull)
+// and the task-table walk (K8 bh_walk, nbody.cu::nb_pull4), which take the
+// same pair arithmetic.
 //
 // Replaces the value-level body the TPU kernels share,
 // src/repro/kernels/nbody/kernel.py::acc_block:
@@ -24,7 +23,8 @@
 #define NB_PAIR_MAX_THREADS 1024   // K6/K7: most blockDim
 #define NB_PAIR_SLICE 32    // K6/K7: sources a slice walks before slices double
 #define NB_PAIR_CHUNK 512   // K6/K7: sources staged in shared memory at once
-#define NB_MAX_P 1024       // K8: one thread per particle of a leaf block
+#define NB_MAX_P 1024       // K8: leaf blocks of at most 32 x 32 targets
+#define NB_BATCH 4          // K8: rows of a bucket staged in one step, at most
 #define NB_MAX_CHILDREN 8   // K8: COM slots of a COM_INNER or PC row
 
 // Engine types of a BH table row [etype, write, a0..a7]; equal to
@@ -34,24 +34,3 @@
 #define BH_SELF 2
 #define BH_PP 3
 #define BH_PC 4
-
-// (ax, ay, az) += the pull of the n sources held as four planes
-// (sx, sy, sz, sm) on the target at (xi, yi, zi), in the order j = 0..n-1;
-// source `skip` (the target itself in a self set, else -1) weighs zero.
-__device__ __forceinline__ void nb_accumulate(
-    const float* sx, const float* sy, const float* sz, const float* sm,
-    int n, int skip, float xi, float yi, float zi, float eps2, float& ax,
-    float& ay, float& az) {
-  for (int j = 0; j < n; ++j) {
-    const float dx = sx[j] - xi;
-    const float dy = sy[j] - yi;
-    const float dz = sz[j] - zi;
-    const float r2 = dx * dx + dy * dy + dz * dz + eps2;
-    float w = rsqrtf(r2);
-    w = w * w * w * sm[j];
-    if (j == skip) w = 0.0f;
-    ax += dx * w;
-    ay += dy * w;
-    az += dz * w;
-  }
-}

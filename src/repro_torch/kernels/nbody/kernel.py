@@ -4,8 +4,9 @@
 function; ``csrc/nbody.cu`` holds the per-op kernels ``acc_pair`` (K6) and
 ``acc_self`` (K7), one template whose blocks cover targets x source slices
 (the slices' partial sums added in slice order, so a call repeats bit for
-bit), and the task-table walk ``bh_walk`` (K8), one block per bucket of a
-launch group, and exports a plain C launcher for each.  They replace the
+bit), and the task-table walk ``bh_walk`` (K8), one warp per bucket of a
+launch group over each leaf's real particles, and exports a plain C
+launcher for each.  They replace the
 Pallas kernels ``repro/kernels/nbody/kernel.py::acc_pair``, ``acc_self`` and the walk
 ``repro/engine/megakernel.py::bh_round_fn``.
 
@@ -30,7 +31,7 @@ from repro_torch.kernels._binding import count
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "nbody.cu"     # includes csrc/nbody.cuh
 
-MAX_P = 1024       # NB_MAX_P in csrc/nbody.cuh: one walk thread a particle
+MAX_P = 1024       # NB_MAX_P in csrc/nbody.cuh: 32 lanes x 32 targets
 
 # kernel launches by wrapper, and plain-version calls taken by a wrapper
 # because its tensor lay on the CPU; chip_smoke.py zeroes both before the
@@ -46,7 +47,8 @@ _P, _I, _L, _F = _binding.P, _binding.I, _binding.I64, _binding.F
 _SIGNATURES = {
     "nb_acc_pair": (_P, _L, _L, _I, _P, _L, _L, _P, _L, _I, _F, _P, _P),
     "nb_acc_self": (_P, _L, _L, _P, _L, _I, _F, _P, _P),
-    "bh_walk": (_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P),
+    "bh_walk": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                _F, _P),
 }
 
 
@@ -86,13 +88,18 @@ def acc_self(x, m, eps2: float, out) -> None:
     count(LAUNCHES, "acc_self")
 
 
-def bh_walk(desc, bucket_ptr, b0: int, b1: int, xs, ms, acc, com, cmass,
-            eps2: float) -> None:
-    """Walk buckets ``[b0, b1)`` of one launch group: ``desc`` holds the
-    rows in bucket order, ``bucket_ptr`` the bucket CSR (int32, on the
-    card); the state buffers are updated in place."""
-    _check(lib().bh_walk(_ptr(desc), desc.shape[1], _ptr(bucket_ptr), b0,
-                         b1 - b0, _ptr(xs), _ptr(ms), _ptr(acc), _ptr(com),
-                         _ptr(cmass), xs.shape[2], eps2, _stream()),
+def bh_walk(desc, bucket_ptr, bucket_order, b0: int, b1: int, xs, ms,
+            counts, acc, com, cmass, eps2: float) -> None:
+    """Walk buckets ``bucket_order[b0:b1]`` of one launch group: ``desc``
+    holds the rows in bucket order, ``bucket_ptr`` the bucket CSR and
+    ``bucket_order`` the order the launch takes the buckets in (int32, on
+    the card), ``counts`` (L,) int32 each leaf block's real particles; the
+    state buffers are updated in place, the pad particles' accelerations
+    left as they are."""
+    _check(lib().bh_walk(_ptr(desc), desc.shape[1], _ptr(bucket_ptr),
+                         _ptr(bucket_order), b0, b1 - b0, _ptr(xs),
+                         _ptr(ms), _ptr(counts), _ptr(acc), _ptr(com),
+                         _ptr(cmass), xs.shape[2], com.shape[0] - 1, eps2,
+                         _stream()),
            "bh_walk")
     count(LAUNCHES, "bh_walk")

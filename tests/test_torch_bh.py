@@ -7,6 +7,9 @@ part of ``repro_torch.engine``) against the reference, on the CPU.
   within a group, per-destination order is kept, the plain walk in bucket
   order is bitwise the plain walk in table order, and a table that cannot
   be cut is refused.
+* The walk's counts: the static the card's walk takes are the tree's leaf
+  sizes, and a plain walk cut at them is bitwise the padded plain walk on
+  every real particle (the premise of skipping pad sources on the card).
 * The slice as a whole: ``solve(device="cpu")`` in all four modes against
   the reference's rounds mode on an 8³ lattice (1e-4 per-particle
   relative, the reference's cross-mode tolerance, tests/test_backends.py),
@@ -38,6 +41,7 @@ from repro_torch import engine  # noqa: E402
 from repro_torch.apps import barneshut as bh  # noqa: E402
 from repro_torch.core import lower  # noqa: E402
 from repro_torch.kernels.nbody import kernel  # noqa: E402
+from repro_torch.kernels.nbody import ref as kernel_ref  # noqa: E402
 
 MODES = ("sequential", "threaded", "rounds", "engine")
 TABLE_FIELDS = ("desc", "tids", "round_offsets", "phase_offsets",
@@ -204,13 +208,85 @@ def test_plain_walk_in_bucket_order_is_bitwise_table_order(lowered):
     for desc in (tab.desc, tab.desc[lg.order]):
         st = bh.BHState(g, device="cpu")
         hooks = st.engine_hooks()
-        xs, ms = hooks.statics()
+        xs, ms, _ = hooks.statics()
         acc, com, cmass = hooks.buffers()
         engine.bh_walk_plain(desc, xs, ms, acc, com, cmass, st.eps)
         outs.append((acc, com, cmass))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert outs[0][0].abs().sum() > 0
+
+
+def test_walk_counts_are_the_leaf_counts(lowered):
+    """The counts the walk takes (its third static) are the tree's leaf
+    sizes, slot by slot, and the padded blocks hold exactly that many
+    massive particles each."""
+    _, (_, (g, _)) = lowered
+    st = bh.BHState(g, device="cpu")
+    xs, ms, counts = st.engine_hooks().statics()
+    leaves = [c for c in g.tree.cells if not c.split]
+    assert counts.dtype == torch.int32 and counts.shape == (len(leaves),)
+    assert counts.tolist() == [c.count for c in leaves]
+    assert counts.tolist() == (ms > 0).sum(1).tolist()
+    assert int(counts.max()) == xs.shape[2]
+
+
+def count_limited_walk(desc, xs, ms, counts, acc, com, cmass, eps):
+    """The plain walk as the walk on the card runs it: a SELF or PP row
+    pulls only its source leaf's real particles on its leaf's real
+    targets."""
+    for row in torch.as_tensor(desc).tolist():
+        et, w = row[0], row[1]
+        if et == engine.BH_SELF:
+            n = int(counts[w])
+            acc[w, :, :n] += kernel_ref.acc_self_ref(xs[w, :, :n],
+                                                     ms[w, :n], eps)
+        elif et == engine.BH_PP:
+            s, n = row[2], int(counts[w])
+            ns = int(counts[s])
+            acc[w, :, :n] += kernel_ref.acc_pair_ref(
+                xs[w, :, :n], xs[s, :, :ns], ms[s, :ns], eps)
+        else:
+            engine.bh_walk_plain([row], xs, ms, acc, com, cmass, eps)
+
+
+def test_count_limited_walk_is_bitwise_the_padded_walk(lowered):
+    """The premise of the walk on the card skipping pad sources: a pad has
+    zero mass at a finite position, so it adds exactly 0, and a walk that
+    stops at each leaf's real particles gives every real particle the
+    bits the plain walk over the padded blocks gives it.  (cloud2000: 239
+    of its 244 leaves hold fewer than the 32 particles of a block; the
+    lattice's leaves are all full, so there the two walks are one.)"""
+    _, (_, (g, tab)) = lowered
+    st = bh.BHState(g, device="cpu")
+    hooks = st.engine_hooks()
+    xs, ms, counts = hooks.statics()
+    padded, limited = hooks.buffers(), hooks.buffers()
+    engine.bh_walk_plain(tab.desc, xs, ms, *padded, st.eps)
+    count_limited_walk(tab.desc, xs, ms, counts, *limited, st.eps)
+    real = torch.arange(xs.shape[2])[None, :] < counts[:, None]
+    got, want = limited[0], padded[0]
+    assert torch.equal(got.permute(0, 2, 1)[real], want.permute(0, 2, 1)[real])
+    assert torch.equal(limited[1], padded[1])
+    assert torch.equal(limited[2], padded[2])
+    assert want.abs().sum() > 0
+
+
+def test_bucket_order_takes_each_groups_buckets_longest_first(lowered):
+    """The order the walk on the card takes buckets in: every bucket once,
+    each inside its own launch group, a group's buckets by decreasing
+    length, ties in bucket order."""
+    _, (_, (_, tab)) = lowered
+    lg = engine.launch_groups(tab, engine.bh_row_keys)
+    order = engine.megakernel.bucket_order(lg)
+    lengths = np.diff(lg.bucket_offsets)
+    go = lg.group_offsets
+    assert sorted(order.tolist()) == list(range(lg.nr_buckets))
+    for g0, g1 in zip(go[:-1], go[1:]):
+        part = order[g0:g1]
+        assert ((part >= g0) & (part < g1)).all()
+        key = list(zip(-lengths[part], part))
+        assert key == sorted(key)
 
 
 def test_pass_refuses_tables_it_cannot_cut(lowered):

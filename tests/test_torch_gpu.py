@@ -18,15 +18,17 @@ tolerance applies to each target's acceleration vector, not to each of its
 components: a component that cancels to ~1 out of terms of ~10³ keeps no
 relative precision in any float32 sum, and the kernel and its plain
 version sum in different orders (rsqrtf in order j = 0, 1, ... against
-PyTorch's blocked reductions).  Barnes-Hut's
+PyTorch's reductions).  The Barnes-Hut walk K8 walks only each leaf's
+real particles, so it is held to the plain walk over the padded blocks on
+every real particle, the pads' accelerations left at zero.  Barnes-Hut's
 modes sum in different orders (a leaf's COM sources in one launch or in
 rows of 8), so they agree within 1e-4 per particle, relative, with each
 other and with the CPU plain path (the reference's cross-mode tolerance).
 The paged decode kernels K10 (GQA) and K11 (MLA; bf16 on the tensor
 cores) are held to ``PAGED_TOL``: the reference's in fp32, one output ulp
 in bf16.  The
-pipeline walk K9 is held to its plain walk on every state buffer at the
-reference's pipeline tolerance (rtol 1e-5, atol 1e-6,
+pipeline walk K9 (one cooperative launch a plan) is held to its plain walk
+on every state buffer at the reference's pipeline tolerance (rtol 1e-5, atol 1e-6,
 tests/test_backends.py) and is bitwise repeatable; the four pipeline modes
 on the card to a float64 ``torch.autograd`` of the monolithic loss at the
 same tolerance.  Flash attention K12 is held to its plain version at the
@@ -369,22 +371,59 @@ def bh_lowered(n, seed, n_max, n_task, device):
     return x, m, st, tab
 
 
+def walk_on_card(st, tab, lg, cuda):
+    """One K8 walk of ``tab`` from fresh buffers: (statics, buffers)."""
+    hooks = st.engine_hooks()
+    statics = hooks.statics()
+    walked = hooks.buffers()
+    desc = torch.as_tensor(tab.desc[lg.order], device=cuda)
+    hooks.round_fn(desc, lg, statics, walked)
+    return statics, walked
+
+
+def close_real(walked, plain, counts):
+    """K8 against the plain walk on every real particle and every COM row;
+    the pad particles' accelerations are left as they were (zero)."""
+    real = (torch.arange(walked[0].shape[2], device=counts.device)[None, :]
+            < counts[:, None])
+    acc_w, acc_p = walked[0].permute(0, 2, 1), plain[0].permute(0, 2, 1)
+    close_vec(acc_w[real], acc_p[real], axis=1)
+    assert not bool(acc_w[~real].any())
+    for got, want in zip(walked[1:], plain[1:]):     # com, cmass
+        close_vec(got, want, axis=1)
+
+
 @pytest.mark.parametrize("n,n_max,n_task", [(3000, 48, 192),
                                              (400, 4, 16)])   # P < 8
 def test_bh_walk_matches_plain_walk_on_card(cuda, n, n_max, n_task):
     _, _, st, tab = bh_lowered(n, 5, n_max, n_task, cuda)
     lg = engine.launch_groups(tab, engine.bh_row_keys)
-    hooks = st.engine_hooks()
-    statics = hooks.statics()
-    walked, plain = hooks.buffers(), hooks.buffers()
-    desc = torch.as_tensor(tab.desc[lg.order], device=cuda)
     nb_kernel.reset_counts()
-    hooks.round_fn(desc, lg, statics, walked)
-    engine.bh_walk_plain(tab.desc, *statics, *plain, st.eps)
+    (xs, ms, counts), walked = walk_on_card(st, tab, lg, cuda)
+    plain = st.engine_hooks().buffers()
+    engine.bh_walk_plain(tab.desc, xs, ms, *plain, st.eps)
     torch.cuda.synchronize()
     assert nb_kernel.LAUNCHES["bh_walk"] <= lg.nr_groups <= tab.nr_rounds
-    for got, want in zip(walked, plain):      # acc (L,3,P), com, cmass
-        close_vec(got, want, axis=1)
+    close_real(walked, plain, counts)
+
+
+def test_bh_walk_skips_pad_sources_at_20k(cuda):
+    """K8 at 20k particles (n_max 64: blocks of P slots, leaves of fewer
+    real particles), which walks only each leaf's real sources and
+    targets, against the plain walk over the padded blocks; two walks
+    bitwise equal."""
+    _, _, st, tab = bh_lowered(20000, 7, 64, 256, cuda)
+    lg = engine.launch_groups(tab, engine.bh_row_keys)
+    (xs, ms, counts), walked = walk_on_card(st, tab, lg, cuda)
+    _, again = walk_on_card(st, tab, lg, cuda)
+    plain = st.engine_hooks().buffers()
+    engine.bh_walk_plain(tab.desc, xs, ms, *plain, st.eps)
+    torch.cuda.synchronize()
+    assert int(counts.sum()) == 20000 and int(counts.max()) == xs.shape[2]
+    assert bool((counts < xs.shape[2]).any())
+    for got, twice in zip(walked, again):
+        assert torch.equal(got, twice)
+    close_real(walked, plain, counts)
 
 
 def rel_err(a, want):
@@ -871,8 +910,8 @@ def test_pipe_walk_matches_plain_walk_on_card(cuda, S, M, Bt, D):
         bufs = fresh()
         engine.pipe_round_fn(1.0 / M)(desc, bounds, statics, bufs)
         torch.cuda.synchronize()
-        assert pw_kernel.LAUNCHES["pipe_walk"] == int(
-            (np.diff(tab.phase_offsets) > 0).sum())
+        assert pw_kernel.LAUNCHES["pipe_walk"] == \
+            engine.PIPE_LAUNCHES_PER_PLAN == 1
         assert pw_kernel.PLAIN_CALLS["pipe_walk"] == 0
         runs.append(bufs)
     plain = fresh()
@@ -883,8 +922,8 @@ def test_pipe_walk_matches_plain_walk_on_card(cuda, S, M, Bt, D):
         assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **PIPE_TOL)
 
 
-# K9 vs its plain walk where the F and cot_in reductions split (D >= 512:
-# 3 splits, the last ragged) and Bt spans row tiles (40, 65): each buffer
+# K9 vs its plain walk where the F and cot_in reductions split (D > 512:
+# 2 splits, the last ragged) and Bt spans row tiles (40, 65): each buffer
 # by norm, as chip_smoke.py holds the full width (elementwise, acts near 0
 # differ by ~1e-6 from the other summation order); the plain walk under
 # TF32 reads 2.8e-4 and more there on an H100

@@ -312,18 +312,99 @@ def test_tile_offsets_count_each_rows_tiles():
     offs = pw_kernel.tile_offsets(tab.desc, bt, dim)
     n = np.diff(offs.astype(np.int64))
     ntf = pw_kernel.f_tiles(bt, dim) * pw_kernel.k_splits(dim)
-    ngw = (dim // pw_kernel.GW_T) ** 2
-    assert ntf == 32 * 8 and ngw == 1024
+    ngw, nu = pw_kernel.gw_tiles(dim), pw_kernel.u_tiles(dim)
+    assert ntf == 8 * 4 and ngw == 32 * 16 and nu == 512
     et, first = tab.desc[:, 0], tab.desc[:, 5] > 0
     assert (n[et == engine.PIPE_F] == ntf).all()
     assert (n[(et == engine.PIPE_B) & first] == ngw).all()
     assert (n[(et == engine.PIPE_B) & ~first] == ngw + ntf).all()
-    assert (n[et == engine.PIPE_U] == ngw).all()
+    assert (n[et == engine.PIPE_U] == nu).all()
     assert offs.dtype == np.int32 and offs[0] == 0
-    assert pw_kernel.f_tiles(1, 40) == 1 and pw_kernel.f_tiles(33, 65) == 4
-    assert pw_kernel.k_splits(40) == 1 and pw_kernel.k_splits(257) == 2
+    assert pw_kernel.f_tiles(1, 40) == 1 and pw_kernel.f_tiles(33, 65) == 2
+    assert pw_kernel.f_tiles(33, 257) == 4
+    assert pw_kernel.k_splits(40) == 1 and pw_kernel.k_splits(513) == 2
+    assert pw_kernel.k_splits(512) == 1
+    assert pw_kernel.gw_tiles(65) == 2 and pw_kernel.u_tiles(91) == 2
     noop = np.array([[engine.PIPE_NOOP, 0, 0, 0, 0, 0, 0]], np.int32)
     assert pw_kernel.tile_offsets(noop, bt, dim).tolist() == [0, 0]
+
+
+def walk_work(work):
+    """What the one launch does with a work list, as the kernel finds it:
+    per phase, each tile t's segment by a binary search over the segment
+    offsets; returns [(phase, row, kind, slot, tile in its segment)]."""
+    done = []
+    for p in range(len(work.phase_segs) - 1):
+        s0, s1 = int(work.phase_segs[p]), int(work.phase_segs[p + 1])
+        for t in range(int(work.seg_offs[s0]), int(work.seg_offs[s1])):
+            lo, hi = s0, s1
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                if work.seg_offs[mid] <= t:
+                    lo = mid
+                else:
+                    hi = mid
+            row, kind, slot = (int(v) for v in work.segs[lo])
+            done.append((p, row, kind, slot, t - int(work.seg_offs[lo])))
+    return done
+
+
+@pytest.mark.parametrize("S,M,bt,dim", [(8, 64, 32, 2048), (3, 6, 33, 65),
+                                        (1, 2, 1, 40)],
+                         ids=["full", "ragged", "S1"])
+def test_work_list_walks_every_tile_once_longest_first(S, M, bt, dim):
+    """The host's work list for the one-launch walk: every row's tiles
+    once, in the phase that holds the row, each phase's segments in the
+    order COT, F, GW, U (rows in table order within a kind), slots the
+    rows' places in their phases, empty phases dropped; the launch's grid
+    and scratch bounds are the longest phase's tiles and rows."""
+    _, _, _, tab = lowered(pipe, pexec, engine, S, M)
+    bounds = [int(b) for b in tab.phase_offsets]
+    work = pw_kernel.work_list(tab.desc, bounds, bt, dim)
+    done = walk_work(work)
+    offs = pw_kernel.tile_offsets(tab.desc, bt, dim)
+    per_row = np.bincount([d[1] for d in done], minlength=len(tab.desc))
+    assert per_row.tolist() == np.diff(offs).tolist()
+    assert len(set(d[1:3] + d[4:] for d in done)) == len(done)
+    live = [p for p in range(len(bounds) - 1)
+            if offs[bounds[p + 1]] > offs[bounds[p]]]
+    assert len(work.phase_segs) - 1 == len(live)
+    tiles = {p: 0 for p in range(len(live))}
+    for p, row, kind, slot, _ in done:
+        q0, q1 = bounds[live[p]], bounds[live[p] + 1]
+        assert q0 <= row < q1 and slot == row - q0
+        tiles[p] += 1
+    for p in range(len(live)):
+        s0, s1 = work.phase_segs[p], work.phase_segs[p + 1]
+        keys = [(k, r) for r, k, _ in work.segs[s0:s1].tolist()]
+        assert keys == sorted(keys)
+    et, first = tab.desc[:, 0], tab.desc[:, 5] > 0
+    want_kinds = {(q, k) for q in range(len(et)) for k, hit in (
+        (pw_kernel.SEG_COT, et[q] == engine.PIPE_B and not first[q]),
+        (pw_kernel.SEG_F, et[q] == engine.PIPE_F),
+        (pw_kernel.SEG_GW, et[q] == engine.PIPE_B),
+        (pw_kernel.SEG_U, et[q] == engine.PIPE_U)) if hit}
+    assert {(int(r), int(k)) for r, k, _ in work.segs} == want_kinds
+    assert work.max_tiles == max(tiles.values())
+    assert work.max_rows == max(np.diff(bounds))
+    assert work.segs.dtype == work.seg_offs.dtype == np.int32
+
+
+def test_work_list_takes_a_range_of_phases():
+    """A phase range of the table (as a caller walking part of a plan
+    passes it) gives only those phases' rows; no phase, no work."""
+    _, _, _, tab = lowered(pipe, pexec, engine, 3, 6)
+    bounds = [int(b) for b in tab.phase_offsets]
+    part = pw_kernel.work_list(tab.desc, bounds[2:5], 4, 8)
+    rows = {r for _, r, _, _, _ in walk_work(part)}
+    assert rows == set(range(bounds[2], bounds[4]))
+    none = pw_kernel.work_list(tab.desc, (3, 3), 4, 8)
+    assert none.max_tiles == 0 and len(none.phase_segs) == 1
+    scratch = pw_kernel.scratch(18, 6, part.max_rows, 33, 513, "cpu")
+    assert [tuple(t.shape) for t in scratch] == [
+        (18, 33, 513), (6, 6), (6,), (part.max_rows, 2, 6, 32 * 256),
+        (part.max_rows, 6)]
+    assert not scratch[2].any() and not scratch[4].any()
 
 
 def test_round_fn_refuses_out_of_range_rows():
