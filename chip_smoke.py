@@ -15,7 +15,10 @@ starcoder2-7b as published (bf16, 28 and 32 layers) and of
 deepseek-v3-671b (MoE + MLA) at full width cut to its first 5 layers
 (bf16), random weights from seed 0; the
 pipelined value-and-grad through ``repro_torch.pipeline`` at (S, M, Bt, D)
-= (8, 64, 32, 2048) in all four modes; and the flash-attention op.
+= (8, 64, 32, 2048) in all four modes; the flash-attention op; and
+training of qwen3-1.7b as published through
+``repro_torch.trainer.loop.run_training`` (200 steps, a kill-and-resume
+drill, an fp32 step against the CPU).
 Phases, each fatal when it fails:
 
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
@@ -149,7 +152,34 @@ Phases, each fatal when it fails:
     plain version and F.scaled_dot_product_attention (the yardstick, never
     called by the port); the op's output there against the plain version,
     every row within 2e-2 relative, a limit an output without the last 64
-    keys must fail; then at hd 112 (zamba2-7b's width), held the same way.
+    keys must fail; then at hd 112 (zamba2-7b's width), held the same way;
+23. training, with the earlier models freed: qwen3-1.7b as published
+    (bf16, 28 layers, 2.03e9 weights from seed 0) through
+    repro_torch.trainer.loop.run_training with AdamW, 200 steps at
+    launch/train.py's (seq 128, global batch 8), every count at 0 before
+    and no kernel and no plain version launched after (no kernel is on
+    this path), every parameter and moment on the card, every loss
+    finite, the last 10 losses' mean below the first 10's by LOSS_MARGIN,
+    which the same first 20 steps at lr 0 must not reach (and whose first
+    loss must equal the run's); the step split by CUDA events into
+    loss+gradients, clip and update over 8 more steps, tokens per second,
+    peak memory, a profiler window of 2 steps (busy share, kernels a step,
+    the matrix products' share); then 20 steps at (4096, 1), attention
+    through sdpa_chunked (attn_chunk 2048) in the forward pass and the
+    recompute of every layer (counted), the backward through autograd,
+    and sdpa_chunked alone at that shape (forward, forward + backward);
+24. the kill-and-resume drill at full width cut to 2 layers (a 28-layer
+    checkpoint is ~24 GB a save): 20 steps uninterrupted, and 20 steps
+    checkpointed every 5, killed at step 12 and resumed from step 10: the
+    losses, the parameters and the moments bit for bit equal; its
+    checkpoints' save and restore timed by the loop's spans; the
+    workdirs deleted;
+25. one fp32 train step of qwen3-1.7b at full width, 1 layer, (128, 1),
+    TF32 off, on the card against the same step on the CPU: loss and grad
+    norm within atol 2e-5 / rtol 1e-4, every gradient leaf within that
+    and 1e-5 relative (Frobenius), the moments everywhere and the
+    parameters where the clipped |g| exceeds 2e-5 within it; the same
+    step under TF32 must fail that check.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -169,6 +199,9 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+# deterministic cuBLAS for the restart-exact training phases: read at the
+# first cuBLAS call, so set before torch is imported
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, str(ROOT / "src"))
 
 N_MAIN, B_MAIN = 2048, 64        # the paper's benchmark matrix and tile
@@ -2952,6 +2985,501 @@ def phase_k12_timing(torch, np, errs, launches, qkvo, card):
             "library_ms_hd112": lms112, "row_rel_err_hd112": row112}
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the training stack (launch.train -> run_training ->
+# make_train_step -> loss_fn -> torch.autograd.grad -> clip -> adamw_update)
+# ---------------------------------------------------------------------------
+
+ARCH_TRAIN = "qwen3-1.7b"   # as published: bf16, 28 layers, d 2048, 16/8
+#                             heads of 128, d_ff 6144, vocab 151936
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 200, 128, 8   # launch/train.py's
+#                             sequence and global batch
+LONG_STEPS, LONG_SEQ, LONG_BATCH = 20, 4096, 1      # attn_chunk 2048 < 4096:
+#                             sdpa_chunked in the forward, the recompute and
+#                             the backward
+CONTROL_STEPS = 20          # the same first steps at lr 0
+LOSS_WINDOW = 10            # the first and the last 10 losses' means
+LOSS_MARGIN = 0.1           # nats the last window's mean must fall below the
+#                             first's; the lr-0 control (batch-to-batch noise
+#                             only) must not
+TIMED_STEPS = 8             # steps timed part by part (CUDA events) after the
+#                             200, on the same state
+DRILL_LAYERS, DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 2, 20, 5, 12   # the
+#                             kill-and-resume drill: full width cut to 2
+#                             layers (a 28-layer checkpoint is ~24 GB a save)
+TRAIN_TOL = dict(atol=2e-5, rtol=1e-4)   # fp32 step, card vs CPU: the
+#                             reference's kernel-test tolerance
+GRAD_REL_TOL = 1e-5         # fp32 step, card vs CPU: each gradient leaf's
+#                             ‖Δg‖_F / ‖g‖_F (two float32 summation orders);
+#                             the same step under TF32 must exceed it
+TRAIN_DIR = ROOT / "build" / "train"   # workdirs (git-ignored), deleted after
+
+
+def train_cfg(torch, **over):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH_TRAIN), **over)
+
+
+def on_card(torch, tree, what):
+    from repro_torch.optim.tree import leaves
+    off = [t.device for t in leaves(tree) if t.device.type != "cuda"]
+    if off:
+        fail(f"{what}: {len(off)} leaves off the card ({off[0]})")
+
+
+def no_kernel_ran(what):
+    """Training reaches no kernel of the port (the reference's loss attends
+    through the plain sdpa_chunked / sdpa_full)."""
+    launched = {k: v for m in kernel_modules() for k, v in m.LAUNCHES.items()
+                if v}
+    if launched or plain_calls():
+        fail(f"{what}: kernels {launched} or plain versions {plain_calls()} "
+             f"ran on the training path")
+
+
+def traced_run(torch, np, cfg, name, steps, **kw):
+    """run_training on the card with the tracer on and every count at 0:
+    (params, opt_state, losses, per-step host seconds, wall s, peak GiB)."""
+    import shutil
+    from repro_torch import obs
+    from repro_torch.trainer.loop import run_training
+    workdir = TRAIN_DIR / name
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    tracer = obs.enable()
+    t0 = time.perf_counter()
+    try:
+        params, opt, hist = run_training(
+            cfg, str(workdir), steps, optimizer="adamw", ckpt_every=0,
+            log_every=50, log_fn=lambda s: log(f"[train {name}] {s}"),
+            device="cuda", **kw)
+    finally:
+        obs.disable()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    shutil.rmtree(workdir, ignore_errors=True)
+    no_kernel_ran(f"train {name}")
+    spans = [s for s in tracer.spans if s.name == "train.step"]
+    losses = [l for _, l in hist]
+    if [s for s, _ in hist] != list(range(steps)) or len(spans) != steps:
+        fail(f"train {name}: {len(hist)} steps, {len(spans)} spans")
+    if not all(np.isfinite(losses)):
+        fail(f"train {name}: non-finite loss {losses}")
+    on_card(torch, (params, opt), f"train {name}")
+    return dict(params=params, opt=opt, losses=losses,
+                step_s=[s.t1 - s.t0 for s in spans], wall=wall,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def loss_drop(np, losses):
+    return float(np.mean(losses[:LOSS_WINDOW]) - np.mean(losses[-LOSS_WINDOW:]))
+
+
+def timed_steps(torch, np, cfg, params, opt, seq, batch, start):
+    """TIMED_STEPS more steps on the same state, each split by CUDA events
+    into loss+gradients, clip and optimizer update: medians in ms."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.trainer import loop, steps
+    step, _ = steps.make_train_step(cfg, optimizer="adamw",
+                                    total_steps=TRAIN_STEPS)
+    data = SyntheticTokens(cfg.vocab, seq, batch, seed=0)
+    parts = {"grads": [], "clip": [], "update": [], "step": []}
+    with loop.deterministic(torch.device("cuda")):
+        for i in range(TIMED_STEPS):
+            b = {"tokens": torch.from_numpy(
+                data.batch_at(start + i)["tokens"]).cuda()}
+            on_card(torch, b, "timed batch")
+            ev = {"start": torch.cuda.Event(enable_timing=True)}
+            ev["start"].record()
+
+            def mark(name):
+                ev[name] = torch.cuda.Event(enable_timing=True)
+                ev[name].record()
+
+            params, opt, metrics = step(params, opt, b, mark=mark)
+            torch.cuda.synchronize()
+            prev = "start"
+            for name in ("grads", "clip", "update"):
+                parts[name].append(ev[prev].elapsed_time(ev[name]))
+                prev = name
+            parts["step"].append(ev["start"].elapsed_time(ev["update"]))
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+GEMM_SYMBOLS = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")   # cuBLAS's
+#                             matrix-product kernels as the profiler names them
+
+
+def profile_train(torch, np, cfg, params, opt, start, n_steps=2):
+    """Device busy share of steady (128, 8) steps: ``n_steps`` train steps
+    under torch.profiler (CPU and CUDA activities), kernel time by name
+    from key_averages(), the matrix products' share of it, kernels a step;
+    the share is the kernels' summed device time over the window's wall
+    time, which the profiler itself lengthens (a lower bound).  Returns
+    None when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.trainer import loop, steps
+    step, _ = steps.make_train_step(cfg, optimizer="adamw",
+                                    total_steps=TRAIN_STEPS)
+    data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{"tokens": torch.from_numpy(
+        data.batch_at(start + i)["tokens"]).cuda()} for i in range(n_steps)]
+    with loop.deterministic(torch.device("cuda")):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                params, opt, _ = step(params, opt, b)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, count = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+            count += e.count
+    busy = sum(kernels.values())
+    if busy <= 0:
+        log("[train-profile] the profiler reported no device time: device "
+            "busy share not measured")
+        return None
+    gemm = sum(v for k, v in kernels.items()
+               if any(g in k.lower() for g in GEMM_SYMBOLS))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    out = {"steps": n_steps, "wall_ms_per_step": wall_us / n_steps / 1e3,
+           "device_ms_per_step": busy / n_steps / 1e3,
+           "busy_share": busy / wall_us,
+           "kernels_per_step": count / n_steps,
+           "gemm_ms_per_step": gemm / n_steps / 1e3,
+           "gemm_share": gemm / busy,
+           "top": [[k[:96], v / n_steps / 1e3] for k, v in top]}
+    log(f"[train-profile] {cfg.name} (128, 8), {n_steps} steps under "
+        f"torch.profiler: {out['wall_ms_per_step']:.1f} ms a step on the "
+        f"host clock, kernels {out['device_ms_per_step']:.1f} ms a step "
+        f"(busy share {out['busy_share']:.3f}), "
+        f"{out['kernels_per_step']:.0f} kernels a step, matrix products "
+        f"{out['gemm_ms_per_step']:.1f} ms (share {out['gemm_share']:.3f}); "
+        f"top kernels (ms a step): "
+        + ", ".join(f"{k[:56]} {v:.2f}" for k, v in out["top"]))
+    return out
+
+
+def attention_ms(torch, seq):
+    """One layer's causal attention at (1, seq, 16, 128) bf16 through the
+    path's sdpa_chunked: forward, and forward + backward (CUDA events,
+    mean of 5)."""
+    from repro_torch.models import layers
+    cfg = train_cfg(torch)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(1, seq, cfg.n_heads, cfg.hd, generator=g,
+                           device="cuda").bfloat16().requires_grad_(True)
+               for _ in range(3))
+
+    def fwd():
+        with torch.no_grad():
+            layers.sdpa_chunked(q, k, v, cfg.attn_chunk)
+
+    def fwd_bwd():
+        o = layers.sdpa_chunked(q, k, v, cfg.attn_chunk)
+        torch.autograd.grad(o.float().sum(), (q, k, v))
+
+    return events_ms(torch, fwd, 5), events_ms(torch, fwd_bwd, 5)
+
+
+def phase_train(torch, np, card):
+    """qwen3-1.7b as published, trained on the card through run_training:
+    200 steps at (128, 8), the lr-0 control, 20 steps at (4096, 1)."""
+    from repro_torch.models import layers
+    free_card(torch)
+    cfg = train_cfg(torch)
+    n_weights = cfg.param_count()
+    run = traced_run(torch, np, cfg, "main", TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                     global_batch=TRAIN_BATCH)
+    drop = loss_drop(np, run["losses"])
+    split = timed_steps(torch, np, cfg, run["params"], run["opt"],
+                        TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS)
+    prof = profile_train(torch, np, cfg, run["params"], run["opt"],
+                         TRAIN_STEPS + TIMED_STEPS)
+    moments = tree_numel(run["opt"].inner)
+    del run["params"], run["opt"]
+    free_card(torch)
+    ctrl = traced_run(torch, np, cfg, "control", CONTROL_STEPS,
+                      seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, lr=0.0)
+    del ctrl["params"], ctrl["opt"]
+    free_card(torch)
+    ctrl_drop = loss_drop(np, ctrl["losses"])
+    if ctrl["losses"][0] != run["losses"][0]:
+        fail(f"train: the lr-0 control's first loss {ctrl['losses'][0]} is "
+             f"not the run's {run['losses'][0]} (same weights, same batch)")
+    log(f"[train] {ARCH_TRAIN} ({n_weights:,} weights, bf16, {moments:,} "
+        f"float32 moments): loss {run['losses'][0]:.4f} -> "
+        f"{run['losses'][-1]:.4f}; mean of the first {LOSS_WINDOW} minus the "
+        f"last {LOSS_WINDOW}: {drop:.4f} (margin {LOSS_MARGIN}); lr-0 "
+        f"control {ctrl_drop:.4f}")
+    if not drop >= LOSS_MARGIN:
+        fail(f"train: the loss fell {drop:.4f}, under the margin "
+             f"{LOSS_MARGIN}")
+    if not ctrl_drop < LOSS_MARGIN:
+        fail(f"train: the lr-0 control fell {ctrl_drop:.4f}, past the margin "
+             f"{LOSS_MARGIN}: the margin does not tell learning from noise")
+
+    calls = {"sdpa_chunked": 0, "sdpa_full": 0}
+    real = {k: getattr(layers, k) for k in calls}
+
+    def counted(name):
+        def f(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return f
+
+    for k in calls:
+        setattr(layers, k, counted(k))
+    try:
+        long = traced_run(torch, np, cfg, "long", LONG_STEPS,
+                          seq_len=LONG_SEQ, global_batch=LONG_BATCH)
+    finally:
+        for k, f in real.items():
+            setattr(layers, k, f)
+    del long["params"], long["opt"]
+    free_card(torch)
+    want = {"sdpa_chunked": 2 * cfg.n_layers * LONG_STEPS, "sdpa_full": 0}
+    if calls != want:
+        fail(f"train (4096, 1): attention calls {calls}, wanted {want} (the "
+             f"forward and the recompute of each layer through sdpa_chunked)")
+    attn_fwd, attn_fwd_bwd = attention_ms(torch, LONG_SEQ)
+
+    steady = statistics.median(run["step_s"][LOSS_WINDOW:]) * 1e3
+    long_steady = statistics.median(long["step_s"][2:]) * 1e3
+    attn_step = cfg.n_layers * (attn_fwd + attn_fwd_bwd)
+    out = {
+        "arch": ARCH_TRAIN, "weights": n_weights, "moments": moments,
+        "steps": TRAIN_STEPS, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+        "loss_first": run["losses"][0], "loss_last": run["losses"][-1],
+        "loss_drop": drop, "loss_margin": LOSS_MARGIN,
+        "control_drop": ctrl_drop, "wall_s": run["wall"],
+        "step_ms_host_median": steady,
+        "step_ms_events": split["step"], "grads_ms": split["grads"],
+        "clip_ms": split["clip"], "update_ms": split["update"],
+        "tokens_per_s": TRAIN_SEQ * TRAIN_BATCH / (split["step"] / 1e3),
+        "peak_gib": run["peak"], "profile": prof,
+        "long": {"steps": LONG_STEPS, "seq": LONG_SEQ, "batch": LONG_BATCH,
+                 "loss_first": long["losses"][0],
+                 "loss_last": long["losses"][-1], "wall_s": long["wall"],
+                 "step_ms_host_median": long_steady,
+                 "tokens_per_s": LONG_SEQ * LONG_BATCH / (long_steady / 1e3),
+                 "peak_gib": long["peak"], "attn_calls": calls,
+                 "attn_fwd_ms_layer": attn_fwd,
+                 "attn_fwd_bwd_ms_layer": attn_fwd_bwd,
+                 "attn_ms_step": attn_step,
+                 "attn_share": attn_step / long_steady},
+    }
+    log(f"[train] {card}: (128, 8) step {split['step']:.2f} ms (CUDA events, "
+        f"median of {TIMED_STEPS}; host span median {steady:.2f} ms): "
+        f"loss+grads {split['grads']:.2f}, clip {split['clip']:.2f}, update "
+        f"{split['update']:.2f}; {out['tokens_per_s']:.1f} tok/s; peak "
+        f"{run['peak']:.2f} GiB; 200 steps in {run['wall']:.1f} s")
+    log(f"[train] {card}: (4096, 1) step {long_steady:.2f} ms (host span "
+        f"median), {out['long']['tokens_per_s']:.1f} tok/s, peak "
+        f"{long['peak']:.2f} GiB; sdpa_chunked a layer {attn_fwd:.3f} ms "
+        f"forward, {attn_fwd_bwd:.3f} forward+backward: ~{attn_step:.1f} ms "
+        f"a step ({out['long']['attn_share']:.2f} of it); loss "
+        f"{long['losses'][0]:.4f} -> {long['losses'][-1]:.4f}")
+    return out
+
+
+def phase_drill(torch, np, card):
+    """Kill-and-resume at full width, 2 layers: an uninterrupted run (no
+    checkpoints: they change no arithmetic) and a run that checkpoints
+    every 5 steps, is killed at step 12 and resumes from its step-10
+    checkpoint agree bit for bit (losses, parameters, moments); its
+    checkpoints' save and restore times from the loop's spans."""
+    import shutil
+    from repro_torch import obs
+    from repro_torch.optim.tree import leaves
+    from repro_torch.trainer.loop import InjectedFailure, run_training
+    free_card(torch)
+    cfg = train_cfg(torch, n_layers=DRILL_LAYERS)
+    common = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                  optimizer="adamw", log_every=100,
+                  log_fn=lambda s: log(f"[drill] {s}"), device="cuda")
+    dirs = {k: TRAIN_DIR / f"drill_{k}" for k in ("a", "b")}   # a stays
+    #                                       empty (no checkpoints)
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    pa, oa, hist_a = run_training(cfg, str(dirs["a"]), DRILL_STEPS,
+                                  ckpt_every=0, **common)
+    t_a = time.perf_counter() - t0
+    tracer = obs.enable()
+    t0 = time.perf_counter()
+    try:
+        try:
+            run_training(cfg, str(dirs["b"]), DRILL_STEPS,
+                         ckpt_every=DRILL_EVERY, fail_at_step=DRILL_FAIL,
+                         **common)
+            fail("drill: the injected failure did not happen")
+        except InjectedFailure:
+            pass
+        pb, ob, hist_b = run_training(cfg, str(dirs["b"]), DRILL_STEPS,
+                                      ckpt_every=DRILL_EVERY, **common)
+    finally:
+        obs.disable()
+    t_b = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    shutil.rmtree(dirs["b"])
+    no_kernel_ran("drill")
+    on_card(torch, (pa, oa, pb, ob), "drill")
+    resumed = DRILL_FAIL // DRILL_EVERY * DRILL_EVERY
+    if [s for s, _ in hist_b] != list(range(resumed, DRILL_STEPS)):
+        fail(f"drill: resumed steps {[s for s, _ in hist_b]}")
+    tail_a = dict(hist_a)
+    diverged = [s for s, l in hist_b if tail_a[s] != l]
+    unequal = sum(not torch.equal(x, y)
+                  for x, y in zip(leaves((pa, oa)), leaves((pb, ob))))
+    if diverged or unequal:
+        fail(f"drill: losses differ at steps {diverged}, {unequal} leaves "
+             f"differ after the resume")
+    spans = lambda n: [s.t1 - s.t0 for s in tracer.spans if s.name == n]
+    saves, restores = spans("train.ckpt_save"), spans("train.ckpt_restore")
+    if len(saves) != 5 or len(restores) != 1:
+        fail(f"drill: {len(saves)} saves and {len(restores)} restores, "
+             f"wanted 5 and 1")
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves((pa, oa)))
+    del pa, oa, pb, ob
+    free_card(torch)
+    out = {"layers": DRILL_LAYERS, "steps": DRILL_STEPS,
+           "ckpt_every": DRILL_EVERY, "fail_at": DRILL_FAIL,
+           "resumed_from": resumed, "ckpt_gb": n_bytes / 1e9,
+           "save_s_median": statistics.median(saves),
+           "restore_s": restores[0], "uninterrupted_s": t_a,
+           "killed_and_resumed_s": t_b}
+    log(f"[drill] {card}: {ARCH_TRAIN} at full width, {DRILL_LAYERS} layers: "
+        f"killed at step {DRILL_FAIL}, resumed from {resumed}: losses, "
+        f"parameters and moments bit for bit equal to the uninterrupted "
+        f"run; a checkpoint {n_bytes / 1e9:.2f} GB, save "
+        f"{out['save_s_median']:.2f} s (median of 5), restore "
+        f"{restores[0]:.2f} s (host clock); runs {t_a:.1f} s and "
+        f"{t_b:.1f} s")
+    return out
+
+
+def step_gaps(torch, np, got, want):
+    """Failures of one fp32 step (card) against the same step (CPU): loss
+    and grad_norm within TRAIN_TOL; every gradient leaf within TRAIN_TOL and
+    GRAD_REL_TOL (Frobenius); the moments everywhere and the parameters
+    where the clipped |g| exceeds TRAIN_TOL's atol within TRAIN_TOL.  The
+    CPU's leaves are compared on the card.  Returns (failures, worst
+    relative gradient gap)."""
+    bad, worst = [], 0.0
+    for k in ("loss", "grad_norm"):
+        g, w = got[k], want[k]
+        if not abs(g - w) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(w):
+            bad.append(f"{k} {g} vs {w}")
+    scale = min(1.0, 1.0 / max(want["grad_norm"], 1e-9))
+    for name in want["grads"]:
+        g, w = got["grads"][name], want["grads"][name].to(got["grads"][name].device)
+        rel = float((g - w).norm() / w.norm().clamp(min=1e-30))
+        worst = max(worst, rel)
+        if rel > GRAD_REL_TOL or not torch.allclose(g, w, **TRAIN_TOL):
+            bad.append(f"grad {name}: {rel:.3e} relative")
+        big = (w * scale).abs() > TRAIN_TOL["atol"]
+        p, pw = got["params"][name], want["params"][name].to(g.device)
+        if not torch.allclose(p[big], pw[big], **TRAIN_TOL):
+            bad.append(f"param {name}")
+        for m in ("m", "v"):
+            if not torch.allclose(got[m][name], want[m][name].to(g.device),
+                                  **TRAIN_TOL):
+                bad.append(f"{m} {name}")
+    return bad, worst
+
+
+def one_fp32_step(torch, cfg, params0, batch, dev):
+    """One train step from a copy of ``params0`` on ``dev``: loss, grad
+    norm, the gradients as loss_and_grads hands them to the step (copied
+    before the clip scales them in place) and the updated parameters and
+    moments, each a copy on ``dev``."""
+    from repro_torch.optim import global_norm
+    from repro_torch.optim.tree import flatten_with_path, tree_map
+    from repro_torch.trainer import steps
+    named = lambda tree: {"/".join(map(str, p)): t.detach().clone()
+                          for p, t in flatten_with_path(tree)}
+    grads, real = {}, steps.loss_and_grads
+
+    def keep(*a, **k):
+        out = real(*a, **k)
+        grads.update(named(out[2]))
+        return out
+
+    params = tree_map(lambda t: t.to(dev, copy=True), params0)
+    step, init = steps.make_train_step(cfg, optimizer="adamw")
+    steps.loss_and_grads = keep
+    try:
+        params, opt, metrics = step(params, init(params), {
+            "tokens": torch.from_numpy(batch).to(dev)})
+    finally:
+        steps.loss_and_grads = real
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]), "grads": grads,
+           "params": named(params), "m": named(opt.inner["m"]),
+           "v": named(opt.inner["v"])}
+    norm = float(global_norm(list(grads.values())))
+    if abs(norm - out["grad_norm"]) > 1e-5 * out["grad_norm"]:
+        fail(f"fp32 step on {dev}: the kept gradients' norm {norm} is not "
+             f"the step's {out['grad_norm']} (not the unclipped gradients)")
+    return out
+
+
+def phase_train_fp32(torch, np, card):
+    """One fp32 train step of qwen3-1.7b at full width, 1 layer, (128, 1),
+    on the card against the same step on the CPU; the same step under TF32
+    must fail the check."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import lm
+    free_card(torch)
+    cfg = train_cfg(torch, n_layers=1, dtype="float32")
+    params0 = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = SyntheticTokens(cfg.vocab, TRAIN_SEQ, 1, seed=0).batch_at(0)[
+        "tokens"]
+    t0 = time.perf_counter()
+    want = one_fp32_step(torch, cfg, params0, batch, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    reset_all_counts()
+    got = one_fp32_step(torch, cfg, params0, batch, torch.device("cuda"))
+    no_kernel_ran("fp32 step")
+    bad, worst = step_gaps(torch, np, got, want)
+    out = {"loss_card": got["loss"], "loss_cpu": want["loss"],
+           "grad_norm_card": got["grad_norm"],
+           "grad_norm_cpu": want["grad_norm"], "worst_grad_rel": worst,
+           "cpu_step_s": cpu_s}
+    del got                                      # ~11 GB on the card
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = one_fp32_step(torch, cfg, params0, batch, torch.device("cuda"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    bad_tf32, worst_tf32 = step_gaps(torch, np, tf32, want)
+    out.update(tf32_loss=tf32["loss"], tf32_grad_norm=tf32["grad_norm"],
+               tf32_worst_grad_rel=worst_tf32, tf32_failures=len(bad_tf32))
+    del params0, want, tf32
+    free_card(torch)
+    log(f"[train-fp32] {card}: 1 layer at full width, (128, 1): loss "
+        f"{out['loss_card']!r} (CPU {out['loss_cpu']!r}), grad norm "
+        f"{out['grad_norm_card']!r} (CPU {out['grad_norm_cpu']!r}), worst "
+        f"gradient leaf {worst:.3e} relative (limit {GRAD_REL_TOL}); TF32 "
+        f"control: worst {worst_tf32:.3e}, {len(bad_tf32)} failures")
+    if bad:
+        fail(f"fp32 step, card vs CPU: {bad[:8]}")
+    if not bad_tf32:
+        fail("fp32 step: the TF32 control passed the check, which therefore "
+             "cannot tell a float32 step from a TF32 one")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -3007,6 +3535,11 @@ def main():
     k12_launches, qkvo = phase_k12_path(torch)
     rows.append(phase_k12_timing(torch, np, k12_errs, k12_launches, qkvo,
                                  card))
+    del qkvo
+    train = phase_train(torch, np, card)
+    train["drill"] = phase_drill(torch, np, card)
+    train["fp32"] = phase_train_fp32(torch, np, card)
+    log("[train-json] " + json.dumps(train))
     leaked = sorted(k for k in sys.modules if k == "jax"
                     or k.startswith("jax.") or k == "repro"
                     or k.startswith("repro."))

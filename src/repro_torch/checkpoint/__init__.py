@@ -1,0 +1,9 @@
+"""Checkpoints of the port (``ckpt``): atomic, retained, optionally
+async, in the reference's on-disk layout.  The port of
+``repro.checkpoint``."""
+
+from .ckpt import (CheckpointManager, latest_step, restore_checkpoint,
+                   save_checkpoint)
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "CheckpointManager"]

@@ -1,12 +1,15 @@
-"""Parameters from the reference's layout to the port's.
+"""Parameters and optimizer state from the reference's layout to the
+port's.
 
 ``params_from_reference(tree, cfg)`` takes the reference's parameter tree
 (``repro.models.lm.init_params`` for the dense and MoE families, GQA or
 MLA, with every leaf turned into a numpy array by the caller) and returns
 the port's tree of tensors: the same nested keys, the same stacked
-``(L, ...)`` layout, the same dtypes.  This module imports nothing of
-``repro`` or jax: the tests hand it numpy arrays, so the port and the
-reference run on identical weights.
+``(L, ...)`` layout, the same dtypes.  ``opt_state_from_reference`` does
+the same for the reference's ``OptState`` (AdamW's ``m``, ``v``;
+Adafactor's ``vr``, ``vc`` or ``v`` a leaf).  This module imports nothing
+of ``repro`` or jax: the tests hand it numpy arrays, so the port and the
+reference run on identical weights and state.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.optim import OptState
 
 from .lm import check_family
 
@@ -104,11 +109,51 @@ def params_from_reference(tree: Mapping, cfg,
     check_family(cfg, "params_from_reference")
     params = _convert(tree, torch.device("cpu") if device is None
                       else device)
-    got = {k: tuple(v.shape) for k, v in _flat(params).items()}
-    want = _expected_shapes(cfg)
-    if got != want:
-        raise ValueError(f"parameter tree does not match {cfg.name}: "
-                         f"missing {sorted(set(want) - set(got))}, extra "
-                         f"{sorted(set(got) - set(want))}, shapes "
-                         f"{ {k: (got[k], want[k]) for k in got if k in want and got[k] != want[k]} }")
+    _check({k: tuple(v.shape) for k, v in _flat(params).items()},
+           _expected_shapes(cfg), f"parameter tree does not match {cfg.name}")
     return params
+
+
+def _check(got: Dict[str, tuple], want: Dict[str, tuple], what: str) -> None:
+    if got != want:
+        raise ValueError(f"{what}: missing {sorted(set(want) - set(got))}, "
+                         f"extra {sorted(set(got) - set(want))}, shapes "
+                         f"{ {k: (got[k], want[k]) for k in got if k in want and got[k] != want[k]} }")
+
+
+def _moment_shapes(cfg, optimizer: str) -> Dict[str, tuple]:
+    params = _expected_shapes(cfg)
+    if optimizer == "adamw":
+        return {f"{m}/{k}": v for m in ("m", "v") for k, v in params.items()}
+    out = {}
+    for k, v in params.items():
+        if len(v) >= 2:
+            out[f"{k}/vr"] = v[:-1]
+            out[f"{k}/vc"] = v[:-2] + v[-1:]
+        else:
+            out[f"{k}/v"] = v
+    return out
+
+
+def opt_state_from_reference(opt_state: Any, cfg,
+                             device: Optional[torch.device] = None
+                             ) -> OptState:
+    """The reference's ``OptState(step, inner)`` (numpy leaves) as the
+    port's: an int32 step and float32 moments on ``device`` (the CPU by
+    default).  AdamW's state is told from Adafactor's by its ``inner``
+    keys (``m``, ``v``).  Raises if a key or a shape differs from what
+    ``cfg`` implies for that optimizer."""
+    check_family(cfg, "opt_state_from_reference")
+    dev = torch.device("cpu") if device is None else device
+    step, inner = opt_state
+    optimizer = ("adamw" if isinstance(inner, Mapping)
+                 and set(inner) == {"m", "v"} else "adafactor")
+    moments = _convert(inner, dev)
+    flat = _flat(moments)
+    _check({k: tuple(v.shape) for k, v in flat.items()},
+           _moment_shapes(cfg, optimizer),
+           f"{optimizer} state does not match {cfg.name}")
+    bad = sorted(k for k, v in flat.items() if v.dtype != torch.float32)
+    if bad:
+        raise ValueError(f"moments must be float32: {bad}")
+    return OptState(_tensor(np.asarray(step, np.int32), dev), moments)

@@ -1,13 +1,17 @@
-"""LM assembly for the dense and MoE families: init / forward / logits.
-The port of ``repro/models/lm.py``'s dense and MoE parts.
+"""LM assembly for the dense and MoE families: init / forward / logits /
+loss.  The port of ``repro/models/lm.py``'s dense and MoE parts.
 
 Layer stacks keep the reference's parameter-stacked layout (a leading L
 axis on every leaf of ``params["layers"]``, or of ``params["dense_layers"]``
 and ``params["moe_layers"]`` for the MoE family); the reference's
 ``lax.scan`` over them (``models/scan_util.py``) is a Python loop over
-:func:`layers_of`.  Attention is GQA or, where ``cfg.mla``, MLA
-(``mla.py``); the FFN is the SwiGLU MLP or, on MoE layers, ``moe.py``.
-No remat: the port serves, it does not train yet.  ``init_params`` draws
+:func:`layers_of`, whose layers are ``unbind`` views of each stack, so
+the backward pass stacks a leaf's per-layer gradients once.  Attention is
+GQA or, where ``cfg.mla``, MLA (``mla.py``); the FFN is the SwiGLU MLP or,
+on MoE layers, ``moe.py``.  With ``cfg.remat`` and gradients enabled each
+block runs under ``torch.utils.checkpoint`` (the reference's per-layer
+``jax.checkpoint``): only its input is kept, and the backward pass runs
+it again; serving (no gradients) never pays for it.  ``init_params`` draws
 every weight with the caller's ``torch.Generator``, on the generator's
 device and in ``cfg.dtype``, so a full-width model is never built on the
 host and copied.
@@ -21,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -50,17 +55,13 @@ def check_family(cfg, what: str) -> None:
             f"Queue 1)")
 
 
-def layer_params(stack: Params, i: int) -> Params:
-    """Layer ``i`` of a parameter-stacked tree, as views."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
-            for k, v in stack.items()}
-
-
-def n_layers(stack: Params) -> int:
-    leaf = stack
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    return leaf.shape[0]
+def _unbind(stack: Params) -> List[Params]:
+    """Every layer of a parameter-stacked tree, as views: one ``unbind``
+    a leaf, whose backward stacks the layers' gradients in one pass."""
+    per_key = {k: (_unbind(v) if isinstance(v, dict) else v.unbind(0))
+               for k, v in stack.items()}
+    n = len(next(iter(per_key.values())))
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
 def layers_of(params: Params) -> List[Tuple[Params, bool]]:
@@ -70,9 +71,7 @@ def layers_of(params: Params) -> List[Tuple[Params, bool]]:
     for key, is_moe in (("layers", False), ("dense_layers", False),
                         ("moe_layers", True)):
         if key in params:
-            stack = params[key]
-            out += [(layer_params(stack, i), is_moe)
-                    for i in range(n_layers(stack))]
+            out += [(lp, is_moe) for lp in _unbind(params[key])]
     return out
 
 
@@ -166,8 +165,13 @@ def forward(params: Params, cfg,
     positions = torch.arange(x.shape[1], device=x.device).expand(
         x.shape[:2])
     aux = torch.zeros((), device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp, is_moe in layers_of(params):
-        x, a = _block(lp, cfg, x, positions, is_moe)
+        if remat:
+            x, a = checkpoint(_block, lp, cfg, x, positions, is_moe,
+                              use_reentrant=False)
+        else:
+            x, a = _block(lp, cfg, x, positions, is_moe)
         if a is not None:
             aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -178,3 +182,28 @@ def logits_fn(params: Params, cfg, hidden: torch.Tensor) -> torch.Tensor:
     head = (params["embed"]["tok"].T if cfg.tie_embeddings
             else params["embed"]["head"])
     return hidden @ head
+
+
+def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor],
+            aux_coef: float = 0.01) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross entropy (+ MoE aux, + z-loss).  batch: tokens (B,S),
+    loss_mask (B,S) optional.  The logits are computed in ``cfg.dtype`` and
+    then cast to float32, as the reference's."""
+    check_family(cfg, "loss_fn")
+    tokens = batch["tokens"]
+    hidden, aux = forward(params, cfg, tokens)
+    logits = logits_fn(params, cfg, hidden).float()
+    targets = torch.roll(tokens.long(), -1, dims=1)
+    ones = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask = batch.get("loss_mask", ones)
+    last = torch.cat([ones[:, :-1], torch.zeros_like(ones[:, :1])], dim=1)
+    mask = mask * last
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = (lse - tgt) * mask
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    ce = torch.sum(nll) / denom
+    z_loss = 1e-4 * torch.sum((lse * mask) ** 2) / denom
+    loss = ce + aux_coef * aux + z_loss
+    return loss, {"ce": ce, "aux": aux, "z": z_loss, "ntok": torch.sum(mask)}

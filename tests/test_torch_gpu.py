@@ -33,12 +33,20 @@ tests/test_backends.py) and is bitwise repeatable; the four pipeline modes
 on the card to a float64 ``torch.autograd`` of the monolithic loss at the
 same tolerance.  Flash attention K12 is held to its plain version at the
 reference's tolerance (tests/test_kernels_flash.py): atol 2e-5, rtol 1e-4
-in fp32, 2e-2 in bf16.
+in fp32, 2e-2 in bf16.  The training step (no kernel on its path) is held
+to the same step on the CPU in fp32 at the reference's kernel-test
+tolerance (atol 2e-5, rtol 1e-4), and the kill-and-resume drill on the
+card bit for bit.
 """
+
+import os
 
 import numpy as np
 import pytest
 
+# deterministic cuBLAS for the restart-exact training tests: read at the
+# process's first cuBLAS call, so set before any test runs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 torch = pytest.importorskip("torch")
 
 from numpy.testing import assert_allclose  # noqa: E402
@@ -1065,3 +1073,120 @@ def test_flash_op_on_card_pads_and_sums_to_one(cuda):
         fa.flash_attention(*(torch.zeros(1, 64, 32, device=cuda,
                                          dtype=torch.float16)
                              for _ in range(3)), block_q=64, block_k=64)
+
+
+# --- training (slice 6): no kernel on this path; card against CPU ------------
+
+TRAIN_ARCHS = {"qwen3-1.7b": {}, "deepseek-v3-671b": {"capacity_factor": 8.0}}
+TRAIN_KW = dict(optimizer="adamw", lr=1e-2, warmup=1, total_steps=10)
+
+
+def _train_cfg(arch):
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced(**TRAIN_ARCHS[arch])
+
+
+def _named(tree):
+    from repro_torch.optim.tree import flatten_with_path
+    return {"/".join(map(str, p)): t.cpu() for p, t in flatten_with_path(tree)}
+
+
+def _one_step(cfg, params0, tokens, dev):
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.trainer import steps
+    params = tree_map(lambda t: t.to(dev, copy=True), params0)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    _, _, grads = steps.loss_and_grads(params, cfg, batch)
+    step, init = steps.make_train_step(cfg, **TRAIN_KW)
+    params, opt, metrics = step(params, init(params), batch)
+    return (float(metrics["loss"]), float(metrics["grad_norm"]),
+            _named(grads), _named(params), _named(opt.inner))
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_ARCHS))
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One fp32 step (TF32 off) on the card against the same step on the
+    CPU: loss, grad norm and every gradient leaf within the reference's
+    kernel-test tolerance, the moments everywhere and the parameters where
+    the clipped |g| exceeds its atol."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import lm
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    cfg = _train_cfg(arch)
+    params0 = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = SyntheticTokens(cfg.vocab, 32, 2, seed=0).batch_at(0)["tokens"]
+    got = _one_step(cfg, params0, tokens, cuda)
+    want = _one_step(cfg, params0, tokens, torch.device("cpu"))
+    assert_allclose(got[0], want[0], **TOL)
+    assert_allclose(got[1], want[1], **TOL)
+    scale = min(1.0, 1.0 / want[1])
+    for name, g in want[2].items():
+        assert_allclose(got[2][name].numpy(), g.numpy(), err_msg=name, **TOL)
+        big = (g * scale).abs() > TOL["atol"]
+        assert_allclose(got[3][name][big].numpy(), want[3][name][big].numpy(),
+                        err_msg=name, **TOL)
+    for name, m in want[4].items():
+        assert_allclose(got[4][name].numpy(), m.numpy(), err_msg=name, **TOL)
+
+
+def _drill(cfg, tmp_path, cuda):
+    from repro_torch.trainer import loop
+    common = dict(steps=20, seq_len=32, global_batch=4, ckpt_every=5,
+                  log_every=100, log_fn=lambda s: None, device=cuda)
+    pa, oa, hist_a = loop.run_training(cfg, str(tmp_path / "a"), **common)
+    with pytest.raises(loop.InjectedFailure):
+        loop.run_training(cfg, str(tmp_path / "b"), fail_at_step=12,
+                          **common)
+    pb, ob, hist_b = loop.run_training(cfg, str(tmp_path / "b"), **common)
+    assert [s for s, _ in hist_b] == list(range(10, 20))
+    return (pa, oa, hist_a), (pb, ob, hist_b)
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_ARCHS))
+def test_training_resumes_bitwise_on_card(cuda, arch, tmp_path, monkeypatch):
+    """The kill-and-resume drill on the card: losses, parameters and
+    moments bit for bit those of the uninterrupted run, under deterministic
+    algorithms that the loop turns on and restores."""
+    from repro_torch.optim.tree import leaves
+    from repro_torch.trainer import steps
+    seen = []
+    real = steps.loss_and_grads
+
+    def spy(*a, **k):
+        seen.append(torch.are_deterministic_algorithms_enabled())
+        return real(*a, **k)
+
+    monkeypatch.setattr(steps, "loss_and_grads", spy)
+    before = torch.are_deterministic_algorithms_enabled()
+    (pa, oa, hist_a), (pb, ob, hist_b) = _drill(_train_cfg(arch), tmp_path,
+                                                cuda)
+    assert seen and all(seen)
+    assert torch.are_deterministic_algorithms_enabled() == before
+    tail_a = dict(hist_a)
+    assert all(tail_a[s] == l for s, l in hist_b)
+    assert all(t.device.type == "cuda" for t in leaves((pa, oa, pb, ob)))
+    assert all(torch.equal(x, y)
+               for x, y in zip(leaves((pa, oa)), leaves((pb, ob))))
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_ARCHS))
+def test_training_drill_without_deterministic_mode(cuda, arch, tmp_path,
+                                                   monkeypatch):
+    """Context, not a check: the same drill with deterministic algorithms
+    left off may differ (atomics in the embedding and MoE backward passes);
+    it prints how far."""
+    import contextlib
+    from repro_torch.optim.tree import leaves
+    from repro_torch.trainer import loop
+    monkeypatch.setattr(loop, "deterministic",
+                        lambda dev: contextlib.nullcontext())
+    (pa, oa, hist_a), (pb, ob, hist_b) = _drill(_train_cfg(arch), tmp_path,
+                                                cuda)
+    tail_a = dict(hist_a)
+    assert all(np.isfinite(l) for _, l in hist_a + hist_b)
+    gaps = [abs(tail_a[s] - l) for s, l in hist_b]
+    unequal = sum(not torch.equal(x, y)
+                  for x, y in zip(leaves((pa, oa)), leaves((pb, ob))))
+    print(f"{arch} without deterministic algorithms: max loss gap "
+          f"{max(gaps):.3e}, {unequal} of {len(leaves((pa, oa)))} leaves "
+          f"differ")

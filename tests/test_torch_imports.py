@@ -69,7 +69,13 @@ def test_every_module_imports_here():
             "repro_torch.kernels.pipe_walk.ref",
             "repro_torch.kernels.flash_attention.kernel",
             "repro_torch.kernels.flash_attention.ops",
-            "repro_torch.kernels.flash_attention.ref"} <= set(names)
+            "repro_torch.kernels.flash_attention.ref",
+            "repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.optim.tree", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.ckpt", "repro_torch.trainer",
+            "repro_torch.trainer.steps", "repro_torch.trainer.loop",
+            "repro_torch.launch.train"} <= set(names)
 
 
 def test_tf32_is_off():
