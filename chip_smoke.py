@@ -18,7 +18,10 @@ pipelined value-and-grad through ``repro_torch.pipeline`` at (S, M, Bt, D)
 = (8, 64, 32, 2048) in all four modes; the flash-attention op; and
 training of qwen3-1.7b as published through
 ``repro_torch.trainer.loop.run_training`` (200 steps, a kill-and-resume
-drill, an fp32 step against the CPU).
+drill, an fp32 step against the CPU); measured round times
+(``repro_torch.engine.measure_round_times``) replayed through the
+simulator; and the SSM family: falcon-mamba-7b served as published (bf16,
+64 layers) and trained at full width cut to 8 layers.
 Phases, each fatal when it fails:
 
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
@@ -179,7 +182,37 @@ Phases, each fatal when it fails:
     norm within atol 2e-5 / rtol 1e-4, every gradient leaf within that
     and 1e-5 relative (Frobenius), the moments everywhere and the
     parameters where the clipped |g| exceeds 2e-5 within it; the same
-    step under TF32 must fail that check.
+    step under TF32 must fail that check;
+26. measured round times: engine.measure_round_times on the 2048² / 64²
+    QR plan (best of 3 per round): one walk launch a round (and a warm-up
+    pass), the caller's buffers untouched, the final state bitwise one
+    fused execute_plan's, the 1-worker replay (replay_round_times) equal
+    to Σ round_s, and Σ round_s within 0.2–5x of the fused run (best of
+    3; the reference's bound); on the 512² / 64² plan one launch an item,
+    the 1-worker item replay equal to Σ item_s and the 4-worker one
+    between the critical path of the measured task times and that sum;
+27. falcon-mamba-7b as published (bf16, 64 layers, d 4096, d_inner 8192,
+    N 16, 7.27e9 weights from seed 0) through GenerateService on
+    decode_path "auto": the path resolves to gather (the SSM state is
+    O(1), nothing is paged) and no kernel (K10/K11 included) and no plain
+    version runs; 24 requests through 8 slots (prompts 128 and 256: the
+    chunked scan; ragged 37–101: the stepwise scan; budgets 16/64/128),
+    every request done, the pool empty; a 4,096-token request in the same
+    state bytes; timings (tick on the device and the host, tok/s, TTFT,
+    prefill at 256 and 4,096 tokens, a profiler window at 8 full slots);
+    checks, each limit between a reading and a control that must fail
+    it: (i) bf16 prefill(256) + decode_step against forward(257), last
+    logits within SSM_LOGIT_RTOL, the decode with its carried h zeroed
+    outside it, and the same in fp32 at full depth within
+    SSM_LOGIT_RTOL_FP32; (ii) fp32, full width, 8 layers: 6 requests through 3
+    slots token for token equal to a sequential prefill + decode_step;
+    (iii) fp32, one full-width layer at (2, 256): the chunked scan
+    within SCAN_RTOL of the stepwise one, the scan without its carry
+    across chunks outside it;
+28. falcon-mamba-7b at full width cut to 8 layers (AdamW at 64 layers
+    needs ~87 GB), 20 run_training steps at (128, 8), deterministic: the
+    last 5 losses' mean below the first 5's by SSM_LOSS_MARGIN, which the
+    lr-0 control must not reach; step time and peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -3480,6 +3513,493 @@ def phase_train_fp32(torch, np, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 7: measured round times (engine.measure_round_times, replayed
+# through the simulator) and the SSM family: falcon-mamba-7b served as
+# published and trained at full width
+# ---------------------------------------------------------------------------
+
+REPLAY_RATIO = (0.2, 5.0)   # Σ round_s over one fused execute_plan: the
+#                             reference's bound (tests/test_backends.py)
+N_ITEMS, B_ITEMS = 512, 64  # the per-item pass: 204 single-row launches
+#                             (the 2048² plan's 11,440 would be as many)
+ARCH_SSM = "falcon-mamba-7b"   # as published: 64 layers, d 4096, d_inner
+#                             8192, N 16, vocab 65,024, 7.27e9 weights
+SSM_SLOTS, SSM_REQUESTS = 8, 24
+SSM_LONG, SSM_LONG_NEW = 4096, 32   # the long request: a constant state
+SSM_FP32_LAYERS = 8          # check (ii): fp32 at full width, 8 layers
+#                             (5.5 GB), 6 requests through 3 slots
+SSM_LOGIT_RTOL = 5e-2        # check (i), bf16, set before the first run:
+#                             forward(257) takes the stepwise scan and
+#                             prefill(256) + decode the chunked scan and
+#                             conv1d_step; their float32 sums differ by a few
+#                             ulp, which round differently into the bf16
+#                             activations of each of 64 layers (2^-9 a
+#                             rounding, ~sqrt(64) layers of it ≈ 3e-2 at
+#                             worst); the decode without its carried state
+#                             loses the whole prompt and must fail it
+SSM_LOGIT_RTOL_FP32 = 1e-3   # check (i) again in fp32 at full depth (29
+#                             GB): the two scans differ by ~2e-7 a layer
+#                             (check iii), which 64 layers of random
+#                             weights amplify as they amplify bf16's 2^-9
+#                             roundings to ~4e-2, so ~1e-5–1e-4; x10 margin.
+#                             The decode without its state (~3e-2 in bf16)
+#                             must fail it by far
+SCAN_RTOL = 1e-5             # check (iii), fp32: the doubling scan and the
+#                             stepwise one are two float32 orders of one
+#                             contracting recurrence (|a| < 1): a few ulp of
+#                             u = 6e-8 over log2(128) + 2 levels, ×10 margin;
+#                             the scan without its carry across chunks
+#                             must fail it
+SSM_TRAIN_LAYERS = 8         # AdamW at 64 layers needs ~7.27e9 x 12 B = 87
+#                             GB (bf16 weights, float32 m and v); Adafactor's
+#                             float32 temporaries of the 4.3e9-element
+#                             in_proj stack (17 GB each,
+#                             optim/optimizers.py) overflow 80 GB too: full
+#                             width, depth cut to 8 layers (1.37e9 weights)
+SSM_TRAIN_STEPS, SSM_TRAIN_LR = 20, 3e-3   # 20 steps at launch/train.py's
+#                             (128, 8); the schedule's 100-step warmup keeps
+#                             20 steps under 0.2 of the base lr, so the base
+#                             is 10x the launcher's 3e-4
+SSM_LOSS_WINDOW, SSM_LOSS_MARGIN = 5, 0.05   # nats the last 5 losses' mean
+#                             must fall below the first 5's; the lr-0
+#                             control must not
+
+
+def qr_tables(torch, np, n, b):
+    """A seeded n² matrix's QR plan (b² tiles, LANES lanes) lowered to its
+    task table, and the tile stack on the card."""
+    from repro_torch import core, engine
+    from repro_torch.apps import qr
+    a = torch.tensor(np.random.default_rng(n).standard_normal((n, n)).astype(
+        np.float32), device="cuda")
+    tiles, mt, nt = qr._split_tiles(a, b)
+    sched, _ = qr.make_qr_graph(mt, nt, nr_queues=LANES)
+    plan = core.lower(sched, LANES)
+    tables = engine.lower_tables(
+        plan, sched, qr._TileState(dict(tiles)).batch_registry(),
+        arg_width=engine.QR_ARG_WIDTH, row_access=engine.qr_row_access)
+    stack = torch.stack([tiles[i, j] for j in range(nt) for i in range(mt)])
+    return sched, plan, tables, stack
+
+
+def fused_s(torch, engine, tables, stack):
+    """One fused execute_plan from a copy of ``stack``: (wall s blocked on
+    completion, its buffers)."""
+    bufs = (stack.clone(), torch.zeros_like(stack))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.execute_plan(tables, engine.qr_round_fn, (), bufs)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def phase_rounds(torch, np, card):
+    """engine.measure_round_times on the 2048² / 64² QR plan on the card,
+    its replay through the simulator held to the reference's identities,
+    and the per-item pass on the 512² / 64² plan."""
+    from repro_torch import core, engine
+    from repro_torch.kernels.qr_tile import kernel
+    sched, plan, tables, stack = qr_tables(torch, np, N_MAIN, B_MAIN)
+    fn = engine.qr_round_fn
+    tmat = torch.zeros_like(stack)
+    before = (stack.clone(), tmat.clone())
+    rounds = None
+    for _ in range(3):                 # elementwise best of 3
+        kernel.reset_counts()
+        t = engine.measure_round_times(tables, fn, (), (stack, tmat))
+        rounds = (t.round_s if rounds is None
+                  else [min(x, y) for x, y in zip(rounds, t.round_s)])
+    busy = int((np.diff(tables.round_offsets) > 0).sum())
+    if kernel.LAUNCHES["qr_walk"] != 2 * busy or any(
+            kernel.PLAIN_CALLS.values()):
+        fail(f"rounds: {kernel.LAUNCHES['qr_walk']} walk launches for "
+             f"{busy} non-empty rounds (wanted warm-up + timed = "
+             f"{2 * busy}), plain calls {dict(kernel.PLAIN_CALLS)}")
+    if not (torch.equal(stack, before[0]) and torch.equal(tmat, before[1])):
+        fail("rounds: measure_round_times changed the caller's buffers")
+    if len(rounds) != plan.nr_rounds:
+        fail(f"rounds: {len(rounds)} round times for {plan.nr_rounds} rounds")
+    fused_s(torch, engine, tables, stack)          # warm-up
+    runs = [fused_s(torch, engine, tables, stack) for _ in range(3)]
+    fused = min(r[0] for r in runs)
+    for got, want in zip(t.buffers, runs[0][1]):
+        if not torch.equal(got, want):
+            fail("rounds: the round-by-round buffers differ from one fused "
+                 "execute_plan's")
+    res = core.replay_round_times(sched, plan, rounds, nr_workers=1)
+    total = sum(rounds)
+    if abs(res.makespan - total) > 1e-9 * total:
+        fail(f"rounds: 1-worker replay {res.makespan} != Σ round_s {total}")
+    ratio = total / fused
+    log(f"[rounds] {N_MAIN}² / {B_MAIN}² plan, {plan.nr_rounds} rounds "
+        f"({busy} non-empty), {tables.nr_items} items: Σ round_s "
+        f"{total * 1e3:.3f} ms (best of 3 per round, one walk launch a "
+        f"round) vs one fused execute_plan {fused * 1e3:.3f} ms (best of "
+        f"3): ratio {ratio:.3f} (bounds {REPLAY_RATIO}); 1-worker replay = "
+        f"Σ round_s; buffers bitwise the fused run's; {card}")
+    if not REPLAY_RATIO[0] <= ratio <= REPLAY_RATIO[1]:
+        fail(f"rounds: Σ round_s / fused = {ratio:.3f} outside "
+             f"{REPLAY_RATIO}")
+    sched, plan, tables, stack = qr_tables(torch, np, N_ITEMS, B_ITEMS)
+    t = engine.measure_round_times(tables, fn, (),
+                                   (stack, torch.zeros_like(stack)),
+                                   per_item=True)
+    item = t.item_s
+    serial = core.replay_item_times(sched, tables.tids, item, nr_workers=1)
+    par = core.replay_item_times(sched, tables.tids, item, nr_workers=4)
+    per_task = np.zeros(sched.nr_tasks)
+    np.add.at(per_task, np.asarray(tables.tids), item)
+    cp = core.critical_path_length(
+        sched.nr_tasks, [list(x.unlocks) for x in sched.tasks], per_task)
+    log(f"[rounds] {N_ITEMS}² / {B_ITEMS}² plan, per item: {len(item)} "
+        f"single-row launches, Σ item_s {item.sum() * 1e3:.3f} ms; replay "
+        f"1 worker {serial.makespan * 1e3:.3f} ms, 4 workers "
+        f"{par.makespan * 1e3:.3f} ms, critical path {cp * 1e3:.3f} ms")
+    if not (len(item) == tables.nr_items and (item > 0).all()):
+        fail("rounds: per-item times missing or not positive")
+    if abs(serial.makespan - item.sum()) > 1e-9 * item.sum():
+        fail("rounds: 1-worker item replay != Σ item_s")
+    if not cp - 1e-12 <= par.makespan <= serial.makespan + 1e-12:
+        fail(f"rounds: 4-worker replay {par.makespan} outside [critical "
+             f"path {cp}, serial {serial.makespan}]")
+    return {"rounds": plan.nr_rounds, "sum_round_ms": total * 1e3,
+            "fused_ms": fused * 1e3, "ratio": ratio,
+            "items": int(len(item)), "sum_item_ms": float(item.sum()) * 1e3,
+            "replay4_ms": par.makespan * 1e3, "critical_path_ms": cp * 1e3}
+
+
+def ssm_workload(np, vocab):
+    """24 requests: prompts of 128 and 256 tokens (the chunked scan) and
+    ragged 37-101 (the stepwise scan), budgets from {16, 64, 128}, seed 0."""
+    rng = np.random.default_rng(0)
+    work = []
+    for i in range(SSM_REQUESTS):
+        plen = (128, 256, int(rng.integers(37, 102)))[i % 3]
+        work.append((rng.integers(0, vocab, plen, dtype=np.int32),
+                     int(rng.choice([16, 64, 128]))))
+    return work
+
+
+def pool_bytes(svc):
+    return sum(v.numel() * v.element_size() for v in svc.pool.leaves.values())
+
+
+def ssm_service(torch, params, cfg, slots):
+    from repro_torch.serve import GenerateService
+    return GenerateService(params, cfg, max_batch=slots, max_seq=SERVE_PAGE,
+                           page_size=SERVE_PAGE, decode_path="auto",
+                           device="cuda")
+
+
+def profile_ssm_ticks(torch, svc, n_ticks=8):
+    """Device busy share of ``n_ticks`` steady decode ticks of a service
+    whose slots are full: kernels a tick and their device time (the
+    profiler lengthens the window, so the share is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            svc.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, count = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+            count += e.count
+    busy = sum(kernels.values())
+    if busy <= 0:
+        log("[ssm-profile] the profiler reported no device time: busy "
+            "share not measured")
+        return None
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    gemm = sum(v for k, v in kernels.items()
+               if any(g in k.lower() for g in GEMM_SYMBOLS))
+    out = {"ticks": n_ticks, "wall_ms_per_tick": wall_us / n_ticks / 1e3,
+           "device_ms_per_tick": busy / n_ticks / 1e3,
+           "busy_share": busy / wall_us, "kernels_per_tick": count / n_ticks,
+           "gemm_share": gemm / busy,
+           "top": [[k[:96], v / n_ticks / 1e3] for k, v in top]}
+    log(f"[ssm-profile] {ARCH_SSM}, {svc.max_batch} full slots, {n_ticks} "
+        f"ticks under torch.profiler: {out['wall_ms_per_tick']:.3f} ms a "
+        f"tick on the host clock, kernels {out['device_ms_per_tick']:.3f} ms "
+        f"a tick (busy share {out['busy_share']:.3f}), "
+        f"{out['kernels_per_tick']:.0f} kernels a tick, matrix products' "
+        f"share {out['gemm_share']:.3f}; top kernels (ms a tick): "
+        + ", ".join(f"{k[:48]} {v:.3f}" for k, v in out["top"]))
+    return out
+
+
+def ssm_logits_check(torch, np, params, cfg, limit):
+    """Check (i): prefill(S-1) then decode_step against forward at S, in
+    ``cfg.dtype``, 2 x 257 tokens, the last token's logits within
+    ``limit``; the control decodes with the carried state h zeroed."""
+    from repro_torch.models import lm, serving
+    tok = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 257)), device="cuda")
+    with torch.no_grad():
+        h, _ = lm.forward(params, cfg, tok)
+        full = lm.logits_fn(params, cfg, h[:, -1]).float()
+        del h
+        _, cache, pos = serving.prefill(params, cfg, tok[:, :-1])
+        zeroed = {k: v.clone() for k, v in cache.items()}
+        zeroed["h"].zero_()
+        dec, _ = serving.decode_step(params, cfg, cache, tok[:, -1:], pos)
+        ctl, _ = serving.decode_step(params, cfg, zeroed, tok[:, -1:], pos)
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        fail("ssm (i): logits not finite")
+    rel = float((dec.float() - full).norm() / full.norm())
+    ctl_rel = float((ctl.float() - full).norm() / full.norm())
+    log(f"[ssm] (i) {cfg.dtype}, {cfg.n_layers} layers, 2 x 257 tokens: "
+        f"prefill(256) + decode_step vs forward(257), last-token logits "
+        f"‖Δ‖/‖logits‖ {rel:.3e} (limit {limit}); with the carried h "
+        f"zeroed {ctl_rel:.3e}")
+    if not rel <= limit:
+        fail(f"ssm (i) {cfg.dtype}: {rel:.3e} > {limit}")
+    if not ctl_rel > limit:
+        fail(f"ssm (i) {cfg.dtype}: the check cannot see a lost state "
+             f"({ctl_rel:.3e})")
+    return {"rel": rel, "control_rel": ctl_rel, "limit": limit}
+
+
+def ssm_sequential(torch, params, cfg, prompt, n):
+    """One request alone: prefill then decode_step, greedy."""
+    from repro_torch.models import serving
+    with torch.no_grad():
+        logits, cache, pos = serving.prefill(
+            params, cfg, torch.as_tensor(prompt, device="cuda")[None])
+        toks = [int(torch.argmax(logits[0]))]
+        for _ in range(n - 1):
+            logits, cache = serving.decode_step(
+                params, cfg, cache,
+                torch.tensor([[toks[-1]]], device="cuda"), pos)
+            toks.append(int(torch.argmax(logits[0])))
+            pos = pos + 1
+    return toks
+
+
+def ssm_scan_check(torch, np, params, cfg):
+    """Check (iii): one full-width layer's scan inputs at S 256, batch 2,
+    fp32: the chunked scan against the stepwise one; the control drops the
+    carry across chunks."""
+    from repro_torch.models import layers, ssm
+    lp = {k: v[0] for k, v in params["layers"]["mamba"].items()}
+    norm = {"scale": params["layers"]["norm"]["scale"][0]}
+    tok = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 256)), device="cuda")
+    with torch.no_grad():
+        x = layers.rmsnorm(norm, params["embed"]["tok"][tok], cfg.norm_eps)
+        a, b, _, _, _ = ssm._mamba1_scan_inputs(lp, cfg, x)
+        h0 = torch.zeros(a.shape[:1] + a.shape[2:], device="cuda")
+        ref = ssm.linear_scan_ref(a, b, h0)
+        got = ssm.linear_scan_chunked(a, b, h0)
+        q = ssm.SSM_CHUNK
+        lost = torch.cat([ssm.linear_scan_chunked(a[:, i:i + q],
+                                                  b[:, i:i + q], h0)
+                          for i in range(0, a.shape[1], q)], dim=1)
+    rel = float((got - ref).norm() / ref.norm())
+    ctl = float((lost - ref).norm() / ref.norm())
+    log(f"[ssm] (iii) fp32, one full-width layer, (2, 256, {cfg.d_inner}, "
+        f"{cfg.ssm_state}): chunked (doubling) vs stepwise scan ‖Δ‖/‖h‖ "
+        f"{rel:.3e} (limit {SCAN_RTOL}); without the carry across chunks "
+        f"{ctl:.3e}")
+    if not rel <= SCAN_RTOL:
+        fail(f"ssm (iii): {rel:.3e} > {SCAN_RTOL}")
+    if not ctl > SCAN_RTOL:
+        fail(f"ssm (iii): the check cannot see a dropped carry ({ctl:.3e})")
+    return {"rel": rel, "control_rel": ctl, "limit": SCAN_RTOL}
+
+
+def phase_serve_ssm(torch, np, card):
+    """falcon-mamba-7b as published (bf16, 64 layers, weights from seed 0
+    on the card) through GenerateService on decode_path "auto": the gather
+    path, no paged kernel; the workload, the long request, checks (i)-(iii)
+    and the timings."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.models import lm, serving
+    free_card(torch)
+    cfg = get_config(ARCH_SSM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = tree_numel(params)
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[ssm] {ARCH_SSM} as published ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}): {n_par:,} weights drawn on the card in "
+        f"{init_s:.2f} s (seed 0), peak {init_peak:.2f} GiB")
+    work = ssm_workload(np, cfg.vocab)
+    svc = ssm_service(torch, params, cfg, SSM_SLOTS)
+    if svc.decode_path != "gather" or svc.paged:
+        fail(f"ssm: decode path {svc.decode_path!r}, paged {svc.paged}")
+    bytes0 = pool_bytes(svc)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    hs = [svc.submit(p, n) for p, n in work]
+    svc.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for m in kernel_modules() for k, v in m.LAUNCHES.items()
+                if v}
+    if launched or plain_calls():
+        fail(f"ssm: kernels {launched} or plain versions {plain_calls()} ran "
+             f"on the SSM serving path (K10/K11 must stay at 0)")
+    for h, (_, n) in zip(hs, work):
+        if (h.status != "done" or len(h.generated) != n
+                or not all(0 <= t < cfg.vocab for t in h.generated)):
+            fail(f"ssm: request {h.rid} {h.status} with {len(h.generated)} "
+                 f"of {n} tokens")
+    if (svc.pool.allocated or svc.stats["retries"]
+            or svc.stats["preemptions"]):
+        fail(f"ssm: pool {svc.pool.allocated}, stats {svc.stats}")
+    toks = svc.stats["generated_tokens"]
+    dev = svc.metrics.get("serve.decode_device_s").summary()
+    host = svc.metrics.get("serve.decode_round_s").summary()
+    ttft = np.array([h.ttft_s for h in hs]) * 1e3
+    log(f"[ssm] {len(work)} requests through {SSM_SLOTS} slots (prompts 128,"
+        f" 256 and ragged 37-101, budgets 16/64/128): {toks} tokens in "
+        f"{wall:.2f} s = {toks / wall:.1f} tok/s; {dev['count']} decode "
+        f"ticks, the round {dev['mean'] * 1e3:.3f} ms on the device and "
+        f"{host['mean'] * 1e3:.3f} ms on the host (means); TTFT median "
+        f"{float(np.median(ttft)):.1f} ms; path gather, no kernel launched, "
+        f"pool empty; {card}")
+    # the long request: the state's bytes do not grow with the prompt
+    long = np.random.default_rng(5).integers(0, cfg.vocab, SSM_LONG,
+                                             dtype=np.int32)
+    h = svc.submit(long, SSM_LONG_NEW)
+    svc.run_until_complete()
+    bytes1 = pool_bytes(svc)
+    log(f"[ssm] a {SSM_LONG}-token prompt with {SSM_LONG_NEW} new tokens: "
+        f"{h.status}, {len(h.generated)} tokens; the pool's state "
+        f"{bytes0:,} bytes before, {bytes1:,} after ({SSM_SLOTS} slots)")
+    if h.status != "done" or len(h.generated) != SSM_LONG_NEW or (
+            bytes1 != bytes0):
+        fail("ssm: the long request was not served in the same state bytes")
+    # a steady tick at 8 full slots under the profiler
+    for p, _ in work[:SSM_SLOTS]:
+        svc.submit(p, 12)
+    svc.step()
+    svc.step()
+    prof = profile_ssm_ticks(torch, svc)
+    svc.run_until_complete()
+    del svc
+    # prefill times at 256 and 4,096 tokens (batch 1, CUDA events)
+    pf = {}
+    for s in (256, SSM_LONG):
+        tok = torch.as_tensor(np.random.default_rng(s).integers(
+            0, cfg.vocab, (1, s)), device="cuda")
+        with torch.no_grad():
+            pf[s] = events_ms(torch, lambda: serving.prefill(params, cfg,
+                                                             tok), 2)
+    log(f"[ssm] prefill ms (batch 1, CUDA events, mean of 2): 256 tokens "
+        f"{pf[256]:.2f}, {SSM_LONG} tokens {pf[SSM_LONG]:.2f}; {card}")
+    check_i = ssm_logits_check(torch, np, params, cfg, SSM_LOGIT_RTOL)
+    del params
+    free_card(torch)
+    # (i) again in fp32 at full depth: the bf16 reading's margin over its
+    # control is thin (random weights' small dt make the state a few
+    # percent of the last logits), fp32 separates them
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg32)
+    check_i32 = ssm_logits_check(torch, np, params32, cfg32,
+                                 SSM_LOGIT_RTOL_FP32)
+    del params32
+    free_card(torch)
+    # (ii) and (iii): fp32 at full width, 8 layers
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                n_layers=SSM_FP32_LAYERS)
+    params32 = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg32)
+    rng = np.random.default_rng(6)
+    reqs = [(rng.integers(0, cfg.vocab, pl, dtype=np.int32), n)
+            for pl, n in ((37, 9), (128, 12), (50, 4), (256, 10), (64, 6),
+                          (101, 8))]
+    svc = ssm_service(torch, params32, cfg32, 3)
+    hs = [svc.submit(p, n) for p, n in reqs]
+    svc.run_until_complete()
+    same = sum(h.generated == ssm_sequential(torch, params32, cfg32, p, n)
+               for h, (p, n) in zip(hs, reqs))
+    log(f"[ssm] (ii) fp32, full width, {SSM_FP32_LAYERS} layers: 6 requests "
+        f"through 3 slots equal the sequential prefill + decode_step token "
+        f"for token in {same} of {len(reqs)}")
+    if same != len(reqs):
+        fail("ssm (ii): the service's streams differ from the sequential "
+             "reference")
+    del svc
+    check_iii = ssm_scan_check(torch, np, params32, cfg32)
+    del params32
+    free_card(torch)
+    if any(pa_kernel.LAUNCHES.values()):
+        fail(f"ssm: paged kernels launched {dict(pa_kernel.LAUNCHES)}")
+    return {"arch": ARCH_SSM, "weights": n_par, "init_s": init_s,
+            "init_peak_gib": init_peak, "requests": len(work),
+            "tokens": toks, "wall_s": wall, "tok_per_s": toks / wall,
+            "ticks": dev["count"], "tick_ms_device": dev["mean"] * 1e3,
+            "tick_ms_host": host["mean"] * 1e3,
+            "ttft_ms_median": float(np.median(ttft)),
+            "pool_bytes": bytes0, "prefill_ms_256": pf[256],
+            "prefill_ms_4096": pf[SSM_LONG], "profile": prof,
+            "check_i": check_i, "check_i_fp32": check_i32,
+            "check_iii": check_iii}
+
+
+def phase_train_ssm(torch, np, card):
+    """falcon-mamba-7b at full width cut to 8 layers, AdamW, 20 run_training
+    steps at (128, 8), deterministic; the lr-0 control."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    free_card(torch)
+    cfg = dataclasses.replace(get_config(ARCH_SSM),
+                              n_layers=SSM_TRAIN_LAYERS)
+    run = traced_run(torch, np, cfg, "ssm", SSM_TRAIN_STEPS,
+                     seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                     lr=SSM_TRAIN_LR)
+    n_weights = tree_numel(run["params"])
+    del run["params"], run["opt"]
+    free_card(torch)
+    ctrl = traced_run(torch, np, cfg, "ssm-control", SSM_TRAIN_STEPS,
+                      seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, lr=0.0)
+    del ctrl["params"], ctrl["opt"]
+    free_card(torch)
+
+    def drop(losses):
+        w = SSM_LOSS_WINDOW
+        return float(np.mean(losses[:w]) - np.mean(losses[-w:]))
+
+    d, dc = drop(run["losses"]), drop(ctrl["losses"])
+    step_ms = statistics.median(run["step_s"][SSM_LOSS_WINDOW:]) * 1e3
+    log(f"[ssm-train] {ARCH_SSM}, full width, {SSM_TRAIN_LAYERS} layers "
+        f"({n_weights:,} weights, bf16), AdamW, lr {SSM_TRAIN_LR}, "
+        f"{SSM_TRAIN_STEPS} steps at ({TRAIN_SEQ}, {TRAIN_BATCH}): loss "
+        f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}, mean of the "
+        f"first {SSM_LOSS_WINDOW} minus the last: {d:.4f} (margin "
+        f"{SSM_LOSS_MARGIN}); lr-0 control {dc:.4f}; step {step_ms:.2f} ms "
+        f"(host span median); peak {run['peak']:.2f} GiB; {card}")
+    if ctrl["losses"][0] != run["losses"][0]:
+        fail("ssm-train: the control's first loss is not the run's")
+    if not d >= SSM_LOSS_MARGIN:
+        fail(f"ssm-train: the loss fell {d:.4f}, under {SSM_LOSS_MARGIN}")
+    if not dc < SSM_LOSS_MARGIN:
+        fail(f"ssm-train: the lr-0 control fell {dc:.4f}")
+    return {"layers": SSM_TRAIN_LAYERS, "weights": n_weights,
+            "steps": SSM_TRAIN_STEPS, "lr": SSM_TRAIN_LR,
+            "loss_first": run["losses"][0], "loss_last": run["losses"][-1],
+            "loss_drop": d, "control_drop": dc, "margin": SSM_LOSS_MARGIN,
+            "step_ms_host_median": step_ms, "peak_gib": run["peak"],
+            "wall_s": run["wall"]}
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -3540,6 +4060,14 @@ def main():
     train["drill"] = phase_drill(torch, np, card)
     train["fp32"] = phase_train_fp32(torch, np, card)
     log("[train-json] " + json.dumps(train))
+    del train
+    free_card(torch)
+    log("[rounds-json] " + json.dumps(phase_rounds(torch, np, card)))
+    free_card(torch)
+    log("[ssm-json] " + json.dumps(phase_serve_ssm(torch, np, card)))
+    free_card(torch)
+    log("[ssm-train-json] " + json.dumps(phase_train_ssm(torch, np, card)))
+    free_card(torch)
     leaked = sorted(k for k in sys.modules if k == "jax"
                     or k.startswith("jax.") or k == "repro"
                     or k.startswith("repro."))

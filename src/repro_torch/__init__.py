@@ -6,10 +6,12 @@ easy to find.  It imports ``torch`` and numpy, never ``jax`` and nothing
 of ``repro``.  Inside, it uses PyTorch idiom: plain functions on tensors,
 an explicit ``device``, and in-place updates of the state (the QR tile
 stack, the Barnes-Hut accelerations) where the reference rebuilt
-immutable arrays.  Three paths are ported so far: the tiled QR
-(``apps.qr``), the Barnes-Hut tree code (``apps.barneshut``) and the
-continuous-batching serving tier for the dense GQA family (``serve``,
-``models``, ``launch.serve``).
+immutable arrays.  Ported so far: the scheduler core and the device
+engine (``core``, ``engine``), the tiled QR (``apps.qr``), the Barnes-Hut
+tree code (``apps.barneshut``), the pipeline (``pipeline``), the
+continuous-batching serving tier and the training stack for the dense,
+MoE and SSM model families (``serve``, ``models``, ``optim``,
+``trainer``, ``checkpoint``, ``launch``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than quietly run on the CPU.  On a CPU

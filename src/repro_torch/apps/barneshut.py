@@ -323,6 +323,11 @@ class BHState:
         self._gathers = None         # device index of COM gathers, lazy
         self._lazy_lock = threading.Lock()   # threaded workers build it
 
+    def result(self) -> torch.Tensor:
+        """The accelerations (3, N), in the tree's sorted particle order:
+        ``acc`` itself, as the reference's ``BHState.result()``."""
+        return self.acc
+
     def _rng(self, cid: int) -> slice:
         c = self.g.tree.cells[cid]
         return slice(c.start, c.start + c.count)

@@ -416,7 +416,7 @@ def dispatch_counts(a, tile: int = 32, nr_queues: int = 1):
     state = _TileState({(i, j): torch.empty(0)
                         for i in range(mt) for j in range(nt)})
     host = engine.count_host_dispatches(plan, sched, state.batch_registry())
-    return host, engine.QR_LAUNCHES_PER_PLAN
+    return host, engine.ENGINE_DISPATCHES_PER_PLAN
 
 
 def paper_counts(mt: int = 32, nt: int = 32):

@@ -2,9 +2,9 @@
 
 The port's copy of ``repro.core``: the scheduler, the plan lowering, the
 host executors, the backend registry and the discrete-event simulator
-(which the pipeline's schedule synthesis runs on), with nothing of
-``repro`` imported.  ``static_sched`` and ``weights`` are on no ported
-path and are not ported yet (ROADMAP.md, Queue 1, item 3b).
+(which the pipeline's schedule synthesis runs on), the static
+conflict rounds (``static_sched``) and the critical-path weights
+(``weights``), with nothing of ``repro`` imported.
 """
 
 from .graph import (
@@ -24,6 +24,8 @@ from .plan import (BatchSpec, ExecutionPlan, PlanRound, TypedBatch,
 from .queue import TaskQueue
 from .simulator import (SimResult, TimelineEvent, replay_item_times,
                         replay_round_times, scaling_curve, simulate)
+from .static_sched import Round, conflict_rounds, list_schedule, validate_rounds
+from .weights import critical_path_length, critical_path_weights, toposort
 from .executors import SequentialExecutor, ThreadedExecutor, registry_fun
 from .backends import (Backend, BackendUnsupported, EngineHooks,
                        available_backends, get_backend, register_backend,
@@ -35,8 +37,10 @@ __all__ = [
     "SeqLockManager", "ThreadedLockManager", "make_lock_manager",
     "SimResult", "TimelineEvent", "simulate", "scaling_curve",
     "replay_round_times", "replay_item_times",
+    "Round", "conflict_rounds", "validate_rounds", "list_schedule",
     "BatchSpec", "ExecutionPlan", "PlanRound", "TypedBatch",
     "lower", "clear_plan_cache", "color_phases", "plan_cache_info",
+    "toposort", "critical_path_weights", "critical_path_length",
     "SequentialExecutor", "ThreadedExecutor", "registry_fun",
     "Backend", "BackendUnsupported", "EngineHooks",
     "get_backend", "register_backend", "available_backends", "run_plan",

@@ -32,9 +32,10 @@ Port note: a copy of ``repro.core.backends``.  ``repro_torch`` imports
 nothing of ``repro`` (not even its jax-free modules), so it keeps its own
 copy, with its own process-local registry: the device backend keeps the
 mode name ``engine`` without touching ``repro``'s.  Changes: the
-``engine`` backend runs ``repro_torch.engine`` (one CUDA walk launch per
-write-colored phase, or per launch group for a family that gives
-``EngineHooks.row_keys``), ``compiled_kernels`` probes for an sm_90 CUDA
+``engine`` backend runs ``repro_torch.engine`` (the QR and pipeline
+walks take a whole plan in one cooperative CUDA launch; a family that
+gives ``EngineHooks.row_keys``, Barnes-Hut, launches once per launch
+group), ``compiled_kernels`` probes for an sm_90 CUDA
 card, and ``EngineHooks`` drops ``fuse_rounds``/``donate``, which have no
 counterpart in eager PyTorch (the walk already launches over the whole
 plan, and the state is updated in place).
@@ -177,9 +178,9 @@ class RoundsBackend(Backend):
 class EngineBackend(Backend):
     """Device-resident execution (DESIGN.md §Engine): the plan lowers to
     descriptor task tables through the registry's ``encode`` hooks and the
-    family's walk kernel runs them on one stream, one launch per
-    write-colored phase or, for a family with ``row_keys``, per launch
-    group."""
+    family's walk kernel runs them on one stream: one cooperative launch
+    a plan (QR, pipeline) or, for a family with ``row_keys``
+    (Barnes-Hut), one launch per launch group."""
 
     name = "engine"
     needs_plan = True

@@ -16,9 +16,8 @@ at < 1 % of total time on 64 cores).
 Port note: a copy of ``repro.core.simulator``.  ``repro_torch`` imports
 nothing of ``repro`` (not even its jax-free modules), so it keeps its own
 copy; the pipeline schedule synthesis (``pipeline.synthesize_schedule``)
-runs on it.  ``engine.measure_round_times``, which the ``replay_*``
-docstrings name as the source of measured times, is not ported yet
-(ROADMAP.md, Queue 1, item 3b).
+runs on it, and ``engine.measure_round_times`` measures the times the
+``replay_*`` functions take.
 """
 
 from __future__ import annotations

@@ -226,9 +226,10 @@ def count_host_dispatches(plan: ExecutionPlan, sched: QSched,
                           registry: Mapping[int, BatchSpec]) -> int:
     """Host kernel dispatches the per-round BatchSpec path performs for
     this plan: one per batched group, one per ``run_one`` task.  The port's
-    engine replaces them with one walk launch per write-colored phase
-    (``TaskTable.nr_phases``) or, for a family walked in launch groups,
-    one per group (``LaunchGroups.nr_groups``)."""
+    engine replaces them with one cooperative walk launch a plan (the QR
+    and pipeline families, ``ENGINE_DISPATCHES_PER_PLAN``) or, for a
+    family walked in launch groups (Barnes-Hut), one launch per group
+    (``LaunchGroups.nr_groups``)."""
     flags = sched._tflags
     n = 0
     for rnd in plan.rounds:

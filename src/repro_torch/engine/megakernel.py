@@ -59,12 +59,13 @@ from repro_torch.kernels.qr_tile import kernel, ref
 from repro_torch.kernels.qr_tile.ops import check_tiles
 
 from .descriptors import LaunchGroups
+from .runner import ENGINE_DISPATCHES_PER_PLAN
 
 # QR engine types — intentionally equal to apps.qr.T_* so task types encode
 # to themselves; QR_NOOP is the defensive clamp branch (never in a table).
 QR_GEQRF, QR_LARFT, QR_TSQRF, QR_SSRFT, QR_NOOP = range(5)
 QR_ARG_WIDTH = 3       # rows: [etype, slot0, slot1, slot2] (tile indices)
-QR_LAUNCHES_PER_PLAN = 1   # the walk is one cooperative launch a plan
+QR_LAUNCHES_PER_PLAN = ENGINE_DISPATCHES_PER_PLAN   # one cooperative launch
 
 # Barnes-Hut engine (work-item) types; BH_NOOP is the clamp branch.
 (BH_COM_LEAF, BH_COM_INNER, BH_SELF, BH_PP, BH_PC, BH_NOOP) = range(6)
@@ -77,7 +78,7 @@ BH_ARG_WIDTH = 1 + BH_MAX_CHILDREN   # rows: [etype, write, a0..a7]
 # flat (stage, micro) indices into the stacked activation/cotangent slabs.
 PIPE_F, PIPE_B, PIPE_U, PIPE_NOOP = range(4)
 PIPE_ARG_WIDTH = 6
-PIPE_LAUNCHES_PER_PLAN = 1   # the walk is one cooperative launch a plan
+PIPE_LAUNCHES_PER_PLAN = ENGINE_DISPATCHES_PER_PLAN   # one cooperative launch
 
 
 def qr_row_access(row: Sequence[int]) -> Tuple[Tuple, Tuple]:
@@ -357,6 +358,11 @@ def bh_round_fn(eps: float):
     eps = float(eps)
 
     def round_fn(desc, groups: LaunchGroups, statics, buffers):
+        if not isinstance(groups, LaunchGroups):
+            raise ValueError(
+                "the Barnes-Hut walk takes a table cut into launch groups "
+                "(descriptors.launch_groups), not phases: pass its row_keys "
+                "to execute_plan / measure_round_times")
         xs, ms, counts = statics
         acc, com, cmass = buffers
         _check_bh_table(desc, groups, xs.shape[0], com.shape[0] - 1)

@@ -1,10 +1,12 @@
-"""Serving entry points of the port (dense and MoE families, GQA or MLA),
-on the card by default.
+"""Serving entry points of the port (dense and MoE families, GQA or MLA,
+and the SSM family), on the card by default.
 
 Continuous batching (``--continuous``): the ``repro_torch.serve``
 service — a paged block pool, admission lowered as a QuickSched conflict
 round, and engine-backed batched decode with per-step join/leave; on the
-card its decode walks the pool with K10 (GQA) or K11 (MLA).
+card its decode walks the pool with K10 (GQA) or K11 (MLA).  The SSM
+family (``--arch falcon-mamba-7b``) keeps one O(1) state slot a request
+and decodes on the ``gather`` path everywhere.
 ``--new-tokens`` is the *maximum* budget; per-request budgets are drawn
 ragged so requests retire mid-stream.
 

@@ -3,7 +3,8 @@ port's.
 
 ``params_from_reference(tree, cfg)`` takes the reference's parameter tree
 (``repro.models.lm.init_params`` for the dense and MoE families, GQA or
-MLA, with every leaf turned into a numpy array by the caller) and returns
+MLA, and the SSM family, with every leaf turned into a numpy array by the
+caller) and returns
 the port's tree of tensors: the same nested keys, the same stacked
 ``(L, ...)`` layout, the same dtypes.  ``opt_state_from_reference`` does
 the same for the reference's ``OptState`` (AdamW's ``m``, ``v``;
@@ -74,11 +75,26 @@ def _layer_shapes(cfg, moe: bool) -> Dict[str, tuple]:
     return shapes
 
 
+def _ssm_layer_shapes(cfg) -> Dict[str, tuple]:
+    d, di, n, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dtr
+    mamba = {"in_proj": (d, 2 * di), "conv_w": (di, cfg.d_conv),
+             "conv_b": (di,), "x_proj": (di, dtr + 2 * n),
+             "dt_proj": (dtr, di), "dt_bias": (di,), "a_log": (di, n),
+             "d_skip": (di,), "out_proj": (di, d)}
+    shapes = {"norm/scale": (d,)}
+    shapes.update({f"mamba/{k}": v for k, v in mamba.items()})
+    return shapes
+
+
 def _expected_shapes(cfg) -> Dict[str, tuple]:
     d = cfg.d_model
     shapes = {"embed/tok": (cfg.vocab, d), "final_norm/scale": (d,)}
     if not cfg.tie_embeddings:
         shapes["embed/head"] = (d, cfg.vocab)
+    if cfg.family == "ssm":
+        shapes.update({f"layers/{k}": (cfg.n_layers,) + v
+                       for k, v in _ssm_layer_shapes(cfg).items()})
+        return shapes
     if cfg.family == "dense":
         stacks = (("layers", cfg.n_layers, False),)
     else:

@@ -1,5 +1,6 @@
-"""LM assembly for the dense and MoE families: init / forward / logits /
-loss.  The port of ``repro/models/lm.py``'s dense and MoE parts.
+"""LM assembly for the dense, MoE and SSM families: init / forward /
+logits / loss.  The port of ``repro/models/lm.py``'s dense, MoE and SSM
+parts.
 
 Layer stacks keep the reference's parameter-stacked layout (a leading L
 axis on every leaf of ``params["layers"]``, or of ``params["dense_layers"]``
@@ -8,7 +9,9 @@ and ``params["moe_layers"]`` for the MoE family); the reference's
 :func:`layers_of`, whose layers are ``unbind`` views of each stack, so
 the backward pass stacks a leaf's per-layer gradients once.  Attention is
 GQA or, where ``cfg.mla``, MLA (``mla.py``); the FFN is the SwiGLU MLP or,
-on MoE layers, ``moe.py``.  With ``cfg.remat`` and gradients enabled each
+on MoE layers, ``moe.py``.  An SSM layer (falcon-mamba) is ``h +
+mamba1_apply(norm(h))`` (``ssm.py``), its stack ``{"norm", "mamba"}`` under
+``params["layers"]``.  With ``cfg.remat`` and gradients enabled each
 block runs under ``torch.utils.checkpoint`` (the reference's per-layer
 ``jax.checkpoint``): only its input is kept, and the backward pass runs
 it again; serving (no gradients) never pays for it.  ``init_params`` draws
@@ -16,8 +19,8 @@ every weight with the caller's ``torch.Generator``, on the generator's
 device and in ``cfg.dtype``, so a full-width model is never built on the
 host and copied.
 
-Other families (SSM, hybrid, enc-dec, VLM) raise a ``ValueError`` naming
-the slice that brings them (:func:`check_family`).
+Other families (hybrid, enc-dec, VLM) raise a ``ValueError`` naming the
+slice that brings them (:func:`check_family`).
 """
 
 from __future__ import annotations
@@ -29,24 +32,24 @@ from torch.utils.checkpoint import checkpoint
 
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import (attention, attention_init, dense_init, mlp, mlp_init,
                      rmsnorm, rmsnorm_init, torch_dtype)
 
 Params = Dict[str, object]
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm")
 # the ROADMAP slice that ports each family the port does not run yet
 LATER_SLICES = {
-    "ssm": "the SSM/hybrid/enc-dec/VLM model slice",
-    "hybrid": "the SSM/hybrid/enc-dec/VLM model slice",
-    "encdec": "the SSM/hybrid/enc-dec/VLM model slice",
-    "vlm": "the SSM/hybrid/enc-dec/VLM model slice",
+    "hybrid": "the hybrid/enc-dec/VLM model slice",
+    "encdec": "the hybrid/enc-dec/VLM model slice",
+    "vlm": "the hybrid/enc-dec/VLM model slice",
 }
 
 
 def check_family(cfg, what: str) -> None:
-    """Raise unless ``cfg`` is of a family the port runs (dense, or MoE
-    with GQA or MLA attention), naming the slice that ports it."""
+    """Raise unless ``cfg`` is of a family the port runs (dense, MoE with
+    GQA or MLA attention, or SSM), naming the slice that ports it."""
     if cfg.family not in FAMILIES:
         later = LATER_SLICES.get(cfg.family, "a later slice")
         raise ValueError(
@@ -65,8 +68,9 @@ def _unbind(stack: Params) -> List[Params]:
 
 
 def layers_of(params: Params) -> List[Tuple[Params, bool]]:
-    """``(layer params, is_moe)`` for every layer in order: the dense
-    stack, or the MoE family's leading dense layers then its MoE layers."""
+    """``(layer params, is_moe)`` for every layer in order: the dense (or
+    SSM) stack, or the MoE family's leading dense layers then its MoE
+    layers."""
     out = []
     for key, is_moe in (("layers", False), ("dense_layers", False),
                         ("moe_layers", True)):
@@ -97,6 +101,11 @@ def _layer_stack_init(gen: torch.Generator, cfg, n: int,
     return p
 
 
+def _ssm_layer_init(gen: torch.Generator, cfg, n: int) -> Params:
+    return {"norm": rmsnorm_init(cfg.d_model, (n,), gen.device),
+            "mamba": ssm_mod.mamba1_init(gen, cfg, (n,))}
+
+
 def init_params(gen: torch.Generator, cfg) -> Params:
     """Random weights for ``cfg`` on ``gen``'s device, in ``cfg.dtype``
     (norm scales and the MoE router float32), in the reference's layout.
@@ -112,6 +121,8 @@ def init_params(gen: torch.Generator, cfg) -> Params:
     p = {"embed": embed, "final_norm": rmsnorm_init(d, (), dev)}
     if cfg.family == "dense":
         p["layers"] = _layer_stack_init(gen, cfg, cfg.n_layers, moe=False)
+    elif cfg.family == "ssm":
+        p["layers"] = _ssm_layer_init(gen, cfg, cfg.n_layers)
     else:
         nd = cfg.first_dense_layers
         if nd:
@@ -157,6 +168,11 @@ def _block(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
     return x + y, aux
 
 
+def _ssm_block(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    return x + ssm_mod.mamba1_apply(p["mamba"], cfg,
+                                    rmsnorm(p["norm"], x, cfg.norm_eps))
+
+
 def forward(params: Params, cfg,
             tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) → (hidden (B,S,d), the MoE layers' summed aux loss)."""
@@ -167,6 +183,10 @@ def forward(params: Params, cfg,
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp, is_moe in layers_of(params):
+        if cfg.family == "ssm":
+            x = (checkpoint(_ssm_block, lp, cfg, x, use_reentrant=False)
+                 if remat else _ssm_block(lp, cfg, x))
+            continue
         if remat:
             x, a = checkpoint(_block, lp, cfg, x, positions, is_moe,
                               use_reentrant=False)

@@ -1,22 +1,28 @@
-"""Serving paths of the dense and MoE families: cache init, prefill,
+"""Serving paths of the dense, MoE and SSM families: cache init, prefill,
 single-token decode against a contiguous cache or straight against the
 paged block pool, and token selection.  The port of
-``repro/models/serving.py``'s attention-family parts.
+``repro/models/serving.py``'s attention- and SSM-family parts.
 
 Cache layout (L = layers, B = batch, S = max_seq):
 
 * GQA (dense, and MoE with GQA): ``k``, ``v`` each ``(L, B, S, Hkv, hd)``;
 * MLA (deepseek): ``c_kv`` ``(L, B, S, lat)`` and ``k_rope``
-  ``(L, B, S, rope)`` — the compressed latent and the shared RoPE key.
+  ``(L, B, S, rope)`` — the compressed latent and the shared RoPE key;
+* SSM (falcon-mamba): ``conv`` ``(L, B, K-1, dI)`` and ``h``
+  ``(L, B, dI, N)``, float32 — the conv window and the recurrent state,
+  O(1) in the sequence (``max_seq`` is not used, ``pad_seq`` leaves it).
 
 The pool leaves of ``serve.BlockPool`` are the same cache evaluated at
 ``batch = n_pages, max_seq = page_size``, so their second axis is the page
-id.  Layers run in order over ``lm.layers_of`` (the MoE family's leading
-dense layers, then its MoE layers); cache index ``i`` is layer ``i``.
+id (for the SSM family a "page" is a whole state slot).  Layers run in
+order over ``lm.layers_of`` (the MoE family's leading dense layers, then
+its MoE layers); cache index ``i`` is layer ``i``.
 
 Decode updates its cache in place: the contiguous path writes the new
-entries at ``pos``, the paged path has the kernel (K10 for GQA, K11 for
-MLA) write the new cell of the pool.  Other families raise
+attention entries at ``pos`` (or the SSM family's new state over the old),
+the paged path has the kernel (K10 for GQA, K11 for MLA) write the new
+cell of the pool.  The paged path raises for the SSM family, whose state
+is not paged (the reference has no paged SSM path); other families raise
 (``lm.check_family``).
 """
 
@@ -29,6 +35,7 @@ import torch
 from repro_torch.kernels.paged_attention import ops as paged_ops
 
 from . import mla as mla_mod
+from . import ssm as ssm_mod
 from .layers import _qkv, attention_decode, rmsnorm, torch_dtype
 from .lm import attend, check_family, ffn, layers_of, logits_fn
 
@@ -47,6 +54,11 @@ def init_cache(cfg, batch: int, max_seq: int,
                device: torch.device) -> Params:
     check_family(cfg, "init_cache")
     L, dt = cfg.n_layers, torch_dtype(cfg)
+    if cfg.family == "ssm":
+        return {"conv": torch.zeros((L, batch, cfg.d_conv - 1, cfg.d_inner),
+                                    dtype=torch.float32, device=device),
+                "h": torch.zeros((L, batch, cfg.d_inner, cfg.ssm_state),
+                                 dtype=torch.float32, device=device)}
     if cfg.mla:
         return {k: torch.zeros((L, batch, max_seq, w), dtype=dt,
                                device=device)
@@ -57,11 +69,17 @@ def init_cache(cfg, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+# the cache leaves with a sequence axis; the SSM state has none
+SEQ_LEAVES = ("k", "v", "c_kv", "k_rope")
+
+
 def pad_seq(cache: Params, extra: int) -> Params:
-    """Each leaf ``(L, B, S, ...)`` padded with ``extra`` zero positions
-    on the sequence axis."""
-    return {k: torch.nn.functional.pad(v, [0, 0] * (v.dim() - 3)
-                                       + [0, extra])
+    """Each sequence leaf ``(L, B, S, ...)`` padded with ``extra`` zero
+    positions on the sequence axis; the SSM state, O(1) in the sequence,
+    is returned as it is."""
+    return {k: (torch.nn.functional.pad(v, [0, 0] * (v.dim() - 3)
+                                        + [0, extra])
+                if k in SEQ_LEAVES else v)
             for k, v in cache.items()}
 
 
@@ -78,6 +96,13 @@ def prefill(params: Params, cfg, tokens: torch.Tensor):
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches = []
     for lp, is_moe in layers_of(params):
+        if cfg.family == "ssm":
+            y, st = ssm_mod.mamba1_apply(
+                lp["mamba"], cfg, rmsnorm(lp["norm"], x, cfg.norm_eps),
+                return_state=True)
+            x = x + y
+            caches.append(st)
+            continue
         a, kv = attend(lp["attn"], cfg,
                        rmsnorm(lp["attn_norm"], x, cfg.norm_eps), positions,
                        return_cache=True)
@@ -99,10 +124,19 @@ def prefill(params: Params, cfg, tokens: torch.Tensor):
 def decode_step(params: Params, cfg, cache: Params, tokens: torch.Tensor,
                 pos: torch.Tensor) -> Tuple[torch.Tensor, Params]:
     """tokens (B,1), pos (B,) → (logits (B,V), cache).  Writes each
-    layer's new cache entries at ``pos`` in place."""
+    layer's new cache entries at ``pos`` in place (the SSM family: its new
+    conv window and state over the old; ``pos`` is not read)."""
     check_family(cfg, "decode_step")
     x = params["embed"]["tok"][tokens.long()]
     for i, (lp, is_moe) in enumerate(layers_of(params)):
+        if cfg.family == "ssm":
+            cl = _layer(cache, i)
+            y, st = ssm_mod.mamba1_decode(
+                lp["mamba"], cfg, rmsnorm(lp["norm"], x, cfg.norm_eps), cl)
+            for k, v in st.items():
+                cl[k].copy_(v)
+            x = x + y
+            continue
         hn = rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
         cl = _layer(cache, i)
         if cfg.mla:
@@ -129,6 +163,11 @@ def decode_step_paged(params: Params, cfg, leaves: Params,
     gather, no scatter.  The non-cache halves are those of
     :func:`decode_step`."""
     check_family(cfg, "decode_step_paged")
+    if cfg.family == "ssm":
+        raise ValueError(
+            f"decode_step_paged: {cfg.name!r} is an SSM, whose O(1) state "
+            f"is not paged (the reference has no paged SSM path); decode "
+            f"it with decode_step")
     x = params["embed"]["tok"][tokens.long()]
     page_rows = page_rows.to(torch.int32).contiguous()
     pos = pos.to(torch.int32).contiguous()

@@ -19,7 +19,8 @@ Two entry points share the same task bodies (``_PipeRunner``, on
   bulk-synchronous pipeline step on the host; ``sequential``/``threaded``
   drain the scheduler directly; ``engine`` lowers the F/B/U tasks to
   descriptor tables and runs the whole value-and-grad step as the K9 walk
-  (``engine.pipe_round_fn``), one launch per write-colored phase, over the
+  (``engine.pipe_round_fn``), one cooperative launch a plan over its
+  write-colored phases (a grid barrier between them), over the
   stacked stage-activation and grad-accumulation slabs updated in place.
   The host modes run the stage products with ``torch.matmul``, as the
   reference's host modes run ``jax.vjp`` outside any Pallas kernel; only

@@ -128,8 +128,8 @@ def lower_pipeline_plan(n_stages: int, n_micro: int, fwd_cost: float = 1.0,
     the same (S, M, costs) graph every step skips re-lowering.  The returned
     plan executes on any registered backend (``core.backends``) —
     ``exec.pipelined_value_and_grad_plan`` drives it end to end, including
-    the ``engine`` path (the K9 walk, one launch per write-colored
-    phase)."""
+    the ``engine`` path (the K9 walk, one cooperative launch a plan over
+    its write-colored phases)."""
     sched, meta = build_pipeline_graph(n_stages, n_micro, fwd_cost, bwd_cost,
                                        upd_cost, max_in_flight,
                                        per_stage_window)

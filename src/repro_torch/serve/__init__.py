@@ -9,7 +9,8 @@ service's robustness layer (deadlines, preemption with page
 reclamation, guarded decode with a degrade ladder — DESIGN.md
 §Robustness).
 
-Port note: the port of ``repro.serve`` for the dense GQA family.
+Port note: the port of ``repro.serve`` for the dense and MoE families
+(GQA or MLA attention, paged) and the SSM family (unpaged, O(1) state).
 """
 
 from .blockpool import AdmissionConflict, BlockPool, TT_PREFILL

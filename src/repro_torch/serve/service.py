@@ -1,7 +1,8 @@
 """Continuous-batching generate service on the device-resident scheduler.
 
-The port of ``repro/serve/service.py`` for the attention families: dense
-GQA, and MoE with GQA or MLA attention.  A persistent service: an
+The port of ``repro/serve/service.py`` for the attention families (dense
+GQA, and MoE with GQA or MLA attention) and the SSM family.  A persistent
+service: an
 admission queue feeding a fixed set of batch slots, requests joining and
 leaving mid-stream.  The QuickSched machinery *is*
 the serving path:
@@ -71,8 +72,12 @@ What the port changes:
 
 The dense and MoE families are served (the pool leaves, the gather and
 scatter of the reference paths and preemption are the same for either
-cache layout); other families raise a ``ValueError`` naming the slice that
-brings them.
+cache layout), and the SSM family as the reference serves it: its state is
+O(1) in the sequence, so nothing is paged (``paged`` is False, a "page"
+is one request's whole state slot, ``max_seq`` does not bound a request)
+and the decode path is ``gather`` on every device — no kernel exists for
+it, so K10/K11 never launch.  Other families raise a ``ValueError``
+naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -104,7 +109,7 @@ from .faults import FaultPlan
 TT_DECODE = 1       # task type of the decode family
 ENG_DECODE = 1      # engine descriptor row etype for a decode item
 
-SUPPORTED_FAMILIES = FAMILIES      # dense, and moe with GQA or MLA attention
+SUPPORTED_FAMILIES = FAMILIES      # dense, moe (GQA or MLA attention), ssm
 DECODE_PATHS = ("auto", "kernel", "bounded", "gather")
 # capability ladder, fastest first — the degrade walk moves right
 DECODE_LADDER = ("kernel", "bounded", "gather")
@@ -294,11 +299,14 @@ def _weak(method: Callable) -> Callable:
 
 
 def _make_decode_round_fn(cfg, page_size: int, sampling: SamplingParams,
-                          guard: bool) -> Callable:
+                          guard: bool, paged: bool = True) -> Callable:
     """The full-window gather round function — the conformance oracle
-    (``decode_path="gather"``) and the retry/degrade floor of the ladder.
-    Layout: ``desc[i] = [ENG_DECODE, slot, pos]``; buffers = ``(page
-    tables, tok, pos, rid, flags, pool leaves)``; statics = ``(params,)``."""
+    (``decode_path="gather"``), the retry/degrade floor of the ladder, and
+    the only path of the unpaged SSM family, whose slots each hold one
+    state "page": that page's state is read whole and written back whole
+    (``index_copy_`` into the pool leaves).  Layout: ``desc[i] =
+    [ENG_DECODE, slot, pos]``; buffers = ``(page tables, tok, pos, rid,
+    flags, pool leaves)``; statics = ``(params,)``."""
 
     def decode_round(desc, schedule, statics, buffers):
         del schedule                   # single write-colored phase
@@ -307,6 +315,15 @@ def _make_decode_round_fn(cfg, page_size: int, sampling: SamplingParams,
         leaves = buffers[5]
         slots, p_b = _desc_columns(desc)
         rows = pt[slots].long()                             # (bs, MP)
+        if not paged:
+            sid = rows[:, 0]
+            cache = {k: leaf[:, sid] for k, leaf in leaves.items()}
+            logits, cache = serving_mod.decode_step(
+                params, cfg, cache, tok[slots][:, None], p_b)
+            for k, leaf in leaves.items():
+                leaf.index_copy_(1, sid, cache[k])
+            return _finish_decode(buffers, slots, p_b, logits, sampling,
+                                  guard)
         cache = _gather_window(leaves, rows, page_size)
         logits, cache = serving_mod.decode_step(
             params, cfg, cache, tok[slots][:, None], p_b)
@@ -406,7 +423,8 @@ class GenerateService:
                 f"not {decode_path!r}")
         if max_queue is not None and max_queue < 1:
             raise ValueError("max_queue must be >= 1 (or None)")
-        if max_seq % page_size != 0:
+        self.paged = cfg.family != "ssm"
+        if self.paged and max_seq % page_size != 0:
             raise ValueError("max_seq must be a multiple of page_size")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -420,8 +438,13 @@ class GenerateService:
         self.sampling = sampling or SamplingParams()
         self.guard = bool(guard)
         # on the card the decode attention is K10 or K11, never a plain
-        # path in its place: a card they are not built for raises here
-        if decode_path == "auto":
+        # path in its place: a card they are not built for raises here.
+        # The SSM state is O(1) and nothing is paged: no kernel exists for
+        # it, and gather is its one path on every device (the reference's
+        # rule)
+        if not self.paged:
+            decode_path = "gather"
+        elif decode_path == "auto":
             decode_path = ("kernel" if self.device.type == "cuda"
                            else "bounded")
         if decode_path == "kernel" and self.device.type == "cuda":
@@ -430,7 +453,7 @@ class GenerateService:
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.nr_lanes = nr_lanes
-        self.max_pages = max_seq // page_size
+        self.max_pages = max_seq // page_size if self.paged else 1
         if n_pages is None:
             n_pages = max_batch * self.max_pages
         self.pool = BlockPool(n_pages, page_size, cfg=cfg, device=self.device)
@@ -469,8 +492,9 @@ class GenerateService:
         }
         # degrade ladder: the selected path plus everything below it; the
         # last rung is always the gather oracle — also the retry path
-        self._ladder: Tuple[str, ...] = DECODE_LADDER[
-            DECODE_LADDER.index(self.decode_path):]
+        self._ladder: Tuple[str, ...] = (
+            ("gather",) if not self.paged
+            else DECODE_LADDER[DECODE_LADDER.index(self.decode_path):])
         self._level = 0                 # current rung (0 = selected path)
         self._fault_streak = 0          # consecutive faulted ticks
         self._cooldown = 0              # clean ticks before promotion
@@ -516,7 +540,8 @@ class GenerateService:
     def _make_hooks(self, path: str) -> EngineHooks:
         make = {"kernel": _make_paged_decode_round_fn,
                 "bounded": _make_bounded_decode_round_fn,
-                "gather": _make_decode_round_fn}[path]
+                "gather": functools.partial(_make_decode_round_fn,
+                                            paged=self.paged)}[path]
         return EngineHooks(
             arg_width=2,
             round_fn=make(self.cfg, self.pool.page_size, self.sampling,
@@ -538,6 +563,12 @@ class GenerateService:
         """The rung of the degrade ladder the next tick will run on
         (equals ``decode_path`` until a fault degrades it)."""
         return self._ladder[self._level]
+
+    @property
+    def hooks(self) -> EngineHooks:
+        """EngineHooks for the currently active decode path (the lower
+        rung's after a degrade, the selected path's after promotion)."""
+        return self._hooks_by_path[self.decode_path_active]
 
     def _now(self) -> float:
         """The service's virtual clock: the tracer clock plus any stall
@@ -569,7 +600,7 @@ class GenerateService:
         if prompt.size < 1 or max_new_tokens < 1:
             raise ValueError("need a non-empty prompt and max_new_tokens >= 1")
         positions = int(prompt.size) + max_new_tokens - 1
-        if positions > self.max_seq:
+        if self.paged and positions > self.max_seq:
             raise ValueError(
                 f"request needs {positions} cache positions, service "
                 f"max_seq is {self.max_seq}")
@@ -617,7 +648,8 @@ class GenerateService:
             # pages each slot's walk touches this tick (incl. the cell
             # being written) — what the kernel/bounded paths read
             ps = self.pool.page_size
-            pages = sum(self._active[s].pos // ps + 1 for s in slots)
+            pages = (sum(self._active[s].pos // ps + 1 for s in slots)
+                     if self.paged else len(slots))
             tr = _trace.get_tracer()
             t0 = _trace.now()
             ok_slots, events = self._decode_tick(slots)
@@ -819,6 +851,7 @@ class GenerateService:
 
     def _make_prefill_fn(self, plen: int, nb: int) -> Callable:
         cfg = self.cfg
+        paged = self.paged
         ps = self.pool.page_size
         np_p = self.pool.pages_needed(plen)
         pad_to = np_p * ps - plen
@@ -832,11 +865,15 @@ class GenerateService:
 
         def prefill_entry(tokens, page_ids, pt_rows, slots, rids):
             logits, cache, _ = serving_mod.prefill(params, cfg, tokens)
-            cache = serving_mod.pad_seq(cache, pad_to)  # (L, nb, np_p*ps, ...)
-            for k, leaf in leaves.items():
-                c = cache[k]
-                c = c.reshape((c.shape[0], nb, np_p, ps) + c.shape[3:])
-                leaf[:, page_ids] = c.to(leaf.dtype)
+            if paged:
+                cache = serving_mod.pad_seq(cache, pad_to)  # (L, nb, np_p*ps, ...)
+                for k, leaf in leaves.items():
+                    c = cache[k]
+                    c = c.reshape((c.shape[0], nb, np_p, ps) + c.shape[3:])
+                    leaf[:, page_ids] = c.to(leaf.dtype)
+            else:               # each request's state into its one page
+                for k, leaf in leaves.items():
+                    leaf[:, page_ids[:, 0]] = cache[k].to(leaf.dtype)
             rid_buf[slots] = rids
             positions = torch.full_like(rids, plen)
             tok0 = serving_mod.sample_tokens(
@@ -862,8 +899,18 @@ class GenerateService:
         the card the CUDA events around the round (else None)."""
         # the round updates the slot state in place, so the pre-round
         # values a retry restores must be copies
-        prev = ((self._tok.clone(), self._pos.clone(), self._rid.clone())
-                if self.guard else None)
+        prev = None
+        if self.guard:
+            # an SSM round overwrites each slot's whole state, so a retry
+            # must start from the pre-round state too: the round's slots'
+            # state rows (leaf[:, ids] copies them)
+            state = None
+            if not self.paged:
+                ids = self._pt[slots, 0].long()
+                state = (slots, ids, {k: leaf[:, ids] for k, leaf
+                                      in self.pool.leaves.items()})
+            prev = (self._tok.clone(), self._pos.clone(), self._rid.clone(),
+                    state)
         self._arm_poison(slots)
         t0 = time.perf_counter()
         sched = self._decode_sched(slots)
@@ -901,7 +948,9 @@ class GenerateService:
         # garbage — restore them and re-run just those slots on the
         # reference path.  The faulted round's KV-cell writes need no
         # undo: the retry rewrites the victims' cells at the same
-        # (page, offset), and decode masks everything beyond pos.
+        # (page, offset), and decode masks everything beyond pos.  An SSM
+        # round's state writes do: _restore puts the pre-round state back
+        # (the reference re-ran the retry on the advanced state).
         self._counters["retries"].inc(len(bad))
         self.retried_rids.update(self._active[s].rid for s in bad)
         self._note_fault_tick()
@@ -922,8 +971,14 @@ class GenerateService:
 
     def _restore(self, slots: Sequence[int], prev: Tuple) -> None:
         idx = torch.as_tensor(list(slots), device=self.device)
-        for buf, snap in zip((self._tok, self._pos, self._rid), prev):
+        for buf, snap in zip((self._tok, self._pos, self._rid), prev[:3]):
             buf[idx] = snap[idx]
+        if prev[3] is not None:        # the SSM state rows of the slots
+            order, ids, rows = prev[3]
+            at = torch.as_tensor([order.index(s) for s in slots],
+                                 device=self.device)
+            for k, leaf in self.pool.leaves.items():
+                leaf.index_copy_(1, ids[at], rows[k][:, at])
 
     def _note_fault_tick(self) -> None:
         """Degrade one rung with exponential backoff: each consecutive

@@ -332,17 +332,29 @@ def lattice_case():
     """The reference's rounds mode on an 8³ lattice with random masses
     (uniform leaves, so its eager path compiles few shapes)."""
     x, m = lattice(8, seed=8)
-    acc, _, _ = jbh.solve(x, m, n_max=8, n_task=64, backend="ref",
-                          mode="rounds")
-    return x, m, np.asarray(acc)
+    acc, st, _ = jbh.solve(x, m, n_max=8, n_task=64, backend="ref",
+                           mode="rounds")
+    return x, m, np.asarray(acc), np.asarray(st.result())
 
 
 @pytest.mark.parametrize("mode", MODES)
 def test_modes_match_reference_rounds(lattice_case, mode):
-    x, m, want = lattice_case
+    x, m, want, _ = lattice_case
     acc, _, _ = bh.solve(x, m, n_max=8, n_task=64, mode=mode, nr_workers=4,
                          device="cpu")
     assert rel_err(acc.numpy(), want).max() < 1e-4
+
+
+def test_state_result_matches_reference_result(lattice_case):
+    """``BHState.result()`` is the accelerations in the tree's sorted
+    order, as the reference's: ``acc`` itself, equal to the reference
+    state's ``result()`` on the same lattice."""
+    x, m, _, want = lattice_case
+    _, st, _ = bh.solve(x, m, n_max=8, n_task=64, mode="rounds",
+                        device="cpu")
+    assert st.result() is st.acc
+    assert st.result().shape == want.shape
+    assert rel_err(st.result().numpy(), want).max() < 1e-4
 
 
 def interaction_lists_f64(g, eps=jref.DEFAULT_EPS):

@@ -1190,3 +1190,65 @@ def test_training_drill_without_deterministic_mode(cuda, arch, tmp_path,
     print(f"{arch} without deterministic algorithms: max loss gap "
           f"{max(gaps):.3e}, {unequal} of {len(leaves((pa, oa)))} leaves "
           f"differ")
+
+
+# --- measured round times and the SSM family on the card ------------------------
+
+def test_measure_round_times_on_card(cuda):
+    """measure_round_times on a QR plan on the card: one walk launch a
+    round (and a warm-up pass), the caller's buffers untouched, the final
+    state bitwise the fused execute_plan's, the 1-worker replay the sum of
+    the round times."""
+    from repro_torch import core
+    a = rand((512, 512), 21, cuda)
+    tiles, mt, nt = qr._split_tiles(a, 64)
+    sched, _ = qr.make_qr_graph(mt, nt, nr_queues=4)
+    plan = lower(sched, 4)
+    tables = engine.lower_tables(
+        plan, sched, qr._TileState(dict(tiles)).batch_registry(),
+        arg_width=engine.QR_ARG_WIDTH, row_access=engine.qr_row_access)
+    stack = torch.stack([tiles[i, j] for j in range(nt) for i in range(mt)])
+    before = stack.clone()
+    kernel.reset_counts()
+    t = engine.measure_round_times(tables, engine.qr_round_fn, (),
+                                   (stack, torch.zeros_like(stack)),
+                                   per_item=True)
+    busy = int((np.diff(tables.round_offsets) > 0).sum())
+    assert kernel.LAUNCHES["qr_walk"] == 2 * busy + 1 + tables.nr_items
+    assert not any(kernel.PLAIN_CALLS.values())
+    assert torch.equal(stack, before)
+    want = engine.execute_plan(tables, engine.qr_round_fn, (),
+                               (stack.clone(), torch.zeros_like(stack)))
+    assert all(torch.equal(x, y) for x, y in zip(t.buffers, want))
+    res = core.replay_round_times(sched, plan, t.round_s, nr_workers=1)
+    assert res.makespan == pytest.approx(sum(t.round_s), rel=1e-9)
+    assert len(t.item_s) == tables.nr_items and (t.item_s > 0).all()
+
+
+def test_ssm_forward_and_decode_on_card_match_cpu(cuda):
+    """falcon-mamba-7b --reduced, fp32: the forward logits and a prefill
+    plus one decode step on the card against the port on the CPU (the
+    reference's kernel-test tolerance: two float32 summation orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, serving
+    from repro_torch.optim.tree import tree_map
+    cfg = get_config("falcon-mamba-7b").reduced()
+    cpu = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    tok = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 128)))
+    with torch.no_grad():
+        outs = []
+        for p, dev in ((cpu, "cpu"), (card, cuda)):
+            t = tok.to(dev)
+            h, _ = lm.forward(p, cfg, t)
+            logits = lm.logits_fn(p, cfg, h)
+            _, cache, pos = serving.prefill(p, cfg, t[:, :-1])
+            dec, _ = serving.decode_step(p, cfg, cache, t[:, -1:], pos)
+            outs.append((logits.cpu(), dec.cpu(),
+                         {k: v.cpu() for k, v in cache.items()}))
+    (l0, d0, c0), (l1, d1, c1) = outs
+    assert_allclose(l1.numpy(), l0.numpy(), **TOL)
+    assert_allclose(d1.numpy(), d0.numpy(), **TOL)
+    for k in c0:
+        assert_allclose(c1[k].numpy(), c0[k].numpy(), **TOL)

@@ -55,6 +55,8 @@ def test_every_module_imports_here():
             "repro_torch.models.config", "repro_torch.models.layers",
             "repro_torch.models.lm", "repro_torch.models.serving",
             "repro_torch.models.mla", "repro_torch.models.moe",
+            "repro_torch.models.ssm", "repro_torch.core.weights",
+            "repro_torch.core.static_sched",
             "repro_torch.configs.deepseek_v3_671b",
             "repro_torch.configs.kimi_k2_1t_a32b",
             "repro_torch.models.convert", "repro_torch.configs",

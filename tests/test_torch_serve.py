@@ -213,8 +213,7 @@ def test_auto_path_and_unsupported_family(model):
     assert _service(tp, tcfg).decode_path == "bounded"   # no card here
     with pytest.raises(ValueError, match="decode_path"):
         _service(tp, tcfg, decode_path="warp")
-    for arch, later in (("whisper-tiny", "enc-dec"),
-                        ("falcon-mamba-7b", "SSM")):
+    for arch, later in (("whisper-tiny", "enc-dec"),):
         with pytest.raises(ValueError, match=later):
             tserve.GenerateService(tp, tconfigs.get_config(arch).reduced(),
                                    device="cpu")
@@ -367,6 +366,24 @@ def test_nan_fault_recovers_bitwise(model, sticky):
         assert svc.stats["retries"] >= 1 and h.rid in svc.faulted_rids
     assert svc.decode_path_active != "kernel"      # degraded one rung
     _drained(svc)
+
+
+def test_hooks_follow_the_degrade_ladder(model):
+    """``GenerateService.hooks`` is the active rung's ``EngineHooks``:
+    the lower rung's after a fault degrades the ladder, the selected
+    path's again after the clean ticks promote it back."""
+    _, _, tcfg, tp = model
+    plan = tserve.FaultPlan([tserve.FaultEvent(1, "nan_decode", sticky=1)])
+    svc = _service(tp, tcfg, decode_path="kernel", faults=plan)
+    assert svc.hooks is svc._hooks_by_path["kernel"]
+    svc.submit(np.arange(5, dtype=np.int32), 12)
+    seen = []
+    while svc.step():
+        seen.append(svc.decode_path_active)
+        assert svc.hooks is svc._hooks_by_path[svc.decode_path_active]
+    assert "bounded" in seen
+    assert "kernel" in seen[seen.index("bounded"):]   # promoted back
+    assert svc.hooks is svc._hooks_by_path["kernel"]
 
 
 # --- sampling ------------------------------------------------------------------------

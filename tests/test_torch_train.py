@@ -22,7 +22,8 @@ loss, train step, restartable loop and launcher.
   tolerance, the moments everywhere and the parameters where |g| exceeds
   the gradient tolerance;
 * per-layer remat on and off bitwise equal, remat running each block
-  twice; the other families raise naming their slice; the launcher runs
+  twice; the families not ported yet (hybrid, enc-dec, VLM) raise naming
+  their slice (the SSM family's training is ``tests/test_torch_ssm.py``); the launcher runs
   on the CPU and, without ``--device cpu`` and without a card, raises.
 
 Reference calls are jitted once per configuration (four compiles).
@@ -461,8 +462,8 @@ def test_deterministic_mode_needs_cublas_config(monkeypatch):
         assert torch.are_deterministic_algorithms_enabled() == before
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b",
-                                  "whisper-tiny", "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-tiny",
+                                  "internvl2-76b"])
 def test_other_families_raise_naming_their_slice(arch, tmp_path):
     cfg = tconfigs.get_config(arch).reduced()
     with pytest.raises(ValueError, match="model slice"):
