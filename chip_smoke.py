@@ -17,11 +17,16 @@ deepseek-v3-671b (MoE + MLA) at full width cut to its first 5 layers
 pipelined value-and-grad through ``repro_torch.pipeline`` at (S, M, Bt, D)
 = (8, 64, 32, 2048) in all four modes; the flash-attention op; and
 training of qwen3-1.7b as published through
-``repro_torch.trainer.loop.run_training`` (200 steps, a kill-and-resume
+``repro_torch.trainer.loop.run_training`` (100 steps, a kill-and-resume
 drill, an fp32 step against the CPU); measured round times
 (``repro_torch.engine.measure_round_times``) replayed through the
-simulator; and the SSM family: falcon-mamba-7b served as published (bf16,
-64 layers) and trained at full width cut to 8 layers.
+simulator; the SSM family: falcon-mamba-7b served as published (bf16,
+64 layers) and trained at full width cut to 8 layers; and the hybrid,
+enc-dec and VLM families through ``repro_torch.models.serving``'s prefill
+and decode_step as the static launcher drives them
+(``repro_torch.launch.serve.generate``): zamba2-7b and whisper-tiny as
+published, internvl2-76b at full width cut to 24 layers, each trained
+through run_training (zamba2 at 15 layers, internvl2 at 2).
 Phases, each fatal when it fails:
 
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
@@ -66,8 +71,9 @@ Phases, each fatal when it fails:
     launches per plan at most the plan's rounds.  The host modes run at
     100k and not at 1M: at 1M they would make about 800k per-op launches
     from Python, more than this script's time limit holds;
-11. BH timings: solve per mode at 100k and engine at 1M, split into tree,
-    graph, lowering and execution; the walk over the whole 1M plan, with
+11. BH timings: solve per mode at 100k (a mode whose first run took 15 s
+    or more, threaded, is not run again) and engine at 1M (one run),
+    split into tree, graph, lowering and execution; the walk over the whole 1M plan, with
     the pair interactions it evaluates beside those the data needs and
     those a walk over the padded blocks evaluates; K6 and
     K7 at the path's shapes, each beside its bound and plain version (no
@@ -158,7 +164,7 @@ Phases, each fatal when it fails:
     keys must fail; then at hd 112 (zamba2-7b's width), held the same way;
 23. training, with the earlier models freed: qwen3-1.7b as published
     (bf16, 28 layers, 2.03e9 weights from seed 0) through
-    repro_torch.trainer.loop.run_training with AdamW, 200 steps at
+    repro_torch.trainer.loop.run_training with AdamW, 100 steps at
     launch/train.py's (seq 128, global batch 8), every count at 0 before
     and no kernel and no plain version launched after (no kernel is on
     this path), every parameter and moment on the card, every loss
@@ -212,7 +218,31 @@ Phases, each fatal when it fails:
 28. falcon-mamba-7b at full width cut to 8 layers (AdamW at 64 layers
     needs ~87 GB), 20 run_training steps at (128, 8), deterministic: the
     last 5 losses' mean below the first 5's by SSM_LOSS_MARGIN, which the
-    lr-0 control must not reach; step time and peak memory.
+    lr-0 control must not reach; step time and peak memory;
+29. zamba2-7b as published (bf16, 81 layers: 13 sites of 6 Mamba2 layers
+    each followed by one of 2 shared attention blocks at width 7168, 32
+    heads of 224, then a 3-layer tail; 7.9e9 weights from seed 0) through
+    launch.serve.generate: batch 8, prompt 256, 64 greedy new tokens, no
+    kernel and no plain version run, tokens in the vocabulary; prefill
+    ms, decode step ms, tok/s, peak memory and a profiler window of 4
+    steps; (ii) a 4,096-token prompt, batch 1: the trunk state (conv
+    windows and SSD state) byte for byte that of a 64-token cache; (i)
+    prefill(256) + decode_step against forward(257), last logits within
+    FAMILY_LIMITS in bf16 at 81 layers and in fp32 at 15, each control
+    (the SSD state h zeroed) outside it;
+30. whisper-tiny as published (bf16, 4 + 4 layers, 1,500 stub frames x
+    0.02): batch 8, prompt 4, 128 new tokens, as 29; (iii) the cross
+    cache after the 128 steps bitwise the prefill's; (i) in bf16 and
+    fp32, the control with the cross K/V zeroed;
+31. internvl2-76b at full width, 24 layers (45.3 GB; bf16, 256 stub patch
+    embeddings x 0.02 before the prompt): batch 8, prompt 256, 64 new
+    tokens, as 29; (i) in bf16 at 24 layers and fp32 at 2, the control
+    with the patch positions' K/V zeroed;
+32. run_training at (128, 8), AdamW, the families' zero stub inputs:
+    zamba2-7b at 15 layers and whisper-tiny, 20 steps each beside the lr-0
+    control (the last 5 losses' mean below the first 5's by
+    SSM_LOSS_MARGIN, the control not), internvl2-76b at 2 layers, 4
+    steps; step time and peak memory; no kernel on any of these paths.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -1260,8 +1290,13 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
     from repro_torch.kernels.nbody import ref
     x, m = bh_inputs(np, N_BH)
     for mode in MODES:
-        # a median of 3 unless the first run was long (threaded: the GIL)
-        reps = 3 if firsts[mode] < 15.0 else 1
+        # a median of 3 unless the first run was long (threaded: the GIL),
+        # which is not run again: its wall time is phase 9's
+        if firsts[mode] >= 15.0:
+            log(f"[bh-time] {mode} at {N_BH}: not split into stages (its "
+                f"first run took {firsts[mode]:.1f} s); {card}")
+            continue
+        reps = 3
         runs = []
         for _ in range(reps):
             stages, keep = staged_solve(torch, x, m, NTASK_BH, mode)
@@ -1269,19 +1304,16 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
         if mode == "engine":
             log_structure(np, keep, N_BH)
         med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-        fewer = ("" if reps == 3 else
-                 f", fewer: the first run took {firsts[mode]:.1f} s")
-        log(f"[bh-time] {mode} at {N_BH} (median of {reps}{fewer}): "
+        log(f"[bh-time] {mode} at {N_BH} (median of {reps}): "
             + ", ".join(f"{k} {v:.4f} s" for k, v in med.items())
             + f"; {card}")
     x, m = bh_inputs(np, N_PAPER)
-    runs = []
-    for _ in range(2):              # two runs: the 1M lowering is long
-        stages, keep = staged_solve(torch, x, m, NTASK_PAPER, "engine")
-        runs.append(stages)
-    log(f"[bh-time] engine at {N_PAPER} (2 runs, each shown): "
-        + "; ".join(", ".join(f"{k} {v:.4f} s" for k, v in r.items())
-                    for r in runs) + f"; {card}")
+    # one run (two until the hybrid, enc-dec and VLM phases came): the 1M
+    # lowering is long, and phase 10 has run the same solve once already
+    stages, keep = staged_solve(torch, x, m, NTASK_PAPER, "engine")
+    log(f"[bh-time] engine at {N_PAPER} (1 run): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items())
+        + f"; {card}")
     log_structure(np, keep, N_PAPER)
     tab, lg, hooks, statics, st = (keep[k] for k in ("tab", "lg", "hooks",
                                                      "statics", "st"))
@@ -3025,8 +3057,11 @@ def phase_k12_timing(torch, np, errs, launches, qkvo, card):
 
 ARCH_TRAIN = "qwen3-1.7b"   # as published: bf16, 28 layers, d 2048, 16/8
 #                             heads of 128, d_ff 6144, vocab 151936
-TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 200, 128, 8   # launch/train.py's
-#                             sequence and global batch
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 100, 128, 8   # launch/train.py's
+#                             sequence and global batch; 100 steps (200
+#                             until the hybrid, enc-dec and VLM phases came:
+#                             within the warmup the first 100 are the same
+#                             steps, the loss fell 0.34 by step 200)
 LONG_STEPS, LONG_SEQ, LONG_BATCH = 20, 4096, 1      # attn_chunk 2048 < 4096:
 #                             sdpa_chunked in the forward, the recompute and
 #                             the backward
@@ -3225,7 +3260,8 @@ def attention_ms(torch, seq):
 
 def phase_train(torch, np, card):
     """qwen3-1.7b as published, trained on the card through run_training:
-    200 steps at (128, 8), the lr-0 control, 20 steps at (4096, 1)."""
+    TRAIN_STEPS steps at (128, 8), the lr-0 control, 20 steps at (4096,
+    1)."""
     from repro_torch.models import layers
     free_card(torch)
     cfg = train_cfg(torch)
@@ -3314,7 +3350,7 @@ def phase_train(torch, np, card):
         f"median of {TIMED_STEPS}; host span median {steady:.2f} ms): "
         f"loss+grads {split['grads']:.2f}, clip {split['clip']:.2f}, update "
         f"{split['update']:.2f}; {out['tokens_per_s']:.1f} tok/s; peak "
-        f"{run['peak']:.2f} GiB; 200 steps in {run['wall']:.1f} s")
+        f"{run['peak']:.2f} GiB; {TRAIN_STEPS} steps in {run['wall']:.1f} s")
     log(f"[train] {card}: (4096, 1) step {long_steady:.2f} ms (host span "
         f"median), {out['long']['tokens_per_s']:.1f} tok/s, peak "
         f"{long['peak']:.2f} GiB; sdpa_chunked a layer {attn_fwd:.3f} ms "
@@ -4000,6 +4036,369 @@ def phase_train_ssm(torch, np, card):
             "wall_s": run["wall"]}
 
 
+# ---------------------------------------------------------------------------
+# the hybrid, enc-dec and VLM families: serving.prefill / decode_step as
+# the static launcher drives them (launch.serve.generate), and run_training
+# ---------------------------------------------------------------------------
+
+ARCH_HYBRID = "zamba2-7b"     # as published: 81 layers (13 sites of 6 and a
+#                             3-layer tail), d 3584, d_inner 7168 (112 SSD
+#                             heads of 64), N 64; 2 shared blocks at 2d =
+#                             7168 (32 heads of 224, d_ff 14336); vocab 32,000
+ARCH_ENCDEC = "whisper-tiny"  # as published: 4 + 4 layers, d 384, 6 heads of
+#                             64, 1,500 encoder frames, vocab 51,865
+ARCH_VLM = "internvl2-76b"    # full width: d 8192, 64/8 heads of 128, d_ff
+#                             28672, vocab 128,256, 256 patch positions
+VLM_LAYERS = 24               # of 80: 45.3 GB in bf16 (all 80, 141 GB, do not
+#                             fit 80 GB), as deepseek-v3 is cut to 5
+FAMILY_WORK = {ARCH_HYBRID: (8, 256, 64),    # (batch, prompt, new tokens):
+               ARCH_ENCDEC: (8, 4, 128),     # whisper within its 448 text
+               ARCH_VLM: (8, 256, 64)}       # positions; internvl2's prompt
+#                                              follows its 256 patch positions
+HYBRID_LONG, HYBRID_LONG_NEW = 4096, 16   # check (ii): one 4,096-token prompt
+#                             (a multiple of the SSD chunk, 128: a ragged
+#                             one is a single chunk, its (B, S, S, 112)
+#                             float32 decay 7.5 GB a row at 4,095), batch 1
+TEACHER_LEN = 257             # check (i): prefill 256 tokens and decode the
+#                             257th against forward(257), batch 2 (zamba2:
+#                             two SSD chunks and the carried state against
+#                             one ragged chunk of 257)
+FAMILY_FP32_LAYERS = {ARCH_HYBRID: 15, ARCH_ENCDEC: 4, ARCH_VLM: 2}   # check
+#                             (i) in fp32 at full width: zamba2 2 sites and a
+#                             3-layer tail, whisper as published
+FAMILY_LIMITS = {             # check (i), ‖Δ‖/‖logits‖ of the last logits,
+    ARCH_HYBRID: (0.1, 1e-3),  # (bf16, fp32); set before the first run.
+    ARCH_ENCDEC: (0.02, 1e-4),  # bf16: falcon's 64 layers read 4.4e-2 on the
+    ARCH_VLM: (0.05, 1e-4),    # card (phase 27); on the CPU at full depth and
+}                             # narrow width (d 512) zamba2 reads 3.4e-2 and
+#                             internvl2 (24 layers) 1.1e-2, whisper at its
+#                             published width 0; the bf16 rounding of 2^-9
+#                             grows ~sqrt(depth): 81 layers + 13 shared
+#                             blocks, 24 layers, 8 blocks.  fp32: ~1e-5 at
+#                             81 narrow layers on the CPU, x100 margin.  The
+#                             control (the family's carried context lost:
+#                             zamba2's SSD state h, whisper's cross K/V,
+#                             internvl2's patch positions' K/V, zeroed) read
+#                             0.43, 0.72 and 0.90 there and must fail both
+FAMILY_TRAIN = {                # (layers, steps, lr-0 control, base lr) at
+    ARCH_HYBRID: (15, 20, True, SSM_TRAIN_LR),   # (128, 8), AdamW: zamba2 2
+    ARCH_ENCDEC: (None, 20, True, 1e-2),         # sites + a 3-layer tail
+    ARCH_VLM: (2, 4, False, SSM_TRAIN_LR),       # (2.48e9 weights; AdamW at
+}                               # 81 layers needs ~91 GB), whisper as
+#                             published, internvl2 2 layers (~3.8e9).
+#                             whisper's d is 384: at falcon's lr its loss
+#                             fell 0.0094 in 20 steps, under the margin; a
+#                             CPU calibration on the same data gave 0.068 at
+#                             1e-2 (its lr-0 control 0.006) and a loss rising
+#                             again past step 25 as the warmup goes on
+
+
+def family_cfg(arch, **over):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == ARCH_VLM:
+        over.setdefault("n_layers", VLM_LAYERS)
+    return dataclasses.replace(cfg, **over)
+
+
+def family_inputs(torch, np, cfg, batch, plen, seed):
+    """Prompts (batch, plen) and the family's stub inputs (x 0.02, as
+    tests/test_archs_smoke.py draws them) in cfg.dtype, from ``seed``, on
+    the card."""
+    from repro_torch.models import lm
+    rng = np.random.default_rng(seed)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, plen)),
+                          device="cuda")
+    return tok, {k: (torch.as_tensor(rng.standard_normal(v.shape).astype(
+        np.float32), device="cuda") * 0.02).to(v.dtype)
+                 for k, v in lm.stub_inputs(cfg, batch, "cuda").items()}
+
+
+def tree_bytes(tree):
+    return sum(tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def tree_clone(tree):
+    return {k: tree_clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def no_kernel_served(what):
+    launched = {k: v for m in kernel_modules() for k, v in m.LAUNCHES.items()
+                if v}
+    if launched or plain_calls():
+        fail(f"{what}: kernels {launched} or plain versions {plain_calls()} "
+             f"ran (no kernel is on this path)")
+
+
+def context_lost(cfg, cache):
+    """The control's cache: the family's carried context zeroed — zamba2's
+    SSD state h in every layer, whisper's cross K/V, internvl2's patch
+    positions' K/V."""
+    c = tree_clone(cache)
+    if cfg.family == "hybrid":
+        c["h"].zero_()
+    elif cfg.family == "encdec":
+        c["cross"]["k"].zero_()
+        c["cross"]["v"].zero_()
+    else:
+        c["k"][:, :, :cfg.n_vis_tokens].zero_()
+        c["v"][:, :, :cfg.n_vis_tokens].zero_()
+    return c
+
+
+def family_teacher_check(torch, np, params, cfg, limit):
+    """Check (i): prefill(256) + decode_step of the 257th token against
+    forward(257) in cfg.dtype, batch 2, the last logits within ``limit``
+    (‖Δ‖/‖logits‖); the control, decoded from the cache with the family's
+    carried context zeroed, must fail it."""
+    from repro_torch.models import lm, serving
+    tok, extra = family_inputs(torch, np, cfg, 2, TEACHER_LEN, 3)
+    with torch.no_grad():
+        h, _ = lm.forward(params, cfg, tok, extra=extra)
+        full = lm.logits_fn(params, cfg, h[:, -1]).float()
+        del h
+        _, cache, pos = serving.prefill(params, cfg, tok[:, :-1],
+                                        extra=extra)
+        cache = serving.pad_seq(cache, 1)
+        lost = context_lost(cfg, cache)
+        dec, _ = serving.decode_step(params, cfg, cache, tok[:, -1:], pos)
+        ctl, _ = serving.decode_step(params, cfg, lost, tok[:, -1:], pos)
+    if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+        fail(f"{cfg.name} (i): logits not finite")
+    rel = float((dec.float() - full).norm() / full.norm())
+    ctl_rel = float((ctl.float() - full).norm() / full.norm())
+    log(f"[{cfg.name}] (i) {cfg.dtype}, {cfg.n_layers} layers, 2 x "
+        f"{TEACHER_LEN} tokens: prefill({TEACHER_LEN - 1}) + decode_step vs "
+        f"forward({TEACHER_LEN}), last-token logits ‖Δ‖/‖logits‖ {rel:.3e} "
+        f"(limit {limit}); with the carried context zeroed {ctl_rel:.3e}")
+    if not rel <= limit:
+        fail(f"{cfg.name} (i) {cfg.dtype}: {rel:.3e} > {limit}")
+    if not ctl_rel > limit:
+        fail(f"{cfg.name} (i) {cfg.dtype}: the check cannot see a lost "
+             f"context ({ctl_rel:.3e})")
+    return {"rel": rel, "control_rel": ctl_rel, "limit": limit}
+
+
+def profile_decode(torch, params, cfg, cache, tok, pos, n_steps=4):
+    """Device busy share of ``n_steps`` decode steps under torch.profiler:
+    kernels a step and their device time (the profiler lengthens the
+    window, so the share is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import serving
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            logits, cache = serving.decode_step(params, cfg, cache, tok, pos)
+            tok, pos = torch.argmax(logits, -1)[:, None], pos + 1
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, count = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+            count += e.count
+    busy = sum(kernels.values())
+    if busy <= 0:
+        log(f"[{cfg.name}-profile] the profiler reported no device time: "
+            f"busy share not measured")
+        return None
+    gemm = sum(v for k, v in kernels.items()
+               if any(g in k.lower() for g in GEMM_SYMBOLS))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    out = {"steps": n_steps, "wall_ms_per_step": wall_us / n_steps / 1e3,
+           "device_ms_per_step": busy / n_steps / 1e3,
+           "busy_share": busy / wall_us, "kernels_per_step": count / n_steps,
+           "gemm_share": gemm / busy,
+           "top": [[k[:96], v / n_steps / 1e3] for k, v in top]}
+    log(f"[{cfg.name}-profile] batch {tok.shape[0]}, {n_steps} decode steps "
+        f"under torch.profiler: {out['wall_ms_per_step']:.3f} ms a step on "
+        f"the host clock, kernels {out['device_ms_per_step']:.3f} ms a step "
+        f"(busy share {out['busy_share']:.3f}), "
+        f"{out['kernels_per_step']:.0f} kernels a step, matrix products' "
+        f"share {out['gemm_share']:.3f}; top kernels (ms a step): "
+        + ", ".join(f"{k[:48]} {v:.3f}" for k, v in out["top"]))
+    return out
+
+
+def served(torch, np, params, cfg, batch, plen, new, seed):
+    """launch.serve.generate (prefill, pad, greedy decode_steps) with every
+    count at 0: no kernel and no plain version may run; the tokens in the
+    vocabulary."""
+    from repro_torch.launch.serve import generate
+    tok, extra = family_inputs(torch, np, cfg, batch, plen, seed)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    run = generate(params, cfg, tok, new, extra=extra)
+    no_kernel_served(f"serve {cfg.name}")
+    ids = run["ids"]
+    if tuple(ids.shape) != (batch, new + 1) or not bool(
+            ((ids >= 0) & (ids < cfg.vocab)).all()):
+        fail(f"serve {cfg.name}: tokens {tuple(ids.shape)} outside the "
+             f"vocabulary")
+    run.update(tok=tok, extra=extra)
+    return run
+
+
+def phase_serve_family(torch, np, card, arch):
+    """One family through the static launcher's path on the card (bf16,
+    weights from seed 0): the workload of FAMILY_WORK with its timings and
+    a profiler window; zamba2's 4,096-token request in the trunk state's
+    bytes of a 64-token cache (check ii); whisper's cross cache bitwise
+    the prefill's after its decode steps (check iii); check (i) in bf16
+    at this depth and in fp32 at FAMILY_FP32_LAYERS."""
+    from repro_torch.models import lm, serving
+    free_card(torch)
+    cfg = family_cfg(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = tree_numel(params)
+    log(f"[{arch}] {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}: {n_par:,} weights "
+        f"({tree_bytes(params) / 1e9:.1f} GB) drawn on the card in "
+        f"{init_s:.2f} s (seed 0), peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    b, plen, new = FAMILY_WORK[arch]
+    run = served(torch, np, params, cfg, b, plen, new, 0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {"arch": arch, "layers": cfg.n_layers, "weights": n_par,
+           "init_s": init_s, "batch": b, "prompt": plen, "new": new,
+           "prefill_ms": run["prefill_s"] * 1e3,
+           "step_ms": run["decode_s"] / new * 1e3,
+           "tok_per_s": b * new / run["decode_s"], "peak_gib": peak}
+    vis = cfg.n_vis_tokens if cfg.family == "vlm" else 0
+    log(f"[{arch}] batch {b}, prompt {plen}" + (f" after {vis} patch "
+        f"positions" if vis else "") + f", {new} new tokens (greedy, static "
+        f"launcher path): prefill {out['prefill_ms']:.2f} ms, decode "
+        f"{out['step_ms']:.3f} ms a step (host wall over {new} steps), "
+        f"{out['tok_per_s']:.1f} tok/s, peak {peak:.2f} GiB; no kernel or "
+        f"plain version ran; {card}")
+    if cfg.family == "encdec":
+        # (iii): the prefill's cross K/V (the prefill repeated: cuBLAS is
+        # deterministic here, CUBLAS_WORKSPACE_CONFIG set) against the cache
+        # after the decode steps
+        with torch.no_grad():
+            _, fresh, _ = serving.prefill(params, cfg, run["tok"],
+                                          extra=run["extra"])
+        same = all(torch.equal(fresh["cross"][k], run["cache"]["cross"][k])
+                   for k in ("k", "v"))
+        moved = not torch.equal(fresh["self"]["k"],
+                                run["cache"]["self"]["k"][:, :, :plen])
+        log(f"[{arch}] (iii) the cross cache ({tuple(fresh['cross']['k'].shape)}"
+            f" x 2, {tree_bytes(fresh['cross']):,} bytes) after {new} decode "
+            f"steps bitwise the prefill's: {same}; the self cache's prompt "
+            f"positions too: {not moved}")
+        if not same or moved:
+            fail(f"{arch} (iii): decode changed the prefill's cache")
+        out["cross_unchanged"] = same
+        del fresh
+    cache = serving.pad_seq(run["cache"], 4)
+    out["profile"] = profile_decode(torch, params, cfg, cache,
+                                    run["ids"][:, -1:], run["pos"])
+    del cache, run
+    if cfg.family == "hybrid":
+        # (ii): the trunk state of the long request's cache is that of a
+        # 64-token cache, byte for byte
+        long = served(torch, np, params, cfg, 1, HYBRID_LONG, HYBRID_LONG_NEW,
+                      5)
+        trunk = {k: long["cache"][k] for k in serving.TRUNK_LEAVES}
+        want = serving.init_cache(cfg, 1, 64, torch.device("cuda"))
+        want = {k: want[k] for k in serving.TRUNK_LEAVES}
+        got_b, want_b = tree_bytes(trunk), tree_bytes(want)
+        shapes_same = all(trunk[k].shape == want[k].shape for k in want)
+        shared_b = tree_bytes(long["cache"]["shared"])
+        out.update(long_prefill_ms=long["prefill_s"] * 1e3,
+                   long_step_ms=long["decode_s"] / HYBRID_LONG_NEW * 1e3,
+                   trunk_bytes=got_b, shared_bytes_long=shared_b)
+        log(f"[{arch}] (ii) a {HYBRID_LONG}-token prompt, batch 1, "
+            f"{HYBRID_LONG_NEW} new tokens: prefill "
+            f"{out['long_prefill_ms']:.2f} ms, decode "
+            f"{out['long_step_ms']:.3f} ms a step; the trunk state "
+            f"{got_b:,} bytes (a 64-token cache's: {want_b:,}), the shared "
+            f"K/V {shared_b:,} bytes ({shared_b / (HYBRID_LONG + HYBRID_LONG_NEW):,.0f}"
+            f" a position)")
+        if got_b != want_b or not shapes_same:
+            fail(f"{arch} (ii): the trunk state grew with the context")
+        del long, trunk, want
+    out["check_i"] = family_teacher_check(torch, np, params, cfg,
+                                          FAMILY_LIMITS[arch][0])
+    del params
+    free_card(torch)
+    cfg32 = family_cfg(arch, dtype="float32",
+                       n_layers=FAMILY_FP32_LAYERS[arch])
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg32)
+    out["check_i_fp32"] = family_teacher_check(torch, np, params, cfg32,
+                                               FAMILY_LIMITS[arch][1])
+    del params
+    free_card(torch)
+    return out
+
+
+def phase_train_families(torch, np, card):
+    """zamba2-7b (15 layers), whisper-tiny (as published) and
+    internvl2-76b (2 layers) through run_training at (128, 8), AdamW at
+    FAMILY_TRAIN's base lr, deterministic, with the families' zero stub
+    inputs: zamba2 and whisper 20 steps beside the lr-0 control (the last 5 losses' mean below the
+    first 5's by SSM_LOSS_MARGIN, which the control must not reach),
+    internvl2 4 steps."""
+    out = {}
+    for arch, (layers, steps, control, lr) in FAMILY_TRAIN.items():
+        cfg = family_cfg(arch, **({"n_layers": layers} if layers else {}))
+        free_card(torch)
+        run = traced_run(torch, np, cfg, arch, steps, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, lr=lr)
+        n_weights = tree_numel(run["params"])
+        del run["params"], run["opt"]
+        free_card(torch)
+        res = {"layers": cfg.n_layers, "weights": n_weights, "steps": steps,
+               "lr": lr,
+               "loss_first": run["losses"][0],
+               "loss_last": run["losses"][-1],
+               "step_ms_host_median": statistics.median(
+                   run["step_s"][1:]) * 1e3,
+               "peak_gib": run["peak"], "wall_s": run["wall"]}
+        line = (f"[{arch}-train] {cfg.n_layers} layers ({n_weights:,} "
+                f"weights, {cfg.dtype}), AdamW, lr {lr}, {steps} steps at "
+                f"({TRAIN_SEQ}, {TRAIN_BATCH}): loss {res['loss_first']:.4f} "
+                f"-> {res['loss_last']:.4f}; step "
+                f"{res['step_ms_host_median']:.2f} ms (host span median "
+                f"after the first); peak {run['peak']:.2f} GiB")
+        if control:
+            ctrl = traced_run(torch, np, cfg, f"{arch}-control", steps,
+                              seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                              lr=0.0)
+            del ctrl["params"], ctrl["opt"]
+            free_card(torch)
+            w = SSM_LOSS_WINDOW
+            d = float(np.mean(run["losses"][:w]) - np.mean(run["losses"][-w:]))
+            dc = float(np.mean(ctrl["losses"][:w])
+                       - np.mean(ctrl["losses"][-w:]))
+            res.update(loss_drop=d, control_drop=dc, margin=SSM_LOSS_MARGIN)
+            line += (f"; mean of the first {w} losses minus the last: {d:.4f}"
+                     f" (margin {SSM_LOSS_MARGIN}), lr-0 control {dc:.4f}")
+            if ctrl["losses"][0] != run["losses"][0]:
+                fail(f"{arch}-train: the control's first loss is not the "
+                     f"run's")
+            if not d >= SSM_LOSS_MARGIN:
+                fail(f"{arch}-train: the loss fell {d:.4f}, under "
+                     f"{SSM_LOSS_MARGIN}")
+            if not dc < SSM_LOSS_MARGIN:
+                fail(f"{arch}-train: the lr-0 control fell {dc:.4f}")
+        log(line + f"; {card}")
+        out[arch] = res
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -4067,6 +4466,13 @@ def main():
     log("[ssm-json] " + json.dumps(phase_serve_ssm(torch, np, card)))
     free_card(torch)
     log("[ssm-train-json] " + json.dumps(phase_train_ssm(torch, np, card)))
+    free_card(torch)
+    for arch in (ARCH_HYBRID, ARCH_ENCDEC, ARCH_VLM):
+        log(f"[{arch}-json] " + json.dumps(phase_serve_family(torch, np, card,
+                                                              arch)))
+        free_card(torch)
+    log("[family-train-json] " + json.dumps(phase_train_families(torch, np,
+                                                                 card)))
     free_card(torch)
     leaked = sorted(k for k in sys.modules if k == "jax"
                     or k.startswith("jax.") or k == "repro"

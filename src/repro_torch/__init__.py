@@ -9,9 +9,12 @@ stack, the Barnes-Hut accelerations) where the reference rebuilt
 immutable arrays.  Ported so far: the scheduler core and the device
 engine (``core``, ``engine``), the tiled QR (``apps.qr``), the Barnes-Hut
 tree code (``apps.barneshut``), the pipeline (``pipeline``), the
-continuous-batching serving tier and the training stack for the dense,
-MoE and SSM model families (``serve``, ``models``, ``optim``,
-``trainer``, ``checkpoint``, ``launch``).
+model stack of every family the reference runs (dense, MoE, SSM,
+hybrid, enc-dec and VLM: ``models``), its training stack (``optim``,
+``trainer``, ``checkpoint``, ``launch``) and the continuous-batching
+serving tier for the dense, MoE and SSM families (``serve``; the hybrid,
+enc-dec and VLM families serve through the static launcher, as in the
+reference).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than quietly run on the CPU.  On a CPU

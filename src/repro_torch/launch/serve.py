@@ -1,22 +1,25 @@
-"""Serving entry points of the port (dense and MoE families, GQA or MLA,
-and the SSM family), on the card by default.
+"""Serving entry points of the port, on the card by default.
 
 Continuous batching (``--continuous``): the ``repro_torch.serve``
 service — a paged block pool, admission lowered as a QuickSched conflict
 round, and engine-backed batched decode with per-step join/leave; on the
 card its decode walks the pool with K10 (GQA) or K11 (MLA).  The SSM
 family (``--arch falcon-mamba-7b``) keeps one O(1) state slot a request
-and decodes on the ``gather`` path everywhere.
+and decodes on the ``gather`` path everywhere.  The hybrid, enc-dec and
+VLM families raise there, as in the reference.
 ``--new-tokens`` is the *maximum* budget; per-request budgets are drawn
 ragged so requests retire mid-stream.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --continuous --batch 4 --prompt-len 8 --new-tokens 32
 
-Static batch: prefill a batch of prompts, then decode against a
-contiguous cache until the slowest member finishes.
+Static batch (:func:`generate`): prefill a batch of prompts, then decode
+against a contiguous cache until the slowest member finishes.  Every
+family runs here; the VLM and enc-dec families get the reference's stub
+inputs, zero patch embeddings (``vis_embeds``) or zero encoder frames
+(``frames``) in ``cfg.dtype`` (``models.lm.stub_inputs``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --batch 4 --prompt-len 16 --new-tokens 32
 
 ``--device cpu`` runs the plain PyTorch path on the CPU (add
@@ -121,49 +124,68 @@ def _continuous_main(args) -> None:
         print(f"  rid={h.rid} n={len(h.generated)}:", h.generated[:16])
 
 
-def _static_main(args) -> None:
+def generate(params, cfg, tokens: torch.Tensor, new_tokens: int,
+             extra=None) -> dict:
+    """Static-batch greedy generation: ``serving.prefill`` of the prompts
+    ``tokens`` (B, S) (with ``extra``), the cache padded by
+    ``new_tokens`` positions (``serving.pad_seq``), then ``new_tokens``
+    ``serving.decode_step``s.  Returns ``ids`` (B, 1 + new_tokens) — the
+    prefill's token, then one a step — the final ``cache`` and ``pos``,
+    and the host seconds of the prefill and of the decode loop (each
+    ends synchronised with the device)."""
     from repro_torch.models import serving
-    from repro_torch.obs import get_tracer, write_chrome_trace
+    from repro_torch.obs import get_tracer
+
+    dev, tr = tokens.device, get_tracer()
+    b, s = tokens.shape
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        with tr.span("serve.prefill", batch=b, plen=s):
+            logits, cache, pos = serving.prefill(params, cfg, tokens,
+                                                 extra=extra)
+            _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        # pad the prompt-length cache out to the prompt plus new_tokens
+        cache = serving.pad_seq(cache, new_tokens)
+        tok = torch.argmax(logits, -1)[:, None]
+        out = [tok]
+        t0 = time.perf_counter()
+        with tr.span("serve.decode", batch=b, tokens=new_tokens):
+            for i in range(new_tokens):
+                with tr.span("serve.decode_step", step=i):
+                    logits, cache = serving.decode_step(params, cfg, cache,
+                                                        tok, pos)
+                    if tr.enabled:
+                        _sync(dev)
+                tok = torch.argmax(logits, -1)[:, None]
+                pos = pos + 1
+                out.append(tok)
+            _sync(dev)
+    return {"ids": torch.cat(out, dim=1), "cache": cache, "pos": pos,
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0}
+
+
+def _static_main(args) -> None:
+    from repro_torch.models import lm
+    from repro_torch.obs import write_chrome_trace
 
     dev, cfg, params = _setup(args)
-    max_seq = args.prompt_len + args.new_tokens
     rng = np.random.default_rng(args.seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
                                           (args.batch, args.prompt_len)),
                              device=dev)
-    tr = get_tracer()
-    t0 = time.perf_counter()
-    with tr.span("serve.prefill", batch=args.batch, plen=args.prompt_len):
-        logits, cache, pos = serving.prefill(params, cfg, tokens)
-        _sync(dev)
-    # pad the prompt-length cache out to max_seq
-    cache = serving.pad_seq(cache, args.new_tokens)
-    print(f"prefill {args.batch}×{args.prompt_len}: "
-          f"{time.perf_counter() - t0:.2f}s")
-    tok = torch.argmax(logits, -1)[:, None]
-    out = [tok]
-    t0 = time.perf_counter()
-    with tr.span("serve.decode", batch=args.batch, tokens=args.new_tokens):
-        for i in range(args.new_tokens):
-            with tr.span("serve.decode_step", step=i):
-                logits, cache = serving.decode_step(params, cfg, cache, tok,
-                                                    pos)
-                if tr.enabled:
-                    _sync(dev)
-            tok = torch.argmax(logits, -1)[:, None]
-            pos = pos + 1
-            out.append(tok)
-        _sync(dev)
-    dt = time.perf_counter() - t0
+    run = generate(params, cfg, tokens, args.new_tokens,
+                   extra=lm.stub_inputs(cfg, args.batch, dev))
+    print(f"prefill {args.batch}×{args.prompt_len}: {run['prefill_s']:.2f}s")
+    dt = run["decode_s"]
     print(f"decode {args.new_tokens} tokens × batch {args.batch}: "
           f"{dt:.2f}s ({args.new_tokens * args.batch / dt:.1f} tok/s)")
     if args.trace:
         info = write_chrome_trace(args.trace)
         print(f"trace: {args.trace} ({info['events']} events) — open in "
               f"https://ui.perfetto.dev")
-    ids = torch.cat(out, dim=1).cpu()
     print("greedy continuations (token ids):")
-    for row in ids[:4]:
+    for row in run["ids"][:4].cpu():
         print("  ", [int(t) for t in row[:16]])
 
 

@@ -4,7 +4,7 @@
 Port note: a copy of ``repro.models.config``.  ``repro_torch`` imports
 nothing of ``repro`` (not even its jax-free modules), so it keeps its own
 copy; ``tests/test_torch_serve.py`` holds every configuration equal to the
-reference's.  The dense, MoE and SSM families run in the port so far."""
+reference's.  Every family runs in the port."""
 
 
 from __future__ import annotations

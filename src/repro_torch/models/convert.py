@@ -2,9 +2,9 @@
 port's.
 
 ``params_from_reference(tree, cfg)`` takes the reference's parameter tree
-(``repro.models.lm.init_params`` for the dense and MoE families, GQA or
-MLA, and the SSM family, with every leaf turned into a numpy array by the
-caller) and returns
+(``repro.models.lm.init_params`` for every family: dense, MoE with GQA
+or MLA, SSM, hybrid, enc-dec and VLM, with every leaf turned into a
+numpy array by the caller) and returns
 the port's tree of tensors: the same nested keys, the same stacked
 ``(L, ...)`` layout, the same dtypes.  ``opt_state_from_reference`` does
 the same for the reference's ``OptState`` (AdamW's ``m``, ``v``;
@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.optim import OptState
 
-from .lm import check_family
+from .lm import check_family, n_sites, shared_cfg
 
 
 def _tensor(a: Any, device) -> torch.Tensor:
@@ -36,6 +36,11 @@ def _tensor(a: Any, device) -> torch.Tensor:
 def _convert(tree: Mapping, device) -> Dict:
     return {k: (_convert(v, device) if isinstance(v, Mapping)
                 else _tensor(v, device)) for k, v in tree.items()}
+
+
+def _prefixed(prefix: str, shapes: Dict[str, tuple],
+              lead: tuple = ()) -> Dict[str, tuple]:
+    return {f"{prefix}/{k}": lead + v for k, v in shapes.items()}
 
 
 def _attn_shapes(cfg) -> Dict[str, tuple]:
@@ -59,7 +64,7 @@ def _attn_shapes(cfg) -> Dict[str, tuple]:
 def _layer_shapes(cfg, moe: bool) -> Dict[str, tuple]:
     d, f = cfg.d_model, cfg.moe_d_ff
     shapes = {"attn_norm/scale": (d,), "mlp_norm/scale": (d,)}
-    shapes.update({f"attn/{k}": v for k, v in _attn_shapes(cfg).items()})
+    shapes.update(_prefixed("attn", _attn_shapes(cfg)))
     if not moe:
         ffn = {"mlp/w_gate": (d, cfg.d_ff), "mlp/w_up": (d, cfg.d_ff),
                "mlp/w_down": (cfg.d_ff, d)}
@@ -81,9 +86,28 @@ def _ssm_layer_shapes(cfg) -> Dict[str, tuple]:
              "conv_b": (di,), "x_proj": (di, dtr + 2 * n),
              "dt_proj": (dtr, di), "dt_bias": (di,), "a_log": (di, n),
              "d_skip": (di,), "out_proj": (di, d)}
-    shapes = {"norm/scale": (d,)}
-    shapes.update({f"mamba/{k}": v for k, v in mamba.items()})
-    return shapes
+    return {"norm/scale": (d,), **_prefixed("mamba", mamba)}
+
+
+def _hybrid_layer_shapes(cfg) -> Dict[str, tuple]:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    k = cfg.d_conv
+    mamba = {"in_z": (d, di), "in_x": (d, di), "in_b": (d, n),
+             "in_c": (d, n), "in_dt": (d, h), "conv_w_x": (di, k),
+             "conv_b_x": (di,), "conv_w_b": (n, k), "conv_b_b": (n,),
+             "conv_w_c": (n, k), "conv_b_c": (n,), "dt_bias": (h,),
+             "a_log": (h,), "d_skip": (h,), "norm/scale": (di,),
+             "out_proj": (di, d)}
+    return {"norm/scale": (d,), **_prefixed("mamba", mamba)}
+
+
+def _shared_block_shapes(cfg) -> Dict[str, tuple]:
+    scfg = shared_cfg(cfg)
+    d2 = scfg.d_model
+    return {"norm/scale": (d2,), "mlp_norm/scale": (d2,),
+            **_prefixed("attn", _attn_shapes(scfg)),
+            "mlp/w_gate": (d2, cfg.d_ff), "mlp/w_up": (d2, cfg.d_ff),
+            "mlp/w_down": (cfg.d_ff, d2)}
 
 
 def _expected_shapes(cfg) -> Dict[str, tuple]:
@@ -91,19 +115,32 @@ def _expected_shapes(cfg) -> Dict[str, tuple]:
     shapes = {"embed/tok": (cfg.vocab, d), "final_norm/scale": (d,)}
     if not cfg.tie_embeddings:
         shapes["embed/head"] = (d, cfg.vocab)
-    if cfg.family == "ssm":
-        shapes.update({f"layers/{k}": (cfg.n_layers,) + v
-                       for k, v in _ssm_layer_shapes(cfg).items()})
+    fam, L = cfg.family, cfg.n_layers
+    if fam == "ssm":
+        shapes.update(_prefixed("layers", _ssm_layer_shapes(cfg), (L,)))
         return shapes
-    if cfg.family == "dense":
-        stacks = (("layers", cfg.n_layers, False),)
+    if fam == "hybrid":
+        shapes.update(_prefixed("layers", _hybrid_layer_shapes(cfg), (L,)))
+        shapes.update(_prefixed("shared", _shared_block_shapes(cfg),
+                                (cfg.n_shared_blocks,)))
+        shapes["site_proj"] = (n_sites(cfg), 2 * d, d)
+        return shapes
+    if fam == "encdec":
+        layer = _layer_shapes(cfg, False)
+        cross = {"cross_norm/scale": (d,),
+                 **_prefixed("cross", _attn_shapes(cfg))}
+        shapes.update(_prefixed("enc_layers", layer, (cfg.enc_layers,)))
+        shapes.update(_prefixed("dec_layers", {**layer, **cross}, (L,)))
+        shapes["enc_norm/scale"] = (d,)
+        return shapes
+    if fam in ("dense", "vlm"):
+        stacks = (("layers", L, False),)
     else:
         nd = cfg.first_dense_layers
         stacks = ((("dense_layers", nd, False),) if nd else ()) + (
-            ("moe_layers", cfg.n_layers - nd, True),)
+            ("moe_layers", L - nd, True),)
     for key, n, moe in stacks:
-        shapes.update({f"{key}/{k}": (n,) + v
-                       for k, v in _layer_shapes(cfg, moe).items()})
+        shapes.update(_prefixed(key, _layer_shapes(cfg, moe), (n,)))
     return shapes
 
 

@@ -20,8 +20,10 @@ Changes from the reference:
 Scores and softmax are float32 whatever the storage type, as the
 reference's ``preferred_element_type=float32``; matrix products of bf16
 operands are bf16 (PyTorch accumulates them in float32).  The SSM, MLA,
-MoE layers are ``mla.py`` and ``moe.py``; the SSM and cross-attention
-layers belong to later slices.
+MoE layers are ``mla.py`` and ``moe.py``, the SSM layers ``ssm.py``.
+``cross_attention`` and ``sinusoidal_pos`` serve the enc-dec family
+(whisper): the decoder's attention on the encoder output, and the
+position embedding of the encoder frames and of the decoder tokens.
 """
 
 from __future__ import annotations
@@ -120,6 +122,28 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, offset: int = 0,
+                   device=None) -> torch.Tensor:
+    """(seq, d) float32: sin on the even columns, cos on the odd, at
+    positions ``offset .. offset + seq - 1``."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    return _sin_cos(pos, d)
+
+
+def _sin_cos(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """(N, 1) float32 positions → (N, d): sin(pos·div) on the even columns,
+    cos on the odd, ``div`` computed in float32 as the reference does."""
+    scale = torch.log(torch.tensor(10000.0, device=pos.device)) / d
+    div = torch.exp(-torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=pos.device) * scale)[None, :]
+    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32,
+                     device=pos.device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # --- GQA attention ------------------------------------------------------------
@@ -238,6 +262,33 @@ def attention_decode(p: Params, cfg, x: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", w, vf)
     return o.reshape(b, 1, -1) @ p["wo"], (ck, cv)
+
+
+def cross_kv(p: Params, cfg, kv_src: torch.Tensor):
+    """The cross-attention keys and values of ``kv_src`` (B,F,d): each
+    (B,F,Hkv,hd), no RoPE (the enc-dec cache's ``cross`` entries)."""
+    b, f, _ = kv_src.shape
+    k = (kv_src @ p["wk"]).reshape(b, f, cfg.n_kv_heads, cfg.hd)
+    v = (kv_src @ p["wv"]).reshape(b, f, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def cross_attend(p: Params, cfg, x: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """Cross attention of ``x`` (B,S,d) on precomputed keys and values
+    (B,F,Hkv,hd): no RoPE, no mask."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    o = sdpa_full(q, _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads),
+                  causal=False)
+    return o.reshape(b, s, -1) @ p["wo"]
+
+
+def cross_attention(p: Params, cfg, x: torch.Tensor,
+                    kv_src: torch.Tensor) -> torch.Tensor:
+    """Encoder-decoder cross attention (no RoPE, no mask): queries from
+    ``x`` (B,S,d), keys and values from ``kv_src`` (B,F,d)."""
+    return cross_attend(p, cfg, x, *cross_kv(p, cfg, kv_src))
 
 
 # --- SwiGLU MLP ------------------------------------------------------------------

@@ -14,6 +14,12 @@ Scan strategies, as the reference's:
   differs from jax's scan tree but stays within float32 tolerance;
 * Mamba2 SSD — the matrix ("attention-like") chunk form: intra-chunk by
   (Q x Q) decay-masked score products, inter-chunk by a carried state.
+  The decay exponentiates the causal log-decay differences only (the
+  others are set to -inf first): the reference masks after ``exp``, whose
+  non-causal entries overflow to inf once a chunk's decay passes e^88
+  (128 steps of dt ~ 0.8 do), and its backward then multiplies 0 by inf,
+  so its gradient at a full chunk is NaN.  The forward values are the
+  same.
 
 Both carry exact single-step ``*_decode`` updates for serving (O(1)
 state).  The decode functions return the new state; ``serving`` writes it
@@ -297,8 +303,12 @@ def mamba2_apply(p: Params, cfg, x: torch.Tensor, chunk: int = SSM_CHUNK,
         lac = torch.cumsum(la[:, sl], dim=1)               # (B,Q,H) inclusive
         # intra-chunk
         scores = torch.einsum("bin,bjn->bij", cc, bb)      # (B,Q,Q)
-        decay = torch.exp(lac[:, :, None] - lac[:, None, :, :])  # (B,Q,Q,H)
-        decay = torch.where(mask, decay, torch.zeros((), device=x.device))
+        # exp of the causal differences only (B,Q,Q,H): above the diagonal
+        # they are positive and pass float32's ~88 in a chunk of 128 steps
+        # of dt ~ 0.8, and the reference's where(mask, exp(d), 0) then
+        # back-propagates 0 * inf = NaN; the values are the same
+        diff = lac[:, :, None] - lac[:, None, :, :]
+        decay = torch.exp(diff.masked_fill(~mask, float("-inf")))
         y_intra = torch.einsum("bij,bijh,bjhp->bihp", scores, decay, xd)
         # inter-chunk (contribution of the carried state)
         y_inter = torch.einsum("bin,bih,bhpn->bihp", cc, torch.exp(lac), h)

@@ -9,8 +9,10 @@ service's robustness layer (deadlines, preemption with page
 reclamation, guarded decode with a degrade ladder — DESIGN.md
 §Robustness).
 
-Port note: the port of ``repro.serve`` for the dense and MoE families
-(GQA or MLA attention, paged) and the SSM family (unpaged, O(1) state).
+Port note: the port of ``repro.serve``.  As the reference's, the service
+takes the dense and MoE families (GQA or MLA attention, paged) and the
+SSM family (unpaged, O(1) state), and refuses the hybrid, enc-dec and VLM
+families, which serve through ``models.serving`` (the static launcher).
 """
 
 from .blockpool import AdmissionConflict, BlockPool, TT_PREFILL

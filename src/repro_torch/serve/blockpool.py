@@ -34,7 +34,8 @@ never masks a real conflict (property-tested in
 Port note: a copy of ``repro.serve.blockpool`` on the port's ``core``.
 The leaves are tensors on the pool's ``device`` (the service's), updated
 in place by prefill and decode; the dense and MoE families (GQA or MLA
-leaves) are paged so far.
+leaves) are paged, the SSM family's state slots are not (the service
+serves no other family, as the reference's).
 """
 
 from __future__ import annotations

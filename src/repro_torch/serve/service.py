@@ -1,7 +1,8 @@
 """Continuous-batching generate service on the device-resident scheduler.
 
-The port of ``repro/serve/service.py`` for the attention families (dense
-GQA, and MoE with GQA or MLA attention) and the SSM family.  A persistent
+The port of ``repro/serve/service.py``: as the reference's, it serves the
+attention families (dense GQA, and MoE with GQA or MLA attention) and the
+SSM family, and refuses the hybrid, enc-dec and VLM families.  A persistent
 service: an
 admission queue feeding a fixed set of batch slots, requests joining and
 leaving mid-stream.  The QuickSched machinery *is*
@@ -76,8 +77,10 @@ cache layout), and the SSM family as the reference serves it: its state is
 O(1) in the sequence, so nothing is paged (``paged`` is False, a "page"
 is one request's whole state slot, ``max_seq`` does not bound a request)
 and the decode path is ``gather`` on every device — no kernel exists for
-it, so K10/K11 never launch.  Other families raise a ``ValueError``
-naming the slice that brings them.
+it, so K10/K11 never launch.  The hybrid, enc-dec and VLM families raise
+a ``ValueError``, as in the reference (their per-request extra inputs and
+the trunk+shared cache split are not wired into the service); they serve
+through ``models.serving`` on the static path.
 """
 
 from __future__ import annotations
@@ -99,7 +102,6 @@ from repro_torch.core.graph import QSched
 from repro_torch.core.plan import BatchSpec, lower
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import serving as serving_mod
-from repro_torch.models.lm import FAMILIES, LATER_SLICES
 from repro_torch.obs import trace as _trace
 from repro_torch.obs.metrics import MetricsRegistry
 
@@ -109,7 +111,10 @@ from .faults import FaultPlan
 TT_DECODE = 1       # task type of the decode family
 ENG_DECODE = 1      # engine descriptor row etype for a decode item
 
-SUPPORTED_FAMILIES = FAMILIES      # dense, moe (GQA or MLA attention), ssm
+# the reference's service's families (its own tuple, not ``lm.FAMILIES``:
+# the hybrid, enc-dec and VLM families run through ``models.serving`` but
+# not through the service, in either package)
+SUPPORTED_FAMILIES = ("dense", "moe", "ssm")
 DECODE_PATHS = ("auto", "kernel", "bounded", "gather")
 # capability ladder, fastest first — the degrade walk moves right
 DECODE_LADDER = ("kernel", "bounded", "gather")
@@ -413,10 +418,11 @@ class GenerateService:
                  device: Any = None):
         if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(
-                f"GenerateService supports families {SUPPORTED_FAMILIES} "
-                f"in the port, not {cfg.family!r} ({cfg.name}): it comes "
-                f"with {LATER_SLICES.get(cfg.family, 'a later slice')} "
-                f"(ROADMAP.md)")
+                f"GenerateService supports families {SUPPORTED_FAMILIES}, "
+                f"not {cfg.family!r} ({cfg.name}): extra per-request inputs "
+                f"/ trunk+shared split not wired up yet, as in the "
+                f"reference; serve it with models.serving's prefill and "
+                f"decode_step (the static launcher)")
         if decode_path not in DECODE_PATHS:
             raise ValueError(
                 f"decode_path must be one of {DECODE_PATHS}, "

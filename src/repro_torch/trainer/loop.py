@@ -109,6 +109,8 @@ def run_training(cfg, workdir: str, steps: int, seq_len: int = 128,
                 raise InjectedFailure(f"injected failure at step {step}")
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in data.batch_at(step).items()}
+            # the reference's _extend_modality: zero stub inputs
+            batch.update(lm.stub_inputs(cfg, batch["tokens"].shape[0], dev))
             # the float() below syncs on the result, so the span covers
             # the step's device time too
             with _trace.span("train.step", step=step) as sp:

@@ -77,8 +77,13 @@ def make_train_step(cfg, optimizer: str = "auto", lr: float = 3e-4,
 
 
 def make_prefill_step(cfg):
+    """``prefill_step(params, batch)``: the batch's tokens and, as
+    ``extra``, every other entry (the modality inputs)."""
+
     def prefill_step(params, batch):
-        logits, cache, pos = serving.prefill(params, cfg, batch["tokens"])
+        extra = {k: v for k, v in batch.items() if k != "tokens"}
+        logits, cache, pos = serving.prefill(params, cfg, batch["tokens"],
+                                             extra=extra)
         return logits, cache, pos
 
     return prefill_step

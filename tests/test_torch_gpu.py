@@ -1093,9 +1093,11 @@ def _named(tree):
 
 def _one_step(cfg, params0, tokens, dev):
     from repro_torch.optim.tree import tree_map
+    from repro_torch.models import lm
     from repro_torch.trainer import steps
     params = tree_map(lambda t: t.to(dev, copy=True), params0)
     batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    batch.update(lm.stub_inputs(cfg, tokens.shape[0], dev))
     _, _, grads = steps.loss_and_grads(params, cfg, batch)
     step, init = steps.make_train_step(cfg, **TRAIN_KW)
     params, opt, metrics = step(params, init(params), batch)
@@ -1252,3 +1254,75 @@ def test_ssm_forward_and_decode_on_card_match_cpu(cuda):
     assert_allclose(d1.numpy(), d0.numpy(), **TOL)
     for k in c0:
         assert_allclose(c1[k].numpy(), c0[k].numpy(), **TOL)
+
+
+# --- the hybrid, enc-dec and VLM families on the card -------------------------
+
+FAMILY_ARCHS = ("zamba2-7b", "whisper-tiny", "internvl2-76b")
+
+
+def _family_inputs(cfg, b, s, seed):
+    """Tokens and the family's stub inputs (x 0.02), on the CPU."""
+    from repro_torch.models import lm
+    rng = np.random.default_rng(seed)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)))
+    return tok, {k: torch.tensor(rng.standard_normal(v.shape) * 0.02,
+                                 dtype=v.dtype)
+                 for k, v in lm.stub_inputs(cfg, b, "cpu").items()}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_and_decode_on_card_match_cpu(cuda, arch):
+    """``--reduced``, fp32: the forward logits, a prefill of S - 1 tokens
+    (every cache leaf) and one decode step on the card against the port on
+    the CPU (the reference's kernel-test tolerance: two float32 summation
+    orders); no kernel and no plain version of one runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.models import lm, serving
+    from repro_torch.optim.tree import flatten_with_path, tree_map
+    cfg = get_config(arch).reduced()
+    cpu = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    tok, extra = _family_inputs(cfg, 2, 40, 3)
+    pa_kernel.reset_counts()
+    outs = []
+    with torch.no_grad():
+        for p, dev in ((cpu, "cpu"), (card, cuda)):
+            t = tok.to(dev)
+            e = {k: v.to(dev) for k, v in extra.items()}
+            h, _ = lm.forward(p, cfg, t, extra=e)
+            logits = lm.logits_fn(p, cfg, h)
+            _, cache, pos = serving.prefill(p, cfg, t[:, :-1], extra=e)
+            cache = serving.pad_seq(cache, 2)
+            dec, _ = serving.decode_step(p, cfg, cache, t[:, -1:], pos)
+            outs.append((logits.cpu(), dec.cpu(),
+                         {k: v.cpu() for k, v in flatten_with_path(cache)}))
+    assert not any(pa_kernel.LAUNCHES.values())
+    assert not any(pa_kernel.PLAIN_CALLS.values())
+    (l0, d0, c0), (l1, d1, c1) = outs
+    assert_allclose(l1.numpy(), l0.numpy(), **TOL)
+    assert_allclose(d1.numpy(), d0.numpy(), **TOL)
+    assert_allclose(d1.numpy(), l1[:, -1].numpy(), atol=2e-4, rtol=1e-3)
+    assert set(c0) == set(c1)
+    for k in c0:
+        assert_allclose(c1[k].numpy(), c0[k].numpy(), err_msg=str(k), **TOL)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_on_card_matches_cpu(cuda, arch):
+    """One fp32 AdamW step with the family's zero stub inputs on the card
+    against the same step on the CPU: loss, grad norm and every gradient
+    leaf within the reference's kernel-test tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import lm
+    cfg = get_config(arch).reduced()
+    params0 = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = SyntheticTokens(cfg.vocab, 32, 2, seed=0).batch_at(0)["tokens"]
+    got = _one_step(cfg, params0, tokens, cuda)
+    want = _one_step(cfg, params0, tokens, torch.device("cpu"))
+    assert_allclose(got[0], want[0], **TOL)
+    assert_allclose(got[1], want[1], **TOL)
+    for name, g in want[2].items():
+        assert_allclose(got[2][name].numpy(), g.numpy(), err_msg=name, **TOL)

@@ -213,8 +213,9 @@ def test_auto_path_and_unsupported_family(model):
     assert _service(tp, tcfg).decode_path == "bounded"   # no card here
     with pytest.raises(ValueError, match="decode_path"):
         _service(tp, tcfg, decode_path="warp")
-    for arch, later in (("whisper-tiny", "enc-dec"),):
-        with pytest.raises(ValueError, match=later):
+    # as the reference's service, whatever families lm runs
+    for arch in ("zamba2-7b", "whisper-tiny", "internvl2-76b"):
+        with pytest.raises(ValueError, match="not wired up"):
             tserve.GenerateService(tp, tconfigs.get_config(arch).reduced(),
                                    device="cpu")
 
@@ -543,6 +544,11 @@ def test_launcher_runs_on_the_cpu_when_asked(mode, capsys):
     assert "greedy continuations" in out
     if mode:
         assert "terminal states: {'done': 6}" in out
-    with pytest.raises(ValueError, match="enc-dec"):
-        launch_serve.main(["--arch", "whisper-tiny", "--reduced",
-                           "--device", "cpu"] + mode)
+    whisper = ["--arch", "whisper-tiny", "--reduced", "--device", "cpu",
+               "--batch", "2", "--prompt-len", "4", "--new-tokens", "4"]
+    if mode:        # the service refuses the family, as the reference's
+        with pytest.raises(ValueError, match="not wired up"):
+            launch_serve.main(whisper + mode)
+    else:
+        launch_serve.main(whisper)
+        assert "decode 4 tokens × batch 2" in capsys.readouterr().out

@@ -22,8 +22,10 @@ loss, train step, restartable loop and launcher.
   tolerance, the moments everywhere and the parameters where |g| exceeds
   the gradient tolerance;
 * per-layer remat on and off bitwise equal, remat running each block
-  twice; the families not ported yet (hybrid, enc-dec, VLM) raise naming
-  their slice (the SSM family's training is ``tests/test_torch_ssm.py``); the launcher runs
+  twice; a family the reference does not know raises naming the families
+  (the SSM family's training is ``tests/test_torch_ssm.py``, the hybrid,
+  enc-dec and VLM families' ``tests/test_torch_hybrid.py``,
+  ``test_torch_encdec.py`` and ``test_torch_vlm.py``); the launcher runs
   on the CPU and, without ``--device cpu`` and without a card, raises.
 
 Reference calls are jitted once per configuration (four compiles).
@@ -465,11 +467,17 @@ def test_deterministic_mode_needs_cublas_config(monkeypatch):
 @pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-tiny",
                                   "internvl2-76b"])
 def test_other_families_raise_naming_their_slice(arch, tmp_path):
+    """These families came with their slice (their tests are
+    ``tests/test_torch_hybrid.py``, ``test_torch_encdec.py`` and
+    ``test_torch_vlm.py``); a family the reference does not know still
+    raises, naming the families there are."""
     cfg = tconfigs.get_config(arch).reduced()
-    with pytest.raises(ValueError, match="model slice"):
-        tlm.loss_fn({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    with pytest.raises(ValueError, match="model slice"):
-        tloop.run_training(cfg, str(tmp_path), 1, device="cpu")
+    assert cfg.family in tlm.FAMILIES
+    bad = dataclasses.replace(cfg, family=cfg.family + "2")
+    with pytest.raises(ValueError, match="unknown family"):
+        tlm.loss_fn({}, bad, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    with pytest.raises(ValueError, match="unknown family"):
+        tloop.run_training(bad, str(tmp_path), 1, device="cpu")
 
 
 def test_run_training_defaults_to_cuda_and_raises_without_card(tmp_path):
