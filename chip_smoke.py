@@ -26,7 +26,11 @@ enc-dec and VLM families through ``repro_torch.models.serving``'s prefill
 and decode_step as the static launcher drives them
 (``repro_torch.launch.serve.generate``): zamba2-7b and whisper-tiny as
 published, internvl2-76b at full width cut to 24 layers, each trained
-through run_training (zamba2 at 15 layers, internvl2 at 2).
+through run_training (zamba2 at 15 layers, internvl2 at 2); and the
+distributed layer: qwen3-1.7b's train step on DTensors over NCCL (world
+size 1), the int8 compressed psum, the ring matmuls, the resharding
+restore and the dry run (repro_torch.launch.dryrun) against the card and
+at production size.
 Phases, each fatal when it fails:
 
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
@@ -242,7 +246,42 @@ Phases, each fatal when it fails:
     zamba2-7b at 15 layers and whisper-tiny, 20 steps each beside the lr-0
     control (the last 5 losses' mean below the first 5's by
     SSM_LOSS_MARGIN, the control not), internvl2-76b at 2 layers, 4
-    steps; step time and peak memory; no kernel on any of these paths.
+    steps; step time and peak memory; no kernel on any of these paths;
+33. the distributed layer (``repro_torch.dist``) on the card: NCCL opened
+    at world size 1 over an in-process store (a failure to open it is
+    fatal; nothing falls back to the CPU), a 1x1 DeviceMesh on cuda.
+    (a) qwen3-1.7b as published (bf16, 28 layers, seed 0): its
+    parameters, AdamW moments and the (128, 8) batch placed with
+    param/opt/batch_pspecs -> shardings_for, one train step through
+    trainer/steps.py bitwise equal to the same step on plain tensors
+    (loss, every gradient, parameter and moment: deterministic cuBLAS,
+    one rank), and again inside activation_sharding("data", "model"); no
+    kernel and no plain version launched.  (b) compressed_psum over the
+    NCCL group on that step's gradients: every leaf within scale/2 (plus
+    PSUM_SUM_ULPS of its max, the product q·scale's rounding) of g + ef,
+    out + ef' equal to g + ef within PSUM_SUM_ULPS of the leaf's max
+    (two roundings of half an ulp); the wire bytes (int8 plus a scale a
+    leaf) beside fp32's, its time (CUDA events), peak memory; then
+    tests/test_dist.py's 200-step accumulation at the largest leaf's
+    shape within PSUM_ACC_TOL (the reference's limit) of the true sum,
+    and its control, the residual not carried, which must fail that
+    limit.  (c) allgather_matmul and reducescatter_matmul at axis size 1
+    at qwen3's MLP shape (1,024 x 2,048 · 2,048 x 6,144, bf16) bitwise
+    x @ w, timed beside it.  (d) a 2-layer {params, opt} checkpoint saved
+    as the training loop saves it, restored with shardings onto DTensors
+    on the card, every leaf bit for bit with its placements.  (e) the
+    dry run of (a)'s step on the 1x1 mesh (fake group, meta shards): its
+    argument bytes exactly (a)'s params, moments and batch, its FLOPs
+    exactly the card's step under the same counter (launch.dryrun.
+    StepCounter; torch's FlopCounterMode printed beside), no collective;
+    the dry run reports no peak (meta tensors have no allocator);
+34. the dry run at production size on this machine: qwen3-1.7b train_4k
+    on the single-pod mesh (a fake world of 256) and deepseek-v3-671b
+    decode_32k on the multi-pod mesh (512), through launch.dryrun.
+    run_cell: each cell's wall time, per-device bytes, FLOPs and
+    collective counts (predictions over the reference's mesh shapes, not
+    times of the card); a cell that errors, or counts no FLOPs or no
+    collective, fails.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -4399,6 +4438,386 @@ def phase_train_families(torch, np, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 33-34: the distributed layer on the card, the dry run
+# ---------------------------------------------------------------------------
+
+MLP_SHAPE = (1024, 2048, 6144)   # qwen3's MLP product: (m, d) · (d, d_ff)
+PSUM_STEPS = 200   # tests/test_dist.py's error-feedback accumulation
+PSUM_ACC_TOL = 1e-4   # its limit on |acc + ef - sum g| (the reference's)
+PSUM_SUM_ULPS = 2.0 ** -23   # out + ef' vs g + ef, per leaf, times the
+#                   leaf's max |g + ef|: ef' = c - deq and the sum deq + ef'
+#                   each round once, half an ulp of a value <= max|c| each
+DRYRUN_DIR = ROOT / "build" / "dryrun"   # the dry run's records (ignored)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi"))
+
+
+def dist_steps(torch, np, cfg, dev):
+    """Check (a): one train step of ``cfg`` at (TRAIN_SEQ, TRAIN_BATCH) on
+    plain tensors and on DTensors over the 1x1 NCCL mesh, without and
+    with activation sharding, loss, gradients, parameters and moments
+    bitwise equal; the plain step's FLOPs under the dry run's counter."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist.act_sharding import activation_sharding
+    from repro_torch.dist.sharding import (batch_pspecs, opt_pspecs,
+                                           param_pspecs, place, shardings_for)
+    from repro_torch.launch.dryrun import StepCounter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.tree import leaves, tree_map
+    from repro_torch.trainer.loop import deterministic
+    from repro_torch.trainer.steps import loss_and_grads, make_train_step
+    mesh = make_host_mesh(1, 1, device_type=dev.type)
+    data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(0).items()}
+    out = {}
+    with deterministic(dev):
+        params0 = lm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg)
+        step, _ = make_train_step(cfg, optimizer="adamw")
+        pspecs = param_pspecs(params0, mesh)
+        o_meta = adamw_init(lm.param_shapes(cfg))
+        o_shard = shardings_for(opt_pspecs(pspecs, o_meta, mesh), mesh)
+        reset_all_counts()
+        t0 = time.perf_counter()
+        p_plain = tree_map(torch.clone, params0)
+        o_plain = adamw_init(p_plain)
+        out["arg_bytes"] = sum(t.numel() * t.element_size()
+                               for t in leaves((p_plain, o_plain, batch)))
+        loss0, _, g_plain = loss_and_grads(p_plain, cfg, batch)
+        with StepCounter() as counter:      # counts; computes nothing else
+            p_plain, o_plain, m_plain = step(p_plain, o_plain, batch)
+        torch.cuda.synchronize()
+        out["plain_s"] = time.perf_counter() - t0
+        out["flops"] = counter.flops
+        # the plain step's results wait in host memory (24 GB), so the card
+        # holds one step's state at a time
+        host = lambda ts: [t.to("cpu", copy=True) for t in ts]  # noqa: E731
+        want = {"loss": host([loss0]), "step loss": host([m_plain["loss"]]),
+                "gradient": host(leaves(g_plain)),
+                "parameter": host(leaves(p_plain)),
+                "moment": host(leaves(o_plain))}
+        # torch's own counter on one more step, beside ours (it decomposes
+        # some operators, so it runs apart from the steps compared)
+        with FlopCounterMode(display=False) as fc:
+            step(p_plain, o_plain, batch)
+        out["torch_flops"] = fc.get_total_flops()
+        del p_plain, o_plain, g_plain, m_plain
+        for act in (False, True):
+            t0 = time.perf_counter()
+            # leaf by leaf, so no second copy of a tree is ever whole
+            p_d = tree_map(lambda t, s: s.place(t.clone()), params0,
+                           shardings_for(pspecs, mesh))
+            o_d = tree_map(lambda t, s: s.place(torch.zeros(
+                t.shape, dtype=t.dtype, device=dev)), o_meta, o_shard)
+            b_d = place(batch, shardings_for(batch_pspecs(batch, mesh), mesh))
+            ctx = (activation_sharding("data", "model") if act
+                   else contextlib.nullcontext())
+            with ctx:
+                with implicit_replication():
+                    loss_d, _, g_d = loss_and_grads(p_d, cfg, b_d)
+                p_d, o_d, m_d = step(p_d, o_d, b_d)
+            torch.cuda.synchronize()
+            what = f"dist (a){' act' if act else ''}"
+            if not all(isinstance(t, DTensor) and t.device == dev
+                       for t in leaves((p_d, o_d, g_d))):
+                fail(f"{what}: a leaf is not a DTensor on the card")
+            got = {"loss": [loss_d], "step loss": [m_d["loss"]],
+                   "gradient": leaves(g_d), "parameter": leaves(p_d),
+                   "moment": leaves(o_d)}
+            for name, ws in want.items():
+                bad = sum(not torch.equal(w, g.full_tensor().cpu())
+                          for w, g in zip(ws, got[name], strict=True))
+                if bad:
+                    fail(f"{what}: {bad} of {len(ws)} {name} leaves differ "
+                         f"from the plain step's")
+            out["act_s" if act else "dtensor_s"] = time.perf_counter() - t0
+            del p_d, o_d, g_d, b_d, loss_d, m_d, got
+    no_kernel_ran("dist (a)")
+    out["loss"] = float(want["loss"][0])
+    out["n_grads"] = len(want["gradient"])
+    del params0
+    return out, want["gradient"]
+
+
+def dist_psum(torch, np, dev, grads):
+    """Check (b): compressed_psum over the NCCL group on the step's
+    gradients, each leaf within scale/2 of g + ef and out + ef' equal to
+    g + ef within PSUM_SUM_ULPS; the 200-step accumulation at the largest
+    leaf's shape within PSUM_ACC_TOL, and its control (the residual not
+    carried) past it."""
+    import torch.distributed as dist
+    from repro_torch.dist.compression import (compressed_psum,
+                                              init_error_feedback)
+    from repro_torch.optim.tree import leaves
+    grads = [g.to(dev) for g in grads]
+    ef = init_error_feedback(grads)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    summed, ef2 = compressed_psum(grads, ef, group=dist.group.WORLD)
+    e1.record()
+    torch.cuda.synchronize()
+    out = {"psum_ms": e0.elapsed_time(e1),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    worst_q = worst_sum = 0.0
+    for g, e, s, r in zip(leaves(grads), leaves(ef), leaves(summed),
+                          leaves(ef2)):
+        c = g.float() + e
+        cmax = float(c.abs().max())
+        scale = cmax / 127.0 if cmax > 0 else 1.0
+        q_err = float((s - c).abs().max())
+        sum_err = float((s + r - c).abs().max())
+        if q_err > scale / 2 + cmax * PSUM_SUM_ULPS:
+            fail(f"dist (b): a leaf's error {q_err} passes scale/2 "
+                 f"{scale / 2}")
+        if sum_err > cmax * PSUM_SUM_ULPS:
+            fail(f"dist (b): out + ef' is {sum_err} from g + ef, past "
+                 f"{cmax * PSUM_SUM_ULPS}")
+        worst_q = max(worst_q, q_err / scale)
+        worst_sum = max(worst_sum, sum_err / cmax if cmax else 0.0)
+    out["worst_err_over_scale"], out["worst_sum_rel"] = worst_q, worst_sum
+    n = sum(g.numel() for g in leaves(grads))
+    out["wire_bytes"] = n + 4 * len(leaves(grads))   # int8 + one fp32 each
+    out["fp32_bytes"] = 4 * n
+    out["residual_gb"] = sum(r.numel() * 4 for r in leaves(ef2)) / 1e9
+    shape = max((g.shape for g in leaves(grads)), key=lambda s: s.numel())
+    out["control_shape"] = list(shape)
+    del summed, ef2, ef
+    for carried in (True, False):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        acc = torch.zeros(shape, device=dev)
+        true = torch.zeros(shape, device=dev, dtype=torch.float64)
+        res = {"g": torch.zeros(shape, device=dev)}
+        for _ in range(PSUM_STEPS):
+            g = torch.randn(shape, generator=gen, device=dev) * 0.01
+            o, r = compressed_psum({"g": g}, res)
+            acc += o["g"]
+            true += g.double()
+            res = r if carried else {"g": torch.zeros(shape, device=dev)}
+        err = float((acc.double() + res["g"].double() - true).abs().max())
+        out["acc_err_carried" if carried else "acc_err_control"] = err
+        del acc, true, res, g, o, r
+    if not out["acc_err_carried"] <= PSUM_ACC_TOL:
+        fail(f"dist (b): {PSUM_STEPS} steps with the residual carried end "
+             f"{out['acc_err_carried']} from the true sum, past "
+             f"{PSUM_ACC_TOL}")
+    if not out["acc_err_control"] > PSUM_ACC_TOL:
+        fail(f"dist (b): the control (residual dropped) ends "
+             f"{out['acc_err_control']} from the true sum, inside "
+             f"{PSUM_ACC_TOL}: the limit does not tell the carry")
+    return out
+
+
+def dist_rings(torch, dev):
+    """Check (c): both ring matmuls at axis size 1 at qwen3's MLP shape,
+    bitwise equal to x @ w, with their times beside x @ w's."""
+    import torch.distributed as dist
+    from repro_torch.dist.collective import (allgather_matmul,
+                                             reducescatter_matmul)
+    m, k, n = MLP_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(
+        torch.bfloat16)
+    group = dist.group.WORLD
+    fns = {"x @ w": lambda: x @ w,
+           "allgather_matmul": lambda: allgather_matmul(x, w, group, 1),
+           "reducescatter_matmul": lambda: reducescatter_matmul(x, w, group,
+                                                                1)}
+    want = fns["x @ w"]()
+    out = {}
+    for name, fn in fns.items():
+        if not torch.equal(fn(), want):
+            fail(f"dist (c): {name} at axis size 1 is not x @ w bitwise")
+        out[f"{name}_ms"] = events_ms(torch, fn, 20)
+    return out
+
+
+def dist_restore(torch, np, dev):
+    """Check (d): a 2-layer {params, opt} checkpoint saved as the training
+    loop saves it, restored with shardings onto DTensors over the card's
+    1x1 mesh, every leaf bit for bit."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.dist.sharding import (opt_pspecs, param_pspecs,
+                                           shardings_for)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.tree import leaves
+    from repro_torch.trainer.loop import deterministic
+    from repro_torch.trainer.steps import make_train_step
+    cfg = train_cfg(torch, n_layers=DRILL_LAYERS)
+    mesh = make_host_mesh(1, 1, device_type=dev.type)
+    data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(0).items()}
+    with deterministic(dev):
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg)
+        opt = adamw_init(params)
+        step, _ = make_train_step(cfg, optimizer="adamw")
+        params, opt, _ = step(params, opt, batch)   # moments not zero
+    tree = {"params": params, "opt": opt}
+    ckpt = TRAIN_DIR / "dist_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt))
+    t0 = time.perf_counter()
+    mgr.save(1, tree)
+    save_s = time.perf_counter() - t0
+    ps = param_pspecs(params, mesh)
+    shardings = shardings_for({"params": ps,
+                               "opt": opt_pspecs(ps, opt, mesh)}, mesh)
+    t0 = time.perf_counter()
+    back = mgr.restore(1, tree, shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt)
+    got, want = leaves(back), leaves(tree)
+    wrong = [i for i, (a, b, s) in enumerate(zip(got, want,
+                                                 leaves(shardings)))
+             if a.device.type != dev.type or tuple(a.placements) != s.placements
+             or a.dtype != b.dtype or not torch.equal(a.full_tensor(), b)]
+    if wrong or len(got) != len(want):
+        fail(f"dist (d): {len(wrong)} of {len(want)} leaves not restored bit "
+             f"for bit with their placements")
+    n_bytes = sum(t.numel() * t.element_size() for t in want)
+    del back, tree, params, opt
+    return {"layers": DRILL_LAYERS, "leaves": len(want),
+            "ckpt_gb": n_bytes / 1e9, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def phase_dist(torch, np, card):
+    """Phase 33: the distributed layer on the card.  NCCL at world size 1
+    over an in-process store, a 1x1 DeviceMesh on cuda; checks (a)-(d) as
+    the docstring lists them, then (e): the dry run of the same step at
+    (TRAIN_SEQ, TRAIN_BATCH) on the 1x1 mesh against what the card held
+    and counted."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_host_mesh
+    free_card(torch)
+    dev = torch.device("cuda", 0)
+    cfg = train_cfg(torch)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        out = {"nccl_init_s": time.perf_counter() - t0,
+               "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+        out["steps"], grads = dist_steps(torch, np, cfg, dev)
+        free_card(torch)
+        out["psum"] = dist_psum(torch, np, dev, grads)
+        del grads
+        free_card(torch)
+        out["rings"] = dist_rings(torch, dev)
+        out["restore"] = dist_restore(torch, np, dev)
+        free_card(torch)
+    finally:
+        dist.destroy_process_group()
+    # (e) the dry run of the step of (a) on the 1x1 mesh
+    t0 = time.perf_counter()
+    with dr.fake_world(1):
+        mesh = make_host_mesh(1, 1, device_type=dr.mesh_device_type())
+        fn, args, _ = dr.build_cell(
+            cfg, dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      kind="train"), mesh, False)
+        rec = dr.analyse_step(fn, args)
+        del fn, args
+    out["dryrun_s"] = time.perf_counter() - t0
+    steps = out["steps"]
+    if rec["memory"]["argument_bytes"] != steps["arg_bytes"]:
+        fail(f"dist (e): the dry run's argument bytes "
+             f"{rec['memory']['argument_bytes']} are not the card's "
+             f"{steps['arg_bytes']} (params, moments, batch)")
+    if rec["flops_per_device"] != steps["flops"]:
+        fail(f"dist (e): the dry run counts {rec['flops_per_device']} FLOPs, "
+             f"the card's step {steps['flops']} under the same counter")
+    if rec["collective_operand_bytes_per_device"] != 0:
+        fail("dist (e): collectives on a 1x1 mesh")
+    out["dryrun"] = {"argument_bytes": rec["memory"]["argument_bytes"],
+                     "flops": rec["flops_per_device"]}
+    ps, rg, rs = out["psum"], out["rings"], out["restore"]
+    log(f"[dist] {card}: NCCL {out['nccl']} at world size 1 "
+        f"({out['nccl_init_s']:.2f} s to open), 1x1 mesh on cuda")
+    log(f"[dist (a)] {ARCH_TRAIN} at full width ({steps['n_grads']} leaves): "
+        f"one train step at ({TRAIN_SEQ}, {TRAIN_BATCH}) on DTensors "
+        f"(placed by param/opt/batch_pspecs) bitwise the plain step's — "
+        f"loss {steps['loss']:.6f}, every gradient, parameter and moment — "
+        f"and so inside activation_sharding('data', 'model'); no kernel and "
+        f"no plain version ran; host s plain {steps['plain_s']:.2f}, "
+        f"DTensor {steps['dtensor_s']:.2f}, with constraints "
+        f"{steps['act_s']:.2f}")
+    log(f"[dist (b)] compressed_psum over the NCCL group on those "
+        f"gradients: worst error {ps['worst_err_over_scale']:.4f} x scale "
+        f"(limit 0.5 plus one rounding), out + ef' vs g + ef {ps['worst_sum_rel']:.3e} x max "
+        f"(limit {PSUM_SUM_ULPS:.3e}); wire {ps['wire_bytes'] / 1e9:.3f} GB "
+        f"(int8 + scales) vs fp32 {ps['fp32_bytes'] / 1e9:.3f} GB; "
+        f"{ps['psum_ms']:.1f} ms (CUDA events), peak "
+        f"{ps['peak_gib']:.1f} GiB, residuals {ps['residual_gb']:.2f} GB; "
+        f"{PSUM_STEPS} steps at {ps['control_shape']}: carried "
+        f"{ps['acc_err_carried']:.3e}, control (dropped) "
+        f"{ps['acc_err_control']:.3e} (limit {PSUM_ACC_TOL})")
+    log(f"[dist (c)] ring matmuls at axis size 1, {MLP_SHAPE} bf16: bitwise "
+        f"x @ w; ms x @ w {rg['x @ w_ms']:.3f}, allgather "
+        f"{rg['allgather_matmul_ms']:.3f}, reducescatter "
+        f"{rg['reducescatter_matmul_ms']:.3f}")
+    log(f"[dist (d)] {rs['leaves']} leaves ({rs['ckpt_gb']:.2f} GB, "
+        f"{rs['layers']} layers) restored with shardings onto the card bit "
+        f"for bit; save {rs['save_s']:.2f} s, restore {rs['restore_s']:.2f} s")
+    log(f"[dist (e)] dry run of that step on the 1x1 mesh "
+        f"({out['dryrun_s']:.1f} s): argument bytes "
+        f"{rec['memory']['argument_bytes']:,} = the card's; FLOPs "
+        f"{rec['flops_per_device']:.6e} = the card's step under the same "
+        f"counter (torch's FlopCounterMode: {steps['torch_flops']:.6e}); "
+        f"the record leaves the peak out (meta tensors have no allocator)")
+    return out
+
+
+def phase_dryrun(torch, np, card):
+    """Phase 34: two cells of the dry run at production size on this
+    machine (fake process groups of 256 and 512, meta shards): each
+    cell's wall time, per-device bytes, FLOPs and collective counts.
+    Predictions over the reference's mesh shapes, not times of the card."""
+    from repro_torch.launch import dryrun as dr
+    out = {}
+    for arch, shape, mesh_kind in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dr.run_cell(arch, shape, mesh_kind, str(DRYRUN_DIR),
+                          extrapolate=False)
+        wall = time.perf_counter() - t0
+        if rec["status"] != "ok":
+            fail(f"dryrun {mesh_kind}/{arch}/{shape}: {rec.get('error')}")
+        full = rec["full"]
+        colls = {k: v["count"] for k, v in full["collectives"].items()
+                 if v["count"]}
+        if not full["flops_per_device"] > 0 or not colls:
+            fail(f"dryrun {arch}/{shape}: no FLOPs or no collectives")
+        out[f"{mesh_kind}/{arch}/{shape}"] = {
+            "wall_s": wall, "flops_per_device": full["flops_per_device"],
+            "memory": full["memory"], "collectives": colls,
+            "collective_operand_bytes_per_device":
+                full["collective_operand_bytes_per_device"]}
+        log(f"[dryrun] {mesh_kind}/{arch}/{shape} on {rec['chips']} fake "
+            f"ranks in {wall:.1f} s: per device {full['flops_per_device']:.4e}"
+            f" FLOPs, arguments {full['memory']['argument_bytes'] / 2**30:.3f}"
+            f" GiB, outputs {full['memory']['output_bytes'] / 2**30:.3f} GiB,"
+            f" collectives {colls} moving "
+            f"{full['collective_operand_bytes_per_device'] / 2**30:.3f} GiB "
+            f"of operands (predictions, not the card's)")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -4474,6 +4893,9 @@ def main():
     log("[family-train-json] " + json.dumps(phase_train_families(torch, np,
                                                                  card)))
     free_card(torch)
+    log("[dist-json] " + json.dumps(phase_dist(torch, np, card)))
+    free_card(torch)
+    log("[dryrun-json] " + json.dumps(phase_dryrun(torch, np, card)))
     leaked = sorted(k for k in sys.modules if k == "jax"
                     or k.startswith("jax.") or k == "repro"
                     or k.startswith("repro."))

@@ -21,9 +21,11 @@ manifest dtype ``"bfloat16"``), and read back bit for bit.
 
 Changes from the reference: the host copy is always a copy (the train
 step updates its tensors in place, so a snapshot that shared their memory
-would change under an async write); restore places each leaf on the
-device and in the dtype of the ``like`` leaf.  The resharding restore
-(``shardings``) waits for the distributed layer (ROADMAP Queue 1).
+would change under an async write); a DTensor leaf is saved as its global
+value (``full_tensor``); restore places each leaf on the device and in
+the dtype of the ``like`` leaf or, given ``shardings``
+(``dist.sharding.shardings_for``), as a DTensor with that leaf's
+placements over its mesh — RESHARDING: whatever mesh saved it.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.optim.tree import flatten_with_path, unflatten_like
+from torch.distributed.tensor import DTensor
+
+from repro_torch.optim.tree import flatten_with_path, leaves, unflatten_like
 
 Pytree = Any
 BF16_DESCR = "<V2"     # what np.save writes for an ml_dtypes bfloat16 array
@@ -54,6 +58,8 @@ def _flatten_with_names(tree: Pytree):
 
 def _host(leaf) -> Tuple[np.ndarray, str]:
     """A host copy of ``leaf`` as numpy, with its manifest dtype name."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -128,15 +134,23 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like: Pytree) -> Pytree:
-    """Restore into the structure of ``like``: each leaf a tensor on the
-    device and in the dtype of its ``like`` leaf."""
+def restore_checkpoint(ckpt_dir: str, step: int, like: Pytree,
+                       shardings: Optional[Pytree] = None) -> Pytree:
+    """Restore into the structure of ``like``: each leaf a tensor in the
+    dtype of its ``like`` leaf, on that leaf's device or, if ``shardings``
+    is given, placed with its ``Sharding`` (RESHARDING: the saved mesh is
+    irrelevant — elastic restarts on a different topology just work)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_name = {e["name"]: e for e in manifest["leaves"]}
+    named = _flatten_with_names(like)
+    shards = (leaves(shardings) if shardings is not None
+              else [None] * len(named))
+    if len(shards) != len(named):
+        raise ValueError("shardings and like differ in structure")
     out = []
-    for name, leaf in _flatten_with_names(like):
+    for (name, leaf), shd in zip(named, shards):
         entry = by_name.get(name)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {name!r}")
@@ -145,7 +159,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Pytree) -> Pytree:
             raise ValueError(
                 f"shape mismatch for {name}: ckpt {tuple(t.shape)} vs "
                 f"{tuple(leaf.shape)}")
-        out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+        if shd is None:
+            out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+        else:
+            out.append(shd.place(t.to(dtype=leaf.dtype)))
     return unflatten_like(like, out)
 
 
@@ -196,5 +213,6 @@ class CheckpointManager:
     def latest(self) -> Optional[int]:
         return latest_step(self.dir)
 
-    def restore(self, step: int, like: Pytree) -> Pytree:
-        return restore_checkpoint(self.dir, step, like)
+    def restore(self, step: int, like: Pytree,
+                shardings: Optional[Pytree] = None) -> Pytree:
+        return restore_checkpoint(self.dir, step, like, shardings)

@@ -1,7 +1,7 @@
 """The port's data pipeline: ``SyntheticTokens``, a copy of the
-reference's (``repro.data``), array for array.  ``batch_specs`` (shape
-stand-ins for the dry run) comes with the dry run (ROADMAP Queue 1)."""
+reference's (``repro.data``), array for array, and ``batch_specs``, the
+dry run's ``meta`` stand-ins for a step's inputs."""
 
-from .pipeline import SyntheticTokens
+from .pipeline import SyntheticTokens, batch_specs
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["SyntheticTokens", "batch_specs"]

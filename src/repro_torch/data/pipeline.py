@@ -8,9 +8,11 @@ draws a disjoint stream.  Deterministic restart-from-step is the
 fault-tolerance property a real distributed loader must provide; a file
 loader would track (file, offset) the same way.
 
-Port note: a copy of ``repro.data.pipeline.SyntheticTokens`` (pure numpy);
+Port note: ``SyntheticTokens`` is a copy of the reference's (pure numpy);
 ``tests/test_torch_ckpt.py`` holds its batches array-equal to the
 reference's.  The loop turns each batch into tensors on its device.
+``batch_specs`` gives ``meta`` tensors where the reference gave
+``ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 
 class SyntheticTokens:
@@ -54,3 +57,30 @@ class SyntheticTokens:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def batch_specs(cfg, seq_len: int, global_batch: int,
+                mode: str = "train") -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins for every model input of a step — the dry run's
+    input_specs() building block (no allocation)."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    dt = getattr(torch, cfg.dtype)
+    specs: Dict[str, torch.Tensor] = {}
+    if mode in ("train", "prefill"):
+        s = seq_len
+        if cfg.family == "vlm":
+            s = seq_len - cfg.n_vis_tokens
+            specs["vis_embeds"] = spec(
+                (global_batch, cfg.n_vis_tokens, cfg.d_model), dt)
+        if cfg.family == "encdec":
+            specs["frames"] = spec((global_batch, cfg.enc_seq, cfg.d_model),
+                                   dt)
+        specs["tokens"] = spec((global_batch, s), torch.int32)
+    elif mode == "decode":
+        specs["tokens"] = spec((global_batch, 1), torch.int32)
+        specs["pos"] = spec((global_batch,), torch.int32)
+    else:
+        raise ValueError(mode)
+    return specs

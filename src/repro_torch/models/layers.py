@@ -7,7 +7,15 @@ with like.
 
 Changes from the reference:
 
-* no ``constrain``: it is a sharding hint and means nothing on one device;
+* on DTensors (``dist``) the attention cores (``_repeat_kv``,
+  ``sdpa_full``, ``sdpa_chunked``, the decode's scores and mix) run on
+  each device's shards (``dist.act_sharding.on_shards``): batch over the
+  data-parallel axes, heads over "model" where it divides them.  That is
+  where the reference's constraints inside the chunked attention (its
+  scores, running max, sum and accumulator) put each (batch, head) block:
+  on the device that holds its queries.  ``sdpa_chunked`` constrains its
+  inputs as the reference's does; on plain tensors every one of these is
+  the plain call;
 * ``attention_decode`` writes the new K/V into the cache in place (the
   reference returned an updated copy);
 * attention outside the paged decode kernel stays plain ``torch.matmul``
@@ -28,11 +36,16 @@ position embedding of the encoder frames and of the decoder tokens.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.act_sharding import (constrain, linear, on_shards,
+                                           sharded)
+from repro_torch.dist.sharding import reshape, write_rows
 
 Params = Dict[str, object]
 
@@ -139,11 +152,10 @@ def _sin_cos(pos: torch.Tensor, d: int) -> torch.Tensor:
     scale = torch.log(torch.tensor(10000.0, device=pos.device)) / d
     div = torch.exp(-torch.arange(0, d, 2, dtype=torch.float32,
                                   device=pos.device) * scale)[None, :]
-    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32,
-                     device=pos.device)
-    pe[:, 0::2] = torch.sin(pos * div)
-    pe[:, 1::2] = torch.cos(pos * div)
-    return pe
+    ang = pos * div
+    # (N, d/2, 2) → (N, d): the columns interleave sin and cos (``d`` even)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        pos.shape[0], d)
 
 
 # --- GQA attention ------------------------------------------------------------
@@ -151,9 +163,9 @@ def _sin_cos(pos: torch.Tensor, d: int) -> torch.Tensor:
 def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     b, s, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = reshape(linear(x, p["wq"]), b, s, cfg.n_heads, hd)
+    k = reshape(linear(x, p["wk"]), b, s, cfg.n_kv_heads, hd)
+    v = reshape(linear(x, p["wv"]), b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -162,17 +174,34 @@ def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
+# the per-shard layout of (B, S, H, hd) activations in the attention cores
+HEADS = ("dp", None, "tp", None)
+
+
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B,S,Hkv,hd) → (B,S,H,hd) by repeating each kv head."""
     hkv = k.shape[2]
     if hkv == n_heads:
         return k
-    return torch.repeat_interleave(k, n_heads // hkv, dim=2)
+    if not sharded(k):
+        return torch.repeat_interleave(k, n_heads // hkv, dim=2)
+    rep = functools.partial(torch.repeat_interleave, repeats=n_heads // hkv,
+                            dim=2)
+    return on_shards(rep, (k,), (HEADS,), HEADS,
+                     {"dp": k.shape[0], "tp": hkv})
 
 
 def sdpa_full(q, k, v, causal: bool = True,
               q_offset: int = 0) -> torch.Tensor:
     """q: (B,Sq,H,hd); k,v: (B,Sk,H,hd).  fp32 softmax."""
+    if not sharded(q, k, v):
+        return _sdpa_full(q, k, v, causal, q_offset)
+    fn = functools.partial(_sdpa_full, causal=causal, q_offset=q_offset)
+    return on_shards(fn, (q, k, v), (HEADS,) * 3, HEADS,
+                     {"dp": q.shape[0], "tp": q.shape[2]})
+
+
+def _sdpa_full(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     hd = q.shape[-1]
     scale = hd ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -188,11 +217,23 @@ def sdpa_full(q, k, v, causal: bool = True,
 def sdpa_chunked(q, k, v, chunk: int, causal: bool = True) -> torch.Tensor:
     """Online-softmax over KV chunks (flash-attention math, plain torch).
     Requires Sk % chunk == 0.  Same-length causal self-attention."""
+    if k.shape[1] % chunk:
+        raise ValueError(f"sequence {k.shape[1]} is not a multiple of "
+                         f"chunk {chunk}")
+    if not sharded(q, k, v):
+        return _sdpa_chunked(q, k, v, chunk, causal)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, "tp", None)
+    v = constrain(v, "dp", None, "tp", None)
+    fn = functools.partial(_sdpa_chunked, chunk=chunk, causal=causal)
+    return on_shards(fn, (q, k, v), (HEADS,) * 3, HEADS,
+                     {"dp": q.shape[0], "tp": q.shape[2]})
+
+
+def _sdpa_chunked(q, k, v, chunk: int, causal: bool) -> torch.Tensor:
     b, sq, h, hd = q.shape
     vd = v.shape[-1]
     sk = k.shape[1]
-    if sk % chunk:
-        raise ValueError(f"sequence {sk} is not a multiple of chunk {chunk}")
     scale = hd ** -0.5
     qi = torch.arange(sq, device=q.device)[:, None]
     m = torch.full((b, h, sq), float("-inf"), device=q.device)
@@ -234,7 +275,7 @@ def attention(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
         o = sdpa_chunked(q, kf, vf, cfg.attn_chunk)
     else:
         o = sdpa_full(q, kf, vf)
-    out = o.reshape(b, s, -1) @ p["wo"]
+    out = linear(reshape(o, b, s, -1), p["wo"])
     if return_kv:
         return out, (k, v)
     return out
@@ -250,26 +291,31 @@ def attention_decode(p: Params, cfg, x: torch.Tensor,
     ck, cv = cache
     pos = pos.long()
     q, k, v = _qkv(p, cfg, x, pos[:, None])
-    rows = torch.arange(b, device=x.device)
-    ck[rows, pos] = k[:, 0]
-    cv[rows, pos] = v[:, 0]
-    kf = _repeat_kv(ck, cfg.n_heads)
-    vf = _repeat_kv(cv, cfg.n_heads)
-    scale = cfg.hd ** -0.5
+    write_rows(ck, pos, k[:, 0])
+    write_rows(cv, pos, v[:, 0])
+    o = on_shards(functools.partial(_decode_attend, scale=cfg.hd ** -0.5),
+                  (q, ck, cv, pos), (HEADS, HEADS, HEADS, ("dp",)), HEADS,
+                  {"dp": b, "tp": cfg.n_kv_heads})
+    return linear(reshape(o, b, 1, -1), p["wo"]), (ck, cv)
+
+
+def _decode_attend(q, ck, cv, pos, scale: float) -> torch.Tensor:
+    """One query a row against the cache rows up to ``pos``."""
+    kf = _repeat_kv(ck, q.shape[2])
+    vf = _repeat_kv(cv, q.shape[2])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf.float()) * scale
-    mask = torch.arange(ck.shape[1], device=x.device)[None, :] <= pos[:, None]
+    mask = torch.arange(ck.shape[1], device=q.device)[None, :] <= pos[:, None]
     scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", w, vf)
-    return o.reshape(b, 1, -1) @ p["wo"], (ck, cv)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vf)
 
 
 def cross_kv(p: Params, cfg, kv_src: torch.Tensor):
     """The cross-attention keys and values of ``kv_src`` (B,F,d): each
     (B,F,Hkv,hd), no RoPE (the enc-dec cache's ``cross`` entries)."""
     b, f, _ = kv_src.shape
-    k = (kv_src @ p["wk"]).reshape(b, f, cfg.n_kv_heads, cfg.hd)
-    v = (kv_src @ p["wv"]).reshape(b, f, cfg.n_kv_heads, cfg.hd)
+    k = reshape(linear(kv_src, p["wk"]), b, f, cfg.n_kv_heads, cfg.hd)
+    v = reshape(linear(kv_src, p["wv"]), b, f, cfg.n_kv_heads, cfg.hd)
     return k, v
 
 
@@ -278,10 +324,10 @@ def cross_attend(p: Params, cfg, x: torch.Tensor, k: torch.Tensor,
     """Cross attention of ``x`` (B,S,d) on precomputed keys and values
     (B,F,Hkv,hd): no RoPE, no mask."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    q = reshape(linear(x, p["wq"]), b, s, cfg.n_heads, cfg.hd)
     o = sdpa_full(q, _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads),
                   causal=False)
-    return o.reshape(b, s, -1) @ p["wo"]
+    return linear(reshape(o, b, s, -1), p["wo"])
 
 
 def cross_attention(p: Params, cfg, x: torch.Tensor,
@@ -294,4 +340,5 @@ def cross_attention(p: Params, cfg, x: torch.Tensor,
 # --- SwiGLU MLP ------------------------------------------------------------------
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return linear(F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"]),
+                  p["w_down"])

@@ -36,6 +36,15 @@ backward pass runs it again; serving (no gradients) never pays for it.
 ``torch.Generator``, on the generator's device and in ``cfg.dtype``, so
 a full-width model is never built on the host and copied.  A family the
 reference does not know raises a ``ValueError`` (:func:`check_family`).
+
+Activation-sharding constraints (``dist.constrain``) sit at the
+reference's sites: the embedding output, the residual stream before each
+layer of a stack (sequence-parallel ``("dp", "tp", None)``, the MoE
+layers' ``("dp", None, None)``) and the logits.  They act only on
+DTensors inside ``dist.activation_sharding``; on plain tensors the forward
+is what it was.  A layer stack whose leading (layer) dim is sharded is
+gathered along it before it is sliced into layers (``dist.sharding.
+unshard_dim``), as slicing a DTensor along a sharded dim needs.
 """
 
 from __future__ import annotations
@@ -45,6 +54,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.dist.act_sharding import constrain, linear, lookup, on_shards
+from repro_torch.dist.sharding import unshard_dim
 
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -68,7 +80,8 @@ def check_family(cfg, what: str) -> None:
 def _unbind(stack: Params) -> List[Params]:
     """Every layer of a parameter-stacked tree, as views: one ``unbind``
     a leaf, whose backward stacks the layers' gradients in one pass."""
-    per_key = {k: (_unbind(v) if isinstance(v, dict) else v.unbind(0))
+    per_key = {k: (_unbind(v) if isinstance(v, dict)
+                   else unshard_dim(v, 0).unbind(0))
                for k, v in stack.items()}
     n = len(next(iter(per_key.values())))
     return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
@@ -151,6 +164,23 @@ def _encdec_layer_init(gen: torch.Generator, cfg, n: int,
         p["cross_norm"] = rmsnorm_init(cfg.d_model, (n,), gen.device)
         p["cross"] = attention_init(gen, cfg, (n,))
     return p
+
+
+class _MetaGenerator(torch.Generator):
+    """A host generator that reports the ``meta`` device, so
+    :func:`init_params` builds every leaf on ``meta`` (a draw on ``meta``
+    allocates nothing and reads no generator state)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def param_shapes(cfg) -> Params:
+    """``cfg``'s parameter tree on the ``meta`` device: the shapes and
+    dtypes of :func:`init_params`, nothing allocated (the reference's
+    ``jax.eval_shape(init_params)``)."""
+    return init_params(_MetaGenerator(), cfg)
 
 
 def init_params(gen: torch.Generator, cfg) -> Params:
@@ -254,7 +284,7 @@ def shared_block(sp: Params, site_proj: torch.Tensor, cfg, h: torch.Tensor,
                       rmsnorm(sp["norm"], cat, cfg.norm_eps))
     u = cat + a
     u = u + mlp(sp["mlp"], rmsnorm(sp["mlp_norm"], u, cfg.norm_eps))
-    return h + u @ site_proj, kv
+    return h + linear(u, site_proj), kv
 
 
 def _shared_fwd(sp, site_proj, cfg, h, emb0, positions):
@@ -295,6 +325,7 @@ def encode(params: Params, cfg, frames: torch.Tensor, dtype: torch.dtype,
     ecfg = dataclasses.replace(cfg, attn_chunk=0)
     positions = torch.arange(f, device=e.device).expand(b, f)
     for lp in _unbind(params["enc_layers"]):
+        e = constrain(e, "dp", "tp", None)
         e = _remat(remat, _enc_block, lp, ecfg, e, positions)
     return rmsnorm(params["enc_norm"], e, cfg.norm_eps)
 
@@ -326,7 +357,8 @@ def embed_inputs(params: Params, cfg, tokens: torch.Tensor,
     """The token embeddings, with the VLM family's patch embeddings
     prepended (cast to the embeddings' dtype), and their positions
     (B, S'), S' = V + S for the VLM family, else S."""
-    x = params["embed"]["tok"][tokens.long()]
+    x = constrain(lookup(params["embed"]["tok"], tokens.long()),
+                  "dp", None, None)
     if cfg.family == "vlm":
         x = torch.cat([extra["vis_embeds"].to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device).expand(
@@ -353,9 +385,13 @@ def forward(params: Params, cfg, tokens: torch.Tensor,
         x = x + sinusoidal_pos(x.shape[1], cfg.d_model,
                                device=x.device).to(x.dtype)
         for lp in _unbind(params["dec_layers"]):
+            x = constrain(x, "dp", "tp", None)
             x = _remat(remat, _dec_block, lp, cfg, x, positions, e)
     else:
         for lp, is_moe in layers_of(params):
+            # sequence-parallel residual between layers; the MoE layers'
+            # stays whole over "tp", as the reference's
+            x = constrain(x, "dp", None if is_moe else "tp", None)
             if cfg.family == "ssm":
                 x = _remat(remat, _ssm_block, lp, cfg, x)
                 continue
@@ -368,7 +404,11 @@ def forward(params: Params, cfg, tokens: torch.Tensor,
 def logits_fn(params: Params, cfg, hidden: torch.Tensor) -> torch.Tensor:
     head = (params["embed"]["tok"].T if cfg.tie_embeddings
             else params["embed"]["head"])
-    return hidden @ head
+    return linear(hidden, head)
+
+
+def _next_tokens(tokens: torch.Tensor) -> torch.Tensor:
+    return torch.roll(tokens, -1, dims=1)
 
 
 def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor],
@@ -383,16 +423,21 @@ def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor],
     hidden, aux = forward(params, cfg, tokens, extra=batch)
     if cfg.family == "vlm":
         hidden = hidden[:, cfg.n_vis_tokens:]
-    logits = logits_fn(params, cfg, hidden).float()
-    targets = torch.roll(tokens.long(), -1, dims=1)
+    logits = constrain(logits_fn(params, cfg, hidden),
+                       "dp", None, "tp").float()
+    targets = on_shards(_next_tokens, (tokens.long(),), (("dp", None),),
+                        ("dp", None), {"dp": tokens.shape[0]})
     ones = torch.ones(tokens.shape, dtype=torch.float32,
                       device=tokens.device)
     mask = batch.get("loss_mask", ones)
     last = torch.cat([ones[:, :-1], torch.zeros_like(ones[:, :1])], dim=1)
     mask = mask * last
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = (lse - tgt) * mask
+    # the target logits keep their trailing axis until the subtraction: on
+    # vocab-sharded DTensor logits the gather's masked partial sum can be
+    # reduced only at its own rank
+    tgt = torch.gather(logits, -1, targets[..., None])
+    nll = (lse[..., None] - tgt)[..., 0] * mask
     denom = torch.clamp(torch.sum(mask), min=1.0)
     ce = torch.sum(nll) / denom
     z_loss = 1e-4 * torch.sum((lse * mask) ** 2) / denom

@@ -11,17 +11,24 @@ The reference's dtype steps are kept, since the bf16 results depend on
 where the rounding happens: ``q_eff`` comes out in the model dtype, scores
 are float32, the softmax weights are cast to the activations' dtype before
 the product with the latent.  ``mla_decode`` writes the new latent into
-its cache in place (the reference returned an updated copy).
+its cache in place (the reference returned an updated copy).  On
+DTensors the heads' assembly and the decode's scores and mix run on each
+device's shards (``dist.act_sharding.on_shards``: batch over the
+data-parallel axes, heads over "model"), the latent cache whole.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 
-from .layers import (dense_init, rmsnorm, rmsnorm_init, rope, sdpa_chunked,
-                     sdpa_full, torch_dtype)
+from repro_torch.dist.act_sharding import linear, on_shards
+from repro_torch.dist.sharding import reshape, write_rows
+
+from .layers import (HEADS, dense_init, rmsnorm, rmsnorm_init, rope,
+                     sdpa_chunked, sdpa_full, torch_dtype)
 
 Params = Dict[str, object]
 
@@ -47,8 +54,8 @@ def _mla_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     """(q_nope (B,S,H,nope), q_rope (B,S,H,rope) with RoPE applied)."""
     b, s, _ = x.shape
     qk_hd = cfg.qk_nope_dim + cfg.qk_rope_dim
-    cq = rmsnorm(p["q_norm"], x @ p["wq_a"], cfg.norm_eps)
-    q = (cq @ p["wq_b"]).reshape(b, s, cfg.n_heads, qk_hd)
+    cq = rmsnorm(p["q_norm"], linear(x, p["wq_a"]), cfg.norm_eps)
+    q = reshape(linear(cq, p["wq_b"]), b, s, cfg.n_heads, qk_hd)
     q_nope = q[..., :cfg.qk_nope_dim]
     q_rope = rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -57,7 +64,7 @@ def _mla_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
 def _mla_kv_latent(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     """(c_kv (B,S,lat), k_rope (B,S,rope)): the latent and the RoPE key
     shared by every head."""
-    kv_a = x @ p["wkv_a"]
+    kv_a = linear(x, p["wkv_a"])
     c_kv = rmsnorm(p["kv_norm"], kv_a[..., :cfg.kv_lora_rank], cfg.norm_eps)
     k_rope = rope(kv_a[..., cfg.kv_lora_rank:][:, :, None, :], positions,
                   cfg.rope_theta)[:, :, 0]
@@ -66,8 +73,12 @@ def _mla_kv_latent(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def absorbed_weights(p: Params, cfg):
     """``wkv_b`` split per head: (w_uk (lat,H,nope), w_uv (lat,H,vd))."""
+    return _split_heads(p["wkv_b"], cfg)
+
+
+def _split_heads(wkv_b: torch.Tensor, cfg):
     nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
-    w = p["wkv_b"].reshape(cfg.kv_lora_rank, cfg.n_heads, nope + vd)
+    w = wkv_b.reshape(cfg.kv_lora_rank, -1, nope + vd)
     return w[..., :nope], w[..., nope:]
 
 
@@ -80,21 +91,29 @@ def mla_attention(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
     h = cfg.n_heads
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_kv_latent(p, cfg, x, positions)
-    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h,
-                                     cfg.qk_nope_dim + cfg.v_head_dim)
-    k_nope = kv[..., :cfg.qk_nope_dim]
-    v = kv[..., cfg.qk_nope_dim:]
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        b, s, h, cfg.qk_rope_dim)], dim=-1)
+    kv = reshape(linear(c_kv, p["wkv_b"]), b, s, h,
+                 cfg.qk_nope_dim + cfg.v_head_dim)
+    q, k, v = on_shards(functools.partial(_mla_heads, nope=cfg.qk_nope_dim),
+                        (q_nope, q_rope, kv, k_rope),
+                        (HEADS, HEADS, HEADS, ("dp", None, None)),
+                        (HEADS,) * 3, {"dp": b, "tp": h})
     if cfg.attn_chunk and s > cfg.attn_chunk and s % cfg.attn_chunk == 0:
         o = sdpa_chunked(q, k, v, cfg.attn_chunk)
     else:
         o = sdpa_full(q, k, v)
-    out = o.reshape(b, s, -1) @ p["wo"]
+    out = linear(reshape(o, b, s, -1), p["wo"])
     if return_latent:
         return out, (c_kv, k_rope)
     return out
+
+
+def _mla_heads(q_nope, q_rope, kv, k_rope, nope: int):
+    """(q, k, v) per head: the queries' halves joined, the keys' no-RoPE
+    half beside the RoPE key shared by every head."""
+    b, s, h, _ = kv.shape
+    k = torch.cat([kv[..., :nope], k_rope[:, :, None, :].expand(
+        b, s, h, k_rope.shape[-1])], dim=-1)
+    return torch.cat([q_nope, q_rope], dim=-1), k, kv[..., nope:]
 
 
 def mla_init_cache(cfg, batch: int, max_seq: int,
@@ -122,19 +141,28 @@ def mla_decode(p: Params, cfg, x: torch.Tensor, cache: Params,
     q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])          # (B,1,H,·)
     c_new, r_new = _mla_kv_latent(p, cfg, x, pos[:, None])
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
-    rows = torch.arange(b, device=x.device)
-    c_kv[rows, pos] = c_new[:, 0]
-    k_rope[rows, pos] = r_new[:, 0]
-    w_uk, w_uv = absorbed_weights(p, cfg)
+    write_rows(c_kv, pos, c_new[:, 0])
+    write_rows(k_rope, pos, r_new[:, 0])
+    o = on_shards(functools.partial(_mla_decode_attend, cfg=cfg),
+                  (q_nope, q_rope, c_kv, k_rope, pos, p["wkv_b"]),
+                  (HEADS, HEADS, ("dp", None, None), ("dp", None, None),
+                   ("dp",), (None, "tp")),
+                  HEADS, {"dp": b, "tp": cfg.n_heads})
+    return linear(reshape(o, b, 1, -1), p["wo"]), cache
+
+
+def _mla_decode_attend(q_nope, q_rope, c_kv, k_rope, pos, wkv_b, cfg):
+    """The weight-absorbed scores against the latent cache up to ``pos``,
+    the softmax, and the context re-expanded through W_uv."""
+    w_uk, w_uv = _split_heads(wkv_b, cfg)
     q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope, w_uk)      # (B,1,H,lat)
     scores = (torch.einsum("bqhl,bsl->bhqs", q_eff.float(), c_kv.float())
               + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
                              k_rope.float()))
     scores = scores * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
-    mask = torch.arange(c_kv.shape[1], device=x.device)[None, :] \
+    mask = torch.arange(c_kv.shape[1], device=c_kv.device)[None, :] \
         <= pos[:, None]
     scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    w = torch.softmax(scores, dim=-1).to(q_nope.dtype)
     ctx = torch.einsum("bhqs,bsl->bqhl", w, c_kv)              # (B,1,H,lat)
-    o = torch.einsum("bqhl,lhv->bqhv", ctx, w_uv)              # (B,1,H,vd)
-    return o.reshape(b, 1, -1) @ p["wo"], cache
+    return torch.einsum("bqhl,lhv->bqhv", ctx, w_uv)           # (B,1,H,vd)

@@ -9,7 +9,8 @@ rank within its expert is C or more contributes nothing.
 
 Changes from the reference:
 
-* no ``constrain`` (a sharding hint; one device);
+* no ``constrain``: the reference imports it here and calls it nowhere
+  (constraining the dispatch buffers did not pay off there);
 * no host sync in the dispatch — no boolean-mask indexing, ``nonzero`` or
   ``.item()``: a dropped entry is routed to a spare row of the dispatch
   buffer that no expert reads;
@@ -18,14 +19,24 @@ Changes from the reference:
   atomics in a varying order.  Every token has exactly k entries, so they
   go back to a ``(T, k, d)`` buffer by the inverse of the sort and are
   summed over k.
+
+On DTensors (``dist``) the routing, dispatch and combine run whole on
+every device (``dist.act_sharding.on_shards`` with every input
+replicated: the capacity and the sort are over all T tokens, as the
+reference's are), and the expert products are DTensor products over the
+experts' own placements.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.act_sharding import batched_linear, on_shards
+from repro_torch.dist.sharding import reshape
 
 from .layers import dense_init, mlp, mlp_init, torch_dtype
 
@@ -72,9 +83,35 @@ def moe_apply(p: Params, cfg, x: torch.Tensor
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_tok, cfg.n_experts
-    dev = x.device
-    xt = x.reshape(t, d)
-    probs, gate_vals, idx = _route(p, cfg, xt)
+    c = _capacity(t, k, e, cfg.capacity_factor)
+    xt = reshape(x, t, d)
+    whole = (None, None)
+    buf, slot, keep, order, gate_vals, aux = on_shards(
+        functools.partial(_dispatch, cfg=cfg, c=c), (xt, p["router"]),
+        (whole, whole), (whole, (None,), (None,), (None,), whole, ()), {})
+    buf = buf[:e * c].view(e, c, d)
+
+    # --- expert compute (E,C,d) @ (E,d,f) -----------------------------------
+    h = (F.silu(batched_linear(buf, p["w_gate"]))
+         * batched_linear(buf, p["w_up"]))
+    y = reshape(batched_linear(h, p["w_down"]), e * c, d)      # (E*C, d)
+
+    out = on_shards(functools.partial(_combine, k=k, dtype=x.dtype),
+                    (y, slot, keep, order, gate_vals),
+                    (whole, (None,), (None,), (None,), whole), whole, {})
+    if cfg.n_shared_experts:
+        out = out + mlp(p["shared"], xt)
+    return reshape(out, b, s, d), aux
+
+
+def _dispatch(xt: torch.Tensor, router: torch.Tensor, cfg, c: int):
+    """The routing, the aux loss and the sort-based capacity dispatch of
+    all T tokens: (buf (E·C+1, d), slot, keep, order (T·k,), gates (T,k),
+    aux)."""
+    t, d = xt.shape
+    k, e = cfg.experts_per_tok, cfg.n_experts
+    dev = xt.device
+    probs, gate_vals, idx = _route({"router": router}, cfg, xt)
 
     # load-balance auxiliary loss (Switch-style)
     me = probs.mean(dim=0)
@@ -82,7 +119,6 @@ def moe_apply(p: Params, cfg, x: torch.Tensor
     aux = e * (me * ce).sum()
 
     # --- sort-based capacity dispatch -------------------------------------
-    c = _capacity(t, k, e, cfg.capacity_factor)
     flat_e = idx.reshape(-1)                                   # (T*k,)
     order = torch.argsort(flat_e, stable=True)                 # by expert
     sorted_e = flat_e[order]
@@ -94,28 +130,23 @@ def moe_apply(p: Params, cfg, x: torch.Tensor
     # row e·C, which no expert reads
     slot = torch.where(keep, sorted_e * c + rank,
                        torch.full_like(rank, e * c))
-    buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((e * c + 1, d), dtype=xt.dtype, device=dev)
     buf[slot] = xt[tok]
-    buf = buf[:e * c].view(e, c, d)
+    return buf, slot, keep, order, gate_vals, aux
 
-    # --- expert compute (E,C,d) @ (E,d,f) -----------------------------------
-    h = (F.silu(torch.bmm(buf, p["w_gate"]))
-         * torch.bmm(buf, p["w_up"]))
-    y = torch.bmm(h, p["w_down"]).reshape(e * c, d)            # (E*C, d)
 
-    # --- combine: each entry back to its (token, k) place, summed over k ---
+def _combine(y, slot, keep, order, gate_vals, k: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Each entry back to its (token, k) place, weighted by its gate and
+    summed over k: (T, d)."""
     gath = y[torch.where(keep, slot, torch.zeros_like(slot))]
     gath = torch.where(keep[:, None], gath, torch.zeros((), dtype=y.dtype,
-                                                        device=dev))
+                                                        device=y.device))
     gsort = gate_vals.reshape(-1)[order]
     contrib = gath.float() * gsort[:, None]
     per_tok = torch.empty_like(contrib)
     per_tok[order] = contrib
-    out = per_tok.view(t, k, d).sum(dim=1).to(x.dtype)
-
-    if cfg.n_shared_experts:
-        out = out + mlp(p["shared"], xt)
-    return out.reshape(b, s, d), aux
+    return per_tok.view(-1, k, contrib.shape[-1]).sum(dim=1).to(dtype)
 
 
 def moe_apply_dense_ref(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:

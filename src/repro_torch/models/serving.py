@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.act_sharding import lookup
 from repro_torch.kernels.paged_attention import ops as paged_ops
 
 from . import mla as mla_mod
@@ -238,7 +239,7 @@ def decode_step(params: Params, cfg, cache: Params, tokens: torch.Tensor,
     trunks: their new conv windows and states over the old; the enc-dec
     ``cross`` cache is only read)."""
     check_family(cfg, "decode_step")
-    x = params["embed"]["tok"][tokens.long()]
+    x = lookup(params["embed"]["tok"], tokens.long())
     if cfg.family == "hybrid":
         x = _decode_hybrid(params, cfg, cache, x, pos)
     elif cfg.family == "encdec":

@@ -34,15 +34,25 @@ before ``out_proj``).  ``*_init`` draws every weight with the caller's
 ``torch.Generator`` on its device, stacked over a leading ``lead`` shape
 (the layer axis of ``lm``'s parameter-stacked layout).  No hand-written
 kernel runs here: the reference's scan is plain jnp outside any Pallas
-kernel.
+kernel.  The activation-sharding constraints (``dist.constrain``) sit at
+the reference's sites and act on DTensors only.  On DTensors the causal
+conv and the scans run on each device's shards
+(``dist.act_sharding.on_shards``): batch over the data-parallel axes,
+channels (Mamba1) or heads (Mamba2) over "model" where it divides them;
+both are independent across those dims.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.act_sharding import (constrain, linear, on_shards,
+                                           sharded)
+from repro_torch.dist.sharding import reshape
 
 from .layers import dense_init, rmsnorm, rmsnorm_init, torch_dtype
 
@@ -56,6 +66,15 @@ SSM_CHUNK = 128
 def conv1d_causal(x: torch.Tensor, w: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     """x: (B,S,C), w: (C,K), b: (C,).  y_t = sum_k w[:,k] x_{t-K+1+k}."""
+    if not sharded(x, w, b):
+        return _conv1d_causal(x, w, b)
+    chan = ("dp", None, "tp")
+    return on_shards(_conv1d_causal, (x, w, b), (chan, ("tp", None), ("tp",)),
+                     chan, {"dp": x.shape[0], "tp": x.shape[2]})
+
+
+def _conv1d_causal(x: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
     k = w.shape[1]
     out = x * w[None, None, :, -1]
     for i in range(k - 1):
@@ -69,6 +88,16 @@ def conv1d_step(window: torch.Tensor, xt: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """window: (B,K-1,C) past inputs; xt: (B,C) new input.
     Returns (y (B,C), new window)."""
+    if not sharded(window, xt, w, b):
+        return _conv1d_step(window, xt, w, b)
+    chan = ("dp", None, "tp")
+    return on_shards(_conv1d_step, (window, xt, w, b),
+                     (chan, ("dp", "tp"), ("tp", None), ("tp",)),
+                     (("dp", "tp"), chan),
+                     {"dp": xt.shape[0], "tp": xt.shape[1]})
+
+
+def _conv1d_step(window, xt, w, b):
     full = torch.cat([window, xt[:, None, :]], dim=1)      # (B,K,C)
     y = torch.einsum("bkc,ck->bc", full, w) + b[None, :]
     return y, full[:, 1:]
@@ -145,14 +174,15 @@ def _mamba1_front(p: Params, cfg, x: torch.Tensor):
     """The pre-conv input (for the decode window) and the scan inputs
     ``(a, b, c_in, z, xin)``."""
     n, dtr = cfg.ssm_state, cfg.dtr
-    xin_raw, z = (x @ p["in_proj"]).chunk(2, dim=-1)      # (B,S,dI) each
+    xin_raw, z = linear(x, p["in_proj"]).chunk(2, dim=-1)  # (B,S,dI) each
     xin = F.silu(conv1d_causal(xin_raw.float(), p["conv_w"],
                                p["conv_b"])).to(x.dtype)
-    proj = xin @ p["x_proj"]                               # (B,S,dtr+2N)
+    proj = linear(xin, p["x_proj"])                        # (B,S,dtr+2N)
     dt_raw = proj[..., :dtr]
     b_in = proj[..., dtr:dtr + n].float()
     c_in = proj[..., dtr + n:].float()
-    dt = F.softplus(dt_raw.float() @ p["dt_proj"] + p["dt_bias"])  # (B,S,dI)
+    dt = F.softplus(linear(dt_raw.float(), p["dt_proj"])
+                    + p["dt_bias"])                        # (B,S,dI)
     a_mat = -torch.exp(p["a_log"])                         # (dI,N)
     a = torch.exp(dt[..., None] * a_mat[None, None])       # (B,S,dI,N)
     b = (dt * xin.float())[..., None] * b_in[..., None, :]
@@ -169,20 +199,45 @@ def mamba1_apply(p: Params, cfg, x: torch.Tensor, chunked: bool = True,
     bsz = x.shape[0]
     di, n = cfg.d_inner, cfg.ssm_state
     xin_raw, (a, b, c_in, z, xin) = _mamba1_front(p, cfg, x)
-    h0 = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
-    scan = linear_scan_chunked if chunked else linear_scan_ref
-    h = scan(a, b, h0)                                     # (B,S,dI,N)
-    y = torch.einsum("bsdn,bsn->bsd", h, c_in) \
-        + p["d_skip"][None, None] * xin.float()
+    a = constrain(a, "dp", None, "tp", None)
+    b = constrain(b, "dp", None, "tp", None)
+    h0 = constrain(x.new_zeros((bsz, di, n), dtype=torch.float32),
+                   "dp", "tp", None)
+    per_chan = ("dp", None, "tp", None)
+    ys, h_last = on_shards(
+        functools.partial(_mamba1_scan, chunked=chunked),
+        (a, b, h0, c_in),
+        (per_chan, per_chan, ("dp", "tp", None), ("dp", None, None)),
+        (("dp", None, "tp"), ("dp", "tp", None)), {"dp": bsz, "tp": di})
+    y = ys + p["d_skip"][None, None] * xin.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p["out_proj"]
+    out = linear(y, p["out_proj"])
     if return_state:
         # copies, not views: a view of the last step would keep the whole
         # (B,S,dI,N) history alive as long as the cache
         k = cfg.d_conv - 1
         window = xin_raw[:, -k:].float().clone()           # (B,K-1,dI)
-        return out, {"conv": window, "h": h[:, -1].clone()}
+        return out, {"conv": window, "h": h_last}
     return out
+
+
+def _mamba1_scan(a, b, h0, c_in, chunked: bool):
+    """The recurrence's read-out ``sum_n h·c`` (B,S,dI) and its last
+    state (a copy, not a view: a view would keep the whole (B,S,dI,N)
+    history alive as long as the cache)."""
+    h = (linear_scan_chunked if chunked else linear_scan_ref)(a, b, h0)
+    return torch.einsum("bsdn,bsn->bsd", h, c_in), h[:, -1].clone()
+
+
+def _read_out(eq: str, h: torch.Tensor, c_in: torch.Tensor) -> torch.Tensor:
+    """A decode step's ``sum_n h·c`` (``eq``: the state (B, C, ..., N)
+    against ``c_in`` (B, N)), on each device's batch rows and channels."""
+    if not sharded(h, c_in):
+        return torch.einsum(eq, h, c_in)
+    state = ("dp", "tp") + (None,) * (h.dim() - 2)
+    return on_shards(functools.partial(torch.einsum, eq), (h, c_in),
+                     (state, ("dp", None)), state[:-1],
+                     {"dp": h.shape[0], "tp": h.shape[1]})
 
 
 def mamba1_init_cache(cfg, batch: int, device=None) -> Params:
@@ -199,22 +254,23 @@ def mamba1_decode(p: Params, cfg, x: torch.Tensor, cache: Params):
     """x: (B,1,d) -> (out (B,1,d), new cache).  Exact one-step
     recurrence."""
     n, dtr = cfg.ssm_state, cfg.dtr
-    xin, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)     # (B,dI)
+    xin, z = linear(x[:, 0], p["in_proj"]).chunk(2, dim=-1)  # (B,dI)
     xc, conv = conv1d_step(cache["conv"], xin.float(), p["conv_w"],
                            p["conv_b"])
     xc = F.silu(xc)
-    proj = xc.to(x.dtype) @ p["x_proj"]
+    proj = linear(xc.to(x.dtype), p["x_proj"])
     dt_raw = proj[..., :dtr]
     b_in = proj[..., dtr:dtr + n].float()
     c_in = proj[..., dtr + n:].float()
-    dt = F.softplus(dt_raw.float() @ p["dt_proj"] + p["dt_bias"])  # (B,dI)
+    dt = F.softplus(linear(dt_raw.float(), p["dt_proj"])
+                    + p["dt_bias"])                        # (B,dI)
     a_mat = -torch.exp(p["a_log"])
     a = torch.exp(dt[..., None] * a_mat[None])             # (B,dI,N)
     b = (dt * xc)[..., None] * b_in[:, None, :]
     h = a * cache["h"] + b
-    y = torch.einsum("bdn,bn->bd", h, c_in) + p["d_skip"][None] * xc
+    y = _read_out("bdn,bn->bd", h, c_in) + p["d_skip"][None] * xc
     y = (y * F.silu(z.float())).to(x.dtype)
-    return (y @ p["out_proj"])[:, None], {"conv": conv, "h": h}
+    return linear(y, p["out_proj"])[:, None], {"conv": conv, "h": h}
 
 
 # =============================================================================
@@ -257,13 +313,13 @@ def mamba2_init(gen: torch.Generator, cfg,
 
 
 def _mamba2_front(p: Params, cfg, x: torch.Tensor):
-    z = x @ p["in_z"]
-    dt_raw = x @ p["in_dt"]                                # (B,S,H)
-    xin = F.silu(conv1d_causal((x @ p["in_x"]).float(), p["conv_w_x"],
+    z = linear(x, p["in_z"])
+    dt_raw = linear(x, p["in_dt"])                         # (B,S,H)
+    xin = F.silu(conv1d_causal(linear(x, p["in_x"]).float(), p["conv_w_x"],
                                p["conv_b_x"]))
-    b_in = F.silu(conv1d_causal((x @ p["in_b"]).float(), p["conv_w_b"],
+    b_in = F.silu(conv1d_causal(linear(x, p["in_b"]).float(), p["conv_w_b"],
                                 p["conv_b_b"]))
-    c_in = F.silu(conv1d_causal((x @ p["in_c"]).float(), p["conv_w_c"],
+    c_in = F.silu(conv1d_causal(linear(x, p["in_c"]).float(), p["conv_w_c"],
                                 p["conv_b_c"]))
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     a = torch.exp(-torch.exp(p["a_log"])[None, None] * dt)  # (B,S,H) decay
@@ -275,10 +331,10 @@ def _mamba2_out(p: Params, cfg, x: torch.Tensor, y: torch.Tensor,
     """The skip, the gate, the norm and the output projection."""
     bsz, s = x.shape[:2]
     y = y + p["d_skip"][None, None, :, None] * xh
-    y = y.reshape(bsz, s, -1)
+    y = reshape(y, bsz, s, -1)
     y = y * F.silu(z.float())
     y = rmsnorm(p["norm"], y.to(x.dtype), cfg.norm_eps)
-    return y @ p["out_proj"]
+    return linear(y, p["out_proj"])
 
 
 def mamba2_apply(p: Params, cfg, x: torch.Tensor, chunk: int = SSM_CHUNK,
@@ -287,15 +343,38 @@ def mamba2_apply(p: Params, cfg, x: torch.Tensor, chunk: int = SSM_CHUNK,
     bsz, s, _ = x.shape
     nh, pdim, n = cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     xin, b_in, c_in, dt, a, z = _mamba2_front(p, cfg, x)
-    xh = xin.reshape(bsz, s, nh, pdim)                     # (B,S,H,P)
+    xin = constrain(xin, "dp", None, "tp")
+    xh = reshape(xin, bsz, s, nh, pdim)                    # (B,S,H,P)
     xdt = xh * dt[..., None]                               # dt-scaled input
     if s % chunk != 0:
         chunk = s                                          # single chunk
     la = torch.log(torch.clamp(a, min=1e-30))
-    qi = torch.arange(chunk, device=x.device)
+    h = constrain(x.new_zeros((bsz, nh, pdim, n), dtype=torch.float32),
+                  "dp", "tp", None, None)
+    per_head = ("dp", None, "tp", None)
+    y, h = on_shards(functools.partial(_ssd, chunk=chunk),
+                     (xdt, b_in, c_in, la, h),
+                     (per_head, ("dp", None, None), ("dp", None, None),
+                      ("dp", None, "tp"), ("dp", "tp", None, None)),
+                     (per_head, ("dp", "tp", None, None)),
+                     {"dp": bsz, "tp": nh})
+    out = _mamba2_out(p, cfg, x, y, xh, z)
+    if return_state:
+        k = cfg.d_conv - 1
+        return out, {
+            "conv_x": linear(x[:, -k:], p["in_x"]).float(),
+            "conv_b": linear(x[:, -k:], p["in_b"]).float(),
+            "conv_c": linear(x[:, -k:], p["in_c"]).float(),
+            "h": h,
+        }
+    return out
+
+
+def _ssd(xdt, b_in, c_in, la, h, chunk: int):
+    """The SSD chunk loop: (y (B,S,H,P), the last state (B,H,P,N))."""
+    s = xdt.shape[1]
+    qi = torch.arange(chunk, device=xdt.device)
     mask = (qi[:, None] >= qi[None, :])[None, :, :, None]
-    h = torch.zeros((bsz, nh, pdim, n), dtype=torch.float32,
-                    device=x.device)
     ys = []
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
@@ -317,17 +396,7 @@ def mamba2_apply(p: Params, cfg, x: torch.Tensor, chunk: int = SSM_CHUNK,
         s_c = torch.einsum("bjn,bjh,bjhp->bhpn", bb, tail, xd)
         h = h * torch.exp(lac[:, -1])[..., None, None] + s_c
         ys.append(y_intra + y_inter)
-    y = torch.cat(ys, dim=1)                               # (B,S,H,P)
-    out = _mamba2_out(p, cfg, x, y, xh, z)
-    if return_state:
-        k = cfg.d_conv - 1
-        return out, {
-            "conv_x": (x[:, -k:] @ p["in_x"]).float(),
-            "conv_b": (x[:, -k:] @ p["in_b"]).float(),
-            "conv_c": (x[:, -k:] @ p["in_c"]).float(),
-            "h": h,
-        }
-    return out
+    return torch.cat(ys, dim=1), h                         # (B,S,H,P)
 
 
 def mamba2_apply_ref(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -365,15 +434,15 @@ def mamba2_decode(p: Params, cfg, x: torch.Tensor, cache: Params):
     bsz = x.shape[0]
     nh, pdim = cfg.n_ssm_heads, cfg.ssm_headdim
     xt = x[:, 0]
-    z = xt @ p["in_z"]
-    dt_raw = xt @ p["in_dt"]
-    xr, conv_x = conv1d_step(cache["conv_x"], (xt @ p["in_x"]).float(),
+    z = linear(xt, p["in_z"])
+    dt_raw = linear(xt, p["in_dt"])
+    xr, conv_x = conv1d_step(cache["conv_x"], linear(xt, p["in_x"]).float(),
                              p["conv_w_x"], p["conv_b_x"])
-    br, conv_b = conv1d_step(cache["conv_b"], (xt @ p["in_b"]).float(),
+    br, conv_b = conv1d_step(cache["conv_b"], linear(xt, p["in_b"]).float(),
                              p["conv_w_b"], p["conv_b_b"])
-    cr, conv_c = conv1d_step(cache["conv_c"], (xt @ p["in_c"]).float(),
+    cr, conv_c = conv1d_step(cache["conv_c"], linear(xt, p["in_c"]).float(),
                              p["conv_w_c"], p["conv_b_c"])
-    xin = F.silu(xr).reshape(bsz, nh, pdim)
+    xin = reshape(F.silu(xr), bsz, nh, pdim)
     b_in = F.silu(br)
     c_in = F.silu(cr)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])          # (B,H)
@@ -381,10 +450,10 @@ def mamba2_decode(p: Params, cfg, x: torch.Tensor, cache: Params):
     xdt = xin * dt[..., None]
     h = cache["h"] * a[..., None, None] \
         + b_in[:, None, None, :] * xdt[..., None]
-    y = torch.einsum("bhpn,bn->bhp", h, c_in) \
+    y = _read_out("bhpn,bn->bhp", h, c_in) \
         + p["d_skip"][None, :, None] * xin
-    y = y.reshape(bsz, -1)
+    y = reshape(y, bsz, -1)
     y = y * F.silu(z.float())
     y = rmsnorm(p["norm"], y.to(x.dtype), cfg.norm_eps)
-    return (y @ p["out_proj"])[:, None], {
+    return linear(y, p["out_proj"])[:, None], {
         "conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c, "h": h}

@@ -9,6 +9,11 @@ The reference's jitted step donates ``(params, opt_state)``; the port's
 updates them in place and returns the same trees, and drops the
 gradients once the update is done.  Metrics are 0-d tensors on the
 parameters' device (reading one synchronises).
+
+Every step also runs on DTensors (the trees placed with
+``dist.sharding``): each runs under DTensor's implicit replication, so a
+plain tensor the model makes on the way (positions, masks) counts as
+replicated over the mesh.  On plain tensors that changes nothing.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 # calling frames, so the first training step's tensors (a whole model at
 # full width) would stay on the card until the cycle collector ran.
 import torch._dynamo  # noqa: F401
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models import lm, serving
 from repro_torch.optim import (clip_by_global_norm, cosine_schedule,
@@ -38,8 +45,14 @@ def loss_and_grads(params: Pytree, cfg, batch: Dict[str, torch.Tensor]):
     for p in flat:
         p.requires_grad_(True)
     try:
-        loss, metrics = lm.loss_fn(params, cfg, batch)
-        grads = torch.autograd.grad(loss, flat)
+        with implicit_replication():
+            loss, metrics = lm.loss_fn(params, cfg, batch)
+            grads = torch.autograd.grad(loss, flat)
+            # a DTensor gradient may come back a pending (partial) sum or in
+            # another layout: reduce it into its parameter's layout
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     if isinstance(g, DTensor) else g
+                     for g, p in zip(grads, flat)]
     finally:
         for p in flat:
             p.requires_grad_(False)
@@ -61,13 +74,14 @@ def make_train_step(cfg, optimizer: str = "auto", lr: float = 3e-4,
     def train_step(params: Pytree, opt_state, batch: Dict[str, torch.Tensor],
                    mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda _: None)
-        loss, metrics, grads = loss_and_grads(params, cfg, batch)
-        mark("grads")
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
-        mark("clip")
-        params, opt_state = opt_update(grads, opt_state, params)
-        del grads
-        mark("update")
+        with implicit_replication():
+            loss, metrics, grads = loss_and_grads(params, cfg, batch)
+            mark("grads")
+            grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            mark("clip")
+            params, opt_state = opt_update(grads, opt_state, params)
+            del grads
+            mark("update")
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = gnorm
@@ -82,8 +96,9 @@ def make_prefill_step(cfg):
 
     def prefill_step(params, batch):
         extra = {k: v for k, v in batch.items() if k != "tokens"}
-        logits, cache, pos = serving.prefill(params, cfg, batch["tokens"],
-                                             extra=extra)
+        with implicit_replication():
+            logits, cache, pos = serving.prefill(params, cfg, batch["tokens"],
+                                                 extra=extra)
         return logits, cache, pos
 
     return prefill_step
@@ -93,7 +108,9 @@ def make_serve_step(cfg):
     """One-token decode; the cache is updated in place."""
 
     def serve_step(params, cache, tokens, pos):
-        logits, cache = serving.decode_step(params, cfg, cache, tokens, pos)
+        with implicit_replication():
+            logits, cache = serving.decode_step(params, cfg, cache, tokens,
+                                                pos)
         return logits, cache
 
     return serve_step
