@@ -9,7 +9,8 @@ source, all at once) and drives the port's paths.  The tiled QR (paper
 §4.1) at its benchmark size (2048² fp32, 64² tiles) through
 ``repro_torch.apps.qr.run_qr``; the Barnes-Hut tree code (§4.2) through
 ``repro_torch.apps.barneshut.solve`` at 100k particles in all four modes
-and at the paper's 1M particles in engine mode; and continuous-batching
+and through solve's steps at the paper's 1M particles in engine mode; and
+continuous-batching
 serving through ``repro_torch.serve.GenerateService`` of qwen3-1.7b and
 starcoder2-7b as published (bf16, 28 and 32 layers) and of
 deepseek-v3-671b (MoE + MLA) at full width cut to its first 5 layers
@@ -30,8 +31,10 @@ through run_training (zamba2 at 15 layers, internvl2 at 2); and the
 distributed layer: qwen3-1.7b's train step on DTensors over NCCL (world
 size 1), the int8 compressed psum, the ring matmuls, the resharding
 restore and the dry run (repro_torch.launch.dryrun) against the card and
-at production size.
-Phases, each fatal when it fails:
+at production size; the four examples' twins (examples/*_torch.py) in
+this process; and granite-8b and phi4-mini-3.8b as published and
+kimi-k2-1t-a32b at full width cut to 2 layers served on K10.
+Phases, each fatal when it fails (each phase's seconds are logged):
 
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
  2. build the kernels (nvcc, sm_90a) and report the build time;
@@ -51,7 +54,7 @@ Phases, each fatal when it fails:
     launch and no plain version ran on the card; then the same at
     1024² / 128² (the global-memory bodies; its launches counted apart);
  6. QR timings (CUDA events, median of 3 after warm-up): run_qr per mode
-    at 2048² and engine mode at 4096², launches per plan (one), the walk
+    at 2048² (threaded one run) and engine mode at 4096², launches per plan (one), the walk
     of the 2048² plan beside its barrier floor (the same table with every
     row a QR_NOOP: 125 grid barriers, one launch) and of the 1024² /
     128² plan beside its own, each kernel at b = 64 and 128 beside its
@@ -69,26 +72,30 @@ Phases, each fatal when it fails:
     engine within 1e-4 of the plain walk on the CPU, the counters showing
     K6, K7 and K8 launched and no N-body plain version on the card;
 10. BH at the paper's 1M particles (n_max 100, n_task 5000, seed 42) in
-    engine mode: a float64 recomputation of the interaction lists of 256
+    engine mode, solve's steps one by one (phase 11 times the run): a
+    float64 recomputation of the interaction lists of 256
     sampled leaves within 1e-4, the float64 direct sum for 4,096 sampled
     targets inside test_barneshut.py's accuracy bounds, and bh_walk
     launches per plan at most the plan's rounds.  The host modes run at
     100k and not at 1M: at 1M they would make about 800k per-op launches
     from Python, more than this script's time limit holds;
-11. BH timings: solve per mode at 100k (a mode whose first run took 15 s
-    or more, threaded, is not run again) and engine at 1M (one run),
-    split into tree, graph, lowering and execution; the walk over the whole 1M plan, with
+11. BH timings: solve per mode at 100k (the engine a median of 3, the
+    host modes one run, a mode whose first run took 15 s or more,
+    threaded, not run again) and engine at 1M (phase 10's one run), split
+    into tree, graph, lowering and execution; the walk over the whole 1M
+    plan, with
     the pair interactions it evaluates beside those the data needs and
     those a walk over the padded blocks evaluates; K6 and
     K7 at the path's shapes, each beside its bound and plain version (no
     single PyTorch call computes softened gravity, so they have no
     library yardstick), and K6 at 30 x 0 (no source: its launch floor);
 12. K10 (paged GQA decode) against its plain version on the card: the
-    reduced and the published widths of qwen3-1.7b (16/8 heads) and
-    starcoder2-7b (36/4), page 8 and 16, fp32 and bf16, bs 1, 3 and 8,
+    reduced and the published widths of qwen3-1.7b (16/8 heads),
+    starcoder2-7b (36/4), granite-8b (32/8), phi4-mini-3.8b (24/8) and
+    kimi-k2-1t-a32b (64/8), page 8 and 16, fp32 and bf16, bs 1, 3 and 8,
     n_rep 16 (32/2) and hd 20 (rows not on 16 bytes); 8 slots at
     positions 256-319 (up to 40 pages) at
-    both head shapes; NaN unlisted pages, stale non-finite tails, two
+    all five head shapes; NaN unlisted pages, stale non-finite tails, two
     launches bitwise equal (the split walk merges in a fixed order), a
     second slot's pages bitwise untouched;
 13. the serving path at full width on decode_path "auto", the launcher's
@@ -102,7 +109,8 @@ Phases, each fatal when it fails:
     kernel vs gather logits over 16 teacher-forced steps; workload (a)
     token for token, kernel vs gather, in an fp32 copy of the config;
 14. K10 timings at the path's shapes (one launch on each of 28 layer
-    pools in a CUDA graph), and at (b)'s with starcoder2-7b's heads,
+    pools in a CUDA graph), and at (b)'s with starcoder2-7b's heads and
+    with phase 36's three layouts (32/8, 24/8, 64/8),
     beside its bound, its plain version and
     F.scaled_dot_product_attention over the window gathered beforehand
     (the yardstick, never called by the port);
@@ -177,13 +185,13 @@ Phases, each fatal when it fails:
     loss must equal the run's); the step split by CUDA events into
     loss+gradients, clip and update over 8 more steps, tokens per second,
     peak memory, a profiler window of 2 steps (busy share, kernels a step,
-    the matrix products' share); then 20 steps at (4096, 1), attention
+    the matrix products' share); then 8 steps at (4096, 1), attention
     through sdpa_chunked (attn_chunk 2048) in the forward pass and the
     recompute of every layer (counted), the backward through autograd,
     and sdpa_chunked alone at that shape (forward, forward + backward);
 24. the kill-and-resume drill at full width cut to 2 layers (a 28-layer
     checkpoint is ~24 GB a save): 20 steps uninterrupted, and 20 steps
-    checkpointed every 5, killed at step 12 and resumed from step 10: the
+    checkpointed every 10, killed at step 12 and resumed from step 10: the
     losses, the parameters and the moments bit for bit equal; its
     checkpoints' save and restore timed by the loop's spans; the
     workdirs deleted;
@@ -281,7 +289,49 @@ Phases, each fatal when it fails:
     run_cell: each cell's wall time, per-device bytes, FLOPs and
     collective counts (predictions over the reference's mesh shapes, not
     times of the card); a cell that errors, or counts no FLOPs or no
-    collective, fails.
+    collective, fails;
+35. the four examples' twins, each ``main()`` in this process at the
+    reference examples' defaults.  quickstart_torch: the Fig 2 order (A
+    first) and makespan 3.0, the 96² QR's Gram identity within GRAM_TOL
+    (R rounded to half precision must fail it), the engine's R bitwise the
+    sequential R and within CPU_TOL of the CPU's, the dispatch counts,
+    order and speedups equal to its own run with --device cpu, and K1-K5
+    launched exactly as the CPU called their plain versions.
+    nbody_torch at 20,000 particles (n_max 64, n_task 1000, seed 0, the
+    sequential mode): acc_pair / acc_self launched once a self block, twice
+    a direct pair and once a PC list, no plain version on the card; the
+    graph counts equal to a host build and the efficiencies at 1, 8 and 32
+    workers to the host's simulation (64 workers take ~27 s of host
+    simulation, the reference's too, so that one is held by the CPU
+    tests); the median and mean relative force error against the direct
+    sum (computed on the card in target chunks) within the reference's 2e-2
+    and 5e-2, which the same accelerations read in the input order must
+    exceed.  trace_qr_torch: qr_walk launched twice a round and once an
+    item plus one warm-up, the trace valid with processes measured and
+    predicted and one task event an engine item in each (a copy with a
+    negative duration refused).  train_lm_torch at its default width and
+    at --full-width (~100M), 300 steps each at (128, 8): no kernel and no
+    plain version, checkpoints at steps 100, 200 and 300, 16 greedy ids in
+    the vocabulary, and the first 10 losses' mean above the last 10's by
+    LOSS_MARGIN, which 20 steps at lr 0 (the same first loss) must not
+    reach;
+36. the published configurations the card had not served (CONFIG_SERVES),
+    after every earlier phase, each alone on the card: granite-8b and
+    phi4-mini-3.8b as published and kimi-k2-1t-a32b at full width cut to
+    2 of its 61 layers (1 dense, 1 MoE of 384 experts: 61 layers would be
+    ~2 TB; depth is cut, never width), bf16, weights from seed 0 (their
+    count and bytes exactly init_params' on ``meta``), through
+    GenerateService on "auto" (K10 at H/Hkv 4, 3 and 8) for workload (a):
+    every request done with its budget, the pool empty, path "kernel",
+    degrade level 0, K10 launched layers x ticks times, no plain version;
+    wall time and tok/s; the bf16 teacher-forced kernel-vs-gather logits
+    within BF16_LOGIT_RTOL, the planted fault above it at every step; for
+    kimi-k2 (MoE) every step within MOE_BF16_LOGIT_RTOL, deepseek's limit
+    (a token whose top 8 of 384 experts the two paths' roundings swap on
+    a near tie spikes its step to 2.7e-2-3.9e-2), the steps where no
+    token's experts differ within BF16_LOGIT_RTOL, the planted fault above
+    both, and a profiler window of 8 steady ticks (kernels a tick, the
+    expert products' ms a tick, the busy share).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -711,7 +761,9 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
 
     walls = {}
     for mode in MODES:
-        walls[mode] = median_of(lambda: run_mode(torch, qr, a, mode)[1])
+        # threaded (~7 s a run, the GIL) once: phase 5 ran it once already
+        walls[mode] = median_of(lambda: run_mode(torch, qr, a, mode)[1],
+                                reps=1 if mode == "threaded" else 3)
     big = torch.tensor(np.random.default_rng(4096).standard_normal(
         (N_LARGE, N_LARGE)), dtype=torch.float32, device="cuda")
     kernel.reset_counts()
@@ -729,7 +781,7 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
              f"{per_plan_large} at {N_LARGE}²: not one")
     lib_qr = median_of(lambda: events_ms(
         torch, lambda: torch.linalg.qr(a, mode="r"), 3))
-    log(f"[time] run_qr wall s (median of 3): "
+    log(f"[time] run_qr wall s (median of 3; threaded one run): "
         + ", ".join(f"{k} {v:.4f}" for k, v in walls.items())
         + f"; torch.linalg.qr {N_MAIN}² {lib_qr:.3f} ms; walk launches per "
         f"plan {per_plan} at {N_MAIN}² ({tables.nr_phases} phases), "
@@ -1171,19 +1223,21 @@ def direct_f64(torch, np, st, targets, chunk=32):
 
 
 def phase_bh_paper(torch, np):
-    """BH at the paper's 1M particles in engine mode."""
-    from repro_torch.apps import barneshut as bh
+    """BH at the paper's 1M particles in engine mode, one run split into
+    stages (``staged_solve``: solve's own steps, each synchronized), which
+    phase 11 times too (two runs, one of them through ``solve``, until the
+    examples and the three configurations came; the 100k runs of phase 9
+    go through ``solve``).  Returns the launches, the plan's rounds, the
+    stages and what the timing needs of the run."""
     from repro_torch.core import lower
     from repro_torch.kernels.nbody import kernel as nbk
     x, m = bh_inputs(np, N_PAPER)
     nbk.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    acc, st, g = bh.solve(x, m, n_max=NMAX_BH, n_task=NTASK_PAPER,
-                          mode="engine", nr_workers=LANES, device="cuda")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    stages, keep = staged_solve(torch, x, m, NTASK_PAPER, "engine")
+    secs = stages["total"]
     launches = dict(nbk.LAUNCHES)
+    st = keep["st"]
+    acc, g = st.acc, st.g
     if any(nbk.PLAIN_CALLS.values()):
         fail(f"an N-body plain version ran on the card {nbk.PLAIN_CALLS}")
     rounds = lower(g.sched, LANES).nr_rounds         # the plan cache's
@@ -1205,16 +1259,14 @@ def phase_bh_paper(torch, np):
     if not (med < ACC_MEDIAN and mean < ACC_MEAN):
         fail(f"BH 1M vs the direct sum: median {med:.3e}, mean {mean:.3e}")
     c = g.counts
-    log(f"[bh-paper] {N_PAPER} particles, engine: {secs:.1f} s (first run), "
+    log(f"[bh-paper] {N_PAPER} particles, engine: {secs:.1f} s (one run, its stages synchronized), "
         f"tasks self/pair/pc/com {c['self']}/{c['pair_pp']}/{c['pair_pc']}/"
         f"{c['com']}, bh_walk launches {launches['bh_walk']} for "
         f"{rounds} rounds; {SAMPLE_LEAVES} sampled leaves vs float64 "
         f"interaction lists {lists:.3e} (bound {BH_TOL}); {SAMPLE_TARGETS} "
         f"targets vs the float64 direct sum: median {med:.3e} (bound "
         f"{ACC_MEDIAN}), mean {mean:.3e} (bound {ACC_MEAN})")
-    del acc, st, g
-    torch.cuda.empty_cache()
-    return launches, rounds
+    return launches, rounds, (stages, keep)
 
 
 def staged_solve(torch, x, m, n_task, mode):
@@ -1324,7 +1376,8 @@ def walk_flops_bytes(np, tab, st):
 
 
 def phase_bh_timing(torch, np, firsts, launches, paper_launches,
-                    paper_rounds, ops_err, walk_err, walk20k, card):
+                    paper_rounds, paper_run, ops_err, walk_err, walk20k,
+                    card):
     from repro_torch.kernels.nbody import kernel as nbk
     from repro_torch.kernels.nbody import ref
     x, m = bh_inputs(np, N_BH)
@@ -1335,7 +1388,10 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
             log(f"[bh-time] {mode} at {N_BH}: not split into stages (its "
                 f"first run took {firsts[mode]:.1f} s); {card}")
             continue
-        reps = 3
+        # the host modes (~9 s a run at 100k) once, as phase 9 ran each
+        # once already (3 until the examples and the three configurations
+        # came); the engine a median of 3
+        reps = 3 if mode == "engine" else 1
         runs = []
         for _ in range(reps):
             stages, keep = staged_solve(torch, x, m, NTASK_BH, mode)
@@ -1346,10 +1402,10 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
         log(f"[bh-time] {mode} at {N_BH} (median of {reps}): "
             + ", ".join(f"{k} {v:.4f} s" for k, v in med.items())
             + f"; {card}")
-    x, m = bh_inputs(np, N_PAPER)
-    # one run (two until the hybrid, enc-dec and VLM phases came): the 1M
-    # lowering is long, and phase 10 has run the same solve once already
-    stages, keep = staged_solve(torch, x, m, NTASK_PAPER, "engine")
+    # phase 10's run: the 1M lowering is long (the script ran it three
+    # times until the hybrid, enc-dec and VLM phases came, twice until the
+    # examples and the three configurations)
+    stages, keep = paper_run
     log(f"[bh-time] engine at {N_PAPER} (1 run): "
         + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items())
         + f"; {card}")
@@ -1532,9 +1588,28 @@ PAGED_SHAPES = ((4, 2, 32, 8, "float32"),       # qwen3-1.7b reduced
                 (36, 4, 128, 16, "float32"),    # H/Hkv 9, H/Hkv x hd 1,152
                 (36, 4, 128, 8, "bfloat16"),
                 (36, 4, 128, 16, "bfloat16"),
+                (32, 8, 128, 8, "float32"),     # granite-8b: H/Hkv 4
+                (32, 8, 128, 16, "float32"),
+                (32, 8, 128, 8, "bfloat16"),
+                (32, 8, 128, 16, "bfloat16"),
+                (24, 8, 128, 8, "float32"),     # phi4-mini-3.8b: H/Hkv 3
+                (24, 8, 128, 16, "float32"),
+                (24, 8, 128, 8, "bfloat16"),
+                (24, 8, 128, 16, "bfloat16"),
+                (64, 8, 128, 8, "float32"),     # kimi-k2-1t-a32b: H/Hkv 8
+                (64, 8, 128, 16, "float32"),
+                (64, 8, 128, 8, "bfloat16"),
+                (64, 8, 128, 16, "bfloat16"),
                 (32, 2, 128, 8, "bfloat16"),    # n_rep 16: four head groups
                 (8, 2, 20, 8, "bfloat16"))      # rows not on 16 bytes: the
 #                                                 element-wise loads
+# the layouts phase 36's models bring, timed at workload (b)'s geometry: all
+# with Hkv 8 and hd 128, so their K/V bytes, and so K10's bound, are qwen3's;
+# only the query heads a KV head change (4, 3 and 8 against qwen3's 2)
+K10_LAYOUTS = {"granite": (32, 8), "phi4": (24, 8), "kimi": (64, 8)}
+# (H, Hkv) of every GQA model served on K10: qwen3-1.7b, starcoder2-7b and
+# those (all at hd 128)
+K10_HEADS = ((16, 8), (36, 4)) + tuple(K10_LAYOUTS.values())
 # kernel vs gather logits over teacher-forced bf16 decode steps, per step
 # ‖Δ‖₂/‖logits‖₂.  The two paths round differently: K10 keeps the attention
 # in float and rounds its output to bf16 once; the gather path rounds the
@@ -1624,8 +1699,8 @@ def phase_k10(torch, np):
     for dt in ("float32", "bfloat16"):
         # workload (b)'s geometry: 8 slots of 40 pages, positions spread
         # over 256-319 (up to 40 pages walked), as tests/test_torch_gpu.py,
-        # at qwen3-1.7b's and starcoder2-7b's heads
-        for h, hkv in ((16, 8), (36, 4)):
+        # at the heads of every GQA model served on K10
+        for h, hkv in K10_HEADS:
             ops_, rows, pos = ref.random_case(8, 8, getattr(torch, dt), 21,
                                               "cuda", pos=SERVE_DEPTH_POS,
                                               max_pages=40, n_heads=h,
@@ -1637,7 +1712,7 @@ def phase_k10(torch, np):
                                           stale_tail=True, pos=[0, 7, 8, 13],
                                           n_heads=16, n_kv=8, hd=128)
         check(ops_, rows, pos, 8, dt, f"stale tail {dt}")
-        n += 3
+        n += len(K10_HEADS) + 1
     # the splits merge in a fixed order: two launches, bitwise equal
     ops_, rows, pos = ref.random_case(8, 8, torch.bfloat16, 21, "cuda",
                                       pos=SERVE_DEPTH_POS, max_pages=40,
@@ -1656,7 +1731,8 @@ def phase_k10(torch, np):
         f" 3, 8 x {len(PAGED_SHAPES)} shapes (H, Hkv, hd, ps, dtype) "
         f"{PAGED_SHAPES}, 8 slots at positions "
         f"{SERVE_DEPTH_POS[0]}-{SERVE_DEPTH_POS[-1]} of 40 pages at H/Hkv "
-        f"16/8 and 36/4, stale non-finite tails, NaN unlisted pages, two "
+        f"{', '.join(f'{h}/{k}' for h, k in K10_HEADS)}, stale non-finite "
+        f"tails, NaN unlisted pages, two "
         f"launches bitwise equal, a second slot untouched); max |err| fp32 "
         f"{errs['float32']:.3e}, bf16 {errs['bfloat16']:.3e}")
     return errs
@@ -1842,16 +1918,21 @@ def one_page_short(plain):
     return op
 
 
-def teacher_forced(torch, np, params, cfg, limit):
+def teacher_forced(torch, np, params, cfg, limit, clean_limit=None):
     """Kernel vs gather logits over TEACHER_STEPS decode steps fed the same
     tokens, from one prefill of 8 prompts of 256: the paged pool (pages
     shuffled) through the paged kernel (K10 or K11), a contiguous copy
     through the gather math; then the paged steps again with the planted
     fault (the walk one page short) in the kernel's place.  Fails unless
     every step's gap is within ``limit`` and every planted step's exceeds
-    it."""
+    it.  With ``clean_limit`` (a MoE model) it also counts, each step, the
+    tokens whose top-k experts differ between the two paths in some MoE
+    layer (a near tie that the two paths' roundings break apart), and every
+    step in which no token's routing differs must be within
+    ``clean_limit``."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention import ref
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import serving
     bs, plen, ps = 8, 256, SERVE_PAGE
     n = -(-(plen + TEACHER_STEPS) // ps)
@@ -1873,18 +1954,37 @@ def teacher_forced(torch, np, params, cfg, limit):
         leaves[k] = leaf
     rows = rows.int()
     pos0 = pos
-    rels, maxs, gather = [], [], []
-    for s in range(TEACHER_STEPS):
-        lk, _ = serving.decode_step_paged(params, cfg, leaves, rows,
-                                          teach[s], pos, page_size=ps)
-        lg, _ = serving.decode_step(params, cfg, cache, teach[s], pos)
-        lk, lg = lk.float(), lg.float()
-        if not (torch.isfinite(lk).all() and torch.isfinite(lg).all()):
-            fail("teacher-forced bf16 logits are not finite")
-        rels.append(float((lk - lg).norm() / lg.norm()))
-        maxs.append(float((lk - lg).abs().max() / lg.abs().max()))
-        gather.append(lg)
-        pos = pos + 1
+    rels, maxs, gather, swapped = [], [], [], []
+    routes, real_route = [], moe_mod._route
+
+    def route(*a, **kw):            # each MoE layer's experts, sorted
+        out = real_route(*a, **kw)
+        routes.append(out[2].sort(-1).values)
+        return out
+
+    if clean_limit is not None:
+        moe_mod._route = route
+    try:
+        for s in range(TEACHER_STEPS):
+            routes.clear()
+            lk, _ = serving.decode_step_paged(params, cfg, leaves, rows,
+                                              teach[s], pos, page_size=ps)
+            n_moe = len(routes)
+            lg, _ = serving.decode_step(params, cfg, cache, teach[s], pos)
+            lk, lg = lk.float(), lg.float()
+            if not (torch.isfinite(lk).all() and torch.isfinite(lg).all()):
+                fail("teacher-forced bf16 logits are not finite")
+            rels.append(float((lk - lg).norm() / lg.norm()))
+            maxs.append(float((lk - lg).abs().max() / lg.abs().max()))
+            gather.append(lg)
+            if clean_limit is not None:
+                diff = torch.zeros(bs, dtype=torch.bool, device="cuda")
+                for a, b in zip(routes[:n_moe], routes[n_moe:]):
+                    diff |= (a != b).any(-1)
+                swapped.append(int(diff.sum()))
+            pos = pos + 1
+    finally:
+        moe_mod._route = real_route
     # the planted fault over the same steps (each step rewrites its cell
     # before reading, so the pool's later cells from the run above are
     # never read)
@@ -1912,6 +2012,19 @@ def teacher_forced(torch, np, params, cfg, limit):
     log(f"[serve] {cfg.name} per step, kernel vs gather: "
         + " ".join(f"{r:.2e}" for r in rels)
         + "; planted vs gather: " + " ".join(f"{r:.2e}" for r in planted))
+    out = {}
+    if clean_limit is not None:
+        clean = [r for r, n in zip(rels, swapped) if not n]
+        log(f"[serve] {cfg.name} tokens (of {bs}) whose top "
+            f"{cfg.experts_per_tok} experts differ between the paths, per "
+            f"step: {swapped}; the {len(clean)} steps with none: max "
+            + (f"{max(clean):.3e}" if clean else "-")
+            + f" (limit {clean_limit})")
+        if not clean or not max(clean) <= clean_limit:
+            fail(f"bf16 kernel vs gather logits on the steps whose routing "
+                 f"agrees: {clean} (limit {clean_limit})")
+        out = {"swapped_tokens": swapped, "clean_max": max(clean),
+               "clean_steps": len(clean)}
     if not max(rels) <= limit:
         fail(f"bf16 kernel vs gather logits {max(rels):.3e} > {limit} at "
              f"step {int(np.argmax(rels))}")
@@ -1921,7 +2034,7 @@ def teacher_forced(torch, np, params, cfg, limit):
     return {"max": max(rels), "median": float(np.median(rels)),
             "steps": rels, "planted_min": min(planted),
             "planted_median": float(np.median(planted)),
-            "planted_steps": planted}
+            "planted_steps": planted, **out}
 
 
 def expert_product_us(torch, prof, n_experts):
@@ -2090,47 +2203,103 @@ def phase_serve(torch, np):
 ARCH_SC2 = "starcoder2-7b"   # as published: bf16, 32 layers, d 4608, 36/4
 #   heads of 128 (H/Hkv x hd = 1,152), d_ff 18432, vocab 49,152: 10.1e9
 #   weights, 20.2 GB in bf16; nothing cut
+# phase 36: the published configurations served on K10 after every earlier
+# phase, (arch, layers kept (None: all), weights, bytes on the card).  The
+# weights and bytes are init_params' on ``meta`` (tests/test_torch_serve.py
+# holds them against the reference config's param_count() plus the norm
+# scales): bf16 matrices, float32 norm scales and MoE router.
+CONFIG_SERVES = (
+    # granite-8b as published: 36 layers, d 4096, 32/8 heads of 128 (a
+    # group of 4), d_ff 14336, vocab 49,152; nothing cut
+    ("granite-8b", None, 8_254_689_280, 16_509_976_576),
+    # phi4-mini-3.8b as published: 32 layers, d 3072, 24/8 heads of 128 (a
+    # group of 3), d_ff 8192, vocab 200,064; nothing cut
+    ("phi4-mini-3.8b", None, 4_450_618_368, 8_901_636_096),
+    # kimi-k2-1t-a32b at full width cut to 2 of its 61 layers: its dense
+    # first layer (d_ff 16,384) and one MoE layer (384 experts of 2,048,
+    # top 8, 1 shared), d 7168, 64/8 heads of 128 (a group of 8), vocab
+    # 163,840.  The MoE layer alone holds 16.9e9 weights (33.9 GB); 61
+    # layers (~2 TB) cannot fit 80 GB, so depth is cut, never width
+    ("kimi-k2-1t-a32b", 2, 19_923_635_200, 39_852_847_104),
+)
 
 
-def phase_serve_starcoder2(torch, np):
-    """starcoder2-7b as published (bf16, 32 layers, random weights from seed
-    0) through GenerateService on decode_path "auto" (K10 at H/Hkv 9) for
-    workload (a) with its checks and timings, then the bf16 teacher-forced
-    kernel-vs-gather logits check at BF16_LOGIT_RTOL with its planted
-    fault; the model is freed before it returns."""
+def serve_published(torch, np, arch, layers=None, want=None,
+                    tag="serve-config"):
+    """One published configuration (``layers`` of it kept, every width as
+    published; bf16, random weights from seed 0) through GenerateService on
+    decode_path "auto" (K10) for workload (a) with its checks and timings,
+    then the bf16 teacher-forced kernel-vs-gather logits check at
+    BF16_LOGIT_RTOL with its planted fault (a MoE model: MOE_BF16_LOGIT_RTOL
+    on every step, BF16_LOGIT_RTOL on the steps where no token's experts
+    differ between the paths), and for a MoE model a profiler
+    window of steady ticks (the expert products' share); ``want`` is the
+    (weights, bytes) the draw must give.  The model is freed before it
+    returns."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import lm
-    cfg = get_config(ARCH_SC2)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
                             cfg)
     torch.cuda.synchronize()
-    n_par = tree_numel(params)
-    log(f"[serve-sc2] {ARCH_SC2} as published ({cfg.n_layers} layers, d "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
-        f"vocab {cfg.vocab}, {cfg.dtype}): {n_par:,} weights drawn on the "
-        f"card in {time.perf_counter() - t0:.2f} s (seed 0), peak "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB while "
-        f"drawing")
+    init_s = time.perf_counter() - t0
+    n_par, n_bytes = tree_numel(params), tree_bytes(params)
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moe = (f", {cfg.first_dense_layers} dense + "
+           f"{cfg.n_layers - cfg.first_dense_layers} MoE of "
+           f"{cfg.n_experts} experts of {cfg.moe_d_ff} (top "
+           f"{cfg.experts_per_tok}, {cfg.n_shared_experts} shared)"
+           if cfg.n_experts else "")
+    log(f"[{tag}] {arch} ({cfg.n_layers} layers{moe}, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}): {n_par:,} weights "
+        f"({n_bytes / 1e9:.2f} GB) drawn on the card in {init_s:.2f} s "
+        f"(seed 0), peak {init_peak:.2f} GiB while drawing")
+    if want is not None and (n_par, n_bytes) != want:
+        fail(f"{arch}: drew {n_par} weights in {n_bytes} bytes, wanted "
+             f"{want}")
     name, slots, plen, new = SERVE_WORKLOADS[0]
     work = serve_workload(np, cfg.vocab, slots, plen, new)
     run = run_service(torch, np, params, cfg, work, slots, plen, new, "auto")
     ticks = check_served(np, cfg, name, run, work, "kernel")
-    out = {"weights": n_par, name: serve_timings(np, name, run),
+    out = {"layers": cfg.n_layers, "weights": n_par, "bytes": n_bytes,
+           "init_s": init_s, "init_peak_gib": init_peak,
+           name: serve_timings(np, name, run),
            "launches": run["launches"]["paged_gqa"], "ticks": ticks}
-    log(f"[serve-sc2] ({name}) {slots} slots, prompt {plen}, up to {new} new "
-        f"tokens, {len(work)} requests: every request done with its budget, "
-        f"pool empty, path kernel, degrade level 0, retries 0, launches "
-        f"{run['launches']} (paged_gqa = {cfg.n_layers} layers x {ticks} "
-        f"ticks), no plain version")
+    log(f"[{tag}] ({name}) {arch}: {slots} slots, prompt {plen}, up to {new} "
+        f"new tokens, {len(work)} requests: every request done with its "
+        f"budget, pool empty, path kernel, degrade level 0, retries 0, "
+        f"launches {run['launches']} (paged_gqa = {cfg.n_layers} layers x "
+        f"{ticks} ticks), no plain version")
     del run
-    out["bf16_logit_rel"] = teacher_forced(torch, np, params, cfg,
-                                           BF16_LOGIT_RTOL)
+    out["bf16_logit_rel"] = (
+        teacher_forced(torch, np, params, cfg, MOE_BF16_LOGIT_RTOL,
+                       clean_limit=BF16_LOGIT_RTOL) if cfg.n_experts
+        else teacher_forced(torch, np, params, cfg, BF16_LOGIT_RTOL))
+    if cfg.n_experts:
+        out["profile"] = profile_ticks(torch, np, params, cfg)
     del params
     free_card(torch)
     return out
+
+
+def phase_serve_starcoder2(torch, np):
+    """starcoder2-7b as published (bf16, 32 layers) through
+    ``serve_published`` (K10 at H/Hkv 9)."""
+    return serve_published(torch, np, ARCH_SC2, tag="serve-sc2")
+
+
+def phase_serve_configs(torch, np):
+    """Phase 36: the configurations that had never run on the card
+    (CONFIG_SERVES) each through ``serve_published``."""
+    return {arch: serve_published(torch, np, arch, layers, (n, nbytes))
+            for arch, layers, n, nbytes in CONFIG_SERVES}
 
 
 def phase_k10_timing(torch, np, errs, serve, card):
@@ -2138,7 +2307,8 @@ def phase_k10_timing(torch, np, errs, serve, card):
     (8 slots at position 288, 37 of 40 pages walked, bf16), over 28
     distinct layer pools as one decode tick has them, beside its bound,
     its plain version and the library yardstick; at workload (a)'s; and at
-    (b)'s with starcoder2-7b's heads (36 / 4)."""
+    (b)'s with starcoder2-7b's heads (36 / 4) and the three layouts of
+    phase 36's models (K10_LAYOUTS)."""
     from repro_torch.kernels.paged_attention import kernel as pak
     from repro_torch.kernels.paged_attention import ref
     import torch.nn.functional as F
@@ -2147,7 +2317,9 @@ def phase_k10_timing(torch, np, errs, serve, card):
     rows_out = {}
     for name, bs, pos_v, max_pages, h, hkv in (
             ("b", 8, 288, 40, 16, 8), ("a", 4, 20, 5, 16, 8),
-            ("starcoder2", 8, 288, 40, 36, 4)):
+            ("starcoder2", 8, 288, 40, 36, 4)) + tuple(
+                (name, 8, 288, 40, h, hkv)
+                for name, (h, hkv) in K10_LAYOUTS.items()):
         n_pages = bs * max_pages
         dt = torch.bfloat16
 
@@ -2251,7 +2423,14 @@ def phase_k10_timing(torch, np, errs, serve, card):
             "library_ms_starcoder2": sc2["lms"],
             "shape_starcoder2": "bs 8, pos 288 (37 pages), H 36, Hkv 4, "
                                 "hd 128, ps 8, bf16",
-            "decode_ticks": serve["ticks"]}
+            "decode_ticks": serve["ticks"],
+            **{f"{key}_{name}": rows_out[name][k]
+               for name in K10_LAYOUTS
+               for key, k in (("ms", "ms"), ("plain_ms", "pms"),
+                              ("bound_ms", "bms"), ("library_ms", "lms"))},
+            **{f"shape_{name}": f"bs 8, pos 288 (37 pages), H {h}, Hkv "
+                                f"{hkv}, hd 128, ps 8, bf16"
+               for name, (h, hkv) in K10_LAYOUTS.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -2285,14 +2464,19 @@ MLA_SHAPES = ((4, 32, 16, 8, "float32", 48 ** -0.5),
               (6, 40, 12, 8, "bfloat16", 0.1),
               (3, 20, 4, 16, "bfloat16", 0.2))
 MLA_SCALE = 192 ** -0.5
-# deepseek kernel vs gather logits over the teacher-forced bf16 steps, every
-# step's ‖Δ‖/‖logits‖, as for qwen3.  On an H100 the largest step is 4.43e-2
-# (median 2.51e-2; the inputs are seeded, so the steps repeat run to run) and
-# the planted fault (the walk one page short) 9.97e-2 at its least step; the
-# limit sits between them.  A step where the two paths' rounding swaps one of
-# a token's top 8 experts of 256 on a near tie would spike alone: the steps
-# are printed one by one to tell that from a fault.
-MLA_BF16_LOGIT_RTOL = 6.5e-2
+# MoE kernel vs gather logits over the teacher-forced bf16 steps, every
+# step's ‖Δ‖/‖logits‖, as for qwen3.  A step where the two paths' rounding
+# swaps one of a token's top 8 experts on a near tie spikes alone: the steps
+# are printed one by one to tell that from a fault.  deepseek-v3-671b (5
+# layers): on an H100 the largest step is 4.43e-2 (median 2.51e-2; the
+# inputs are seeded, so the steps repeat run to run) and the planted fault
+# (the walk one page short) 9.97e-2 at its least step; the limit sits
+# between them.  kimi-k2-1t-a32b (2 layers, 384 experts): its steps read
+# either 1.02e-2-1.06e-2 or 2.67e-2-3.86e-2 (above the dense
+# BF16_LOGIT_RTOL), the planted fault 1.18e-1 at its least; so a MoE model
+# is held to this limit on every step and to BF16_LOGIT_RTOL on the steps
+# where every token routes alike on both paths.
+MOE_BF16_LOGIT_RTOL = 6.5e-2
 
 
 
@@ -2377,7 +2561,7 @@ def phase_serve_mla(torch, np):
         torch, np, cfg,
         dataclasses.replace(cfg, dtype="float32", n_layers=n32,
                             first_dense_layers=nd32),
-        MLA_BF16_LOGIT_RTOL,
+        MOE_BF16_LOGIT_RTOL,
         f"{ARCH_MLA} at full width, {cfg.n_layers} layers "
         f"({cfg.first_dense_layers} dense, "
         f"{cfg.n_layers - cfg.first_dense_layers} MoE of {cfg.n_experts} + "
@@ -3101,9 +3285,11 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 100, 128, 8   # launch/train.py's
 #                             until the hybrid, enc-dec and VLM phases came:
 #                             within the warmup the first 100 are the same
 #                             steps, the loss fell 0.34 by step 200)
-LONG_STEPS, LONG_SEQ, LONG_BATCH = 20, 4096, 1      # attn_chunk 2048 < 4096:
+LONG_STEPS, LONG_SEQ, LONG_BATCH = 8, 4096, 1       # attn_chunk 2048 < 4096:
 #                             sdpa_chunked in the forward, the recompute and
-#                             the backward
+#                             the backward; 8 steps (20 until the examples
+#                             and the three configurations came; the step
+#                             time is the median of the last 6)
 CONTROL_STEPS = 20          # the same first steps at lr 0
 LOSS_WINDOW = 10            # the first and the last 10 losses' means
 LOSS_MARGIN = 0.1           # nats the last window's mean must fall below the
@@ -3111,9 +3297,12 @@ LOSS_MARGIN = 0.1           # nats the last window's mean must fall below the
 #                             only) must not
 TIMED_STEPS = 8             # steps timed part by part (CUDA events) after the
 #                             200, on the same state
-DRILL_LAYERS, DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 2, 20, 5, 12   # the
+DRILL_LAYERS, DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 2, 20, 10, 12  # the
 #                             kill-and-resume drill: full width cut to 2
-#                             layers (a 28-layer checkpoint is ~24 GB a save)
+#                             layers (a 28-layer checkpoint is ~24 GB a
+#                             save); a checkpoint every 10 steps (5 until
+#                             the examples and the three configurations
+#                             came: 3 saves of 7.2 GB, not 5)
 TRAIN_TOL = dict(atol=2e-5, rtol=1e-4)   # fp32 step, card vs CPU: the
 #                             reference's kernel-test tolerance
 GRAD_REL_TOL = 1e-5         # fp32 step, card vs CPU: each gradient leaf's
@@ -3299,7 +3488,7 @@ def attention_ms(torch, seq):
 
 def phase_train(torch, np, card):
     """qwen3-1.7b as published, trained on the card through run_training:
-    TRAIN_STEPS steps at (128, 8), the lr-0 control, 20 steps at (4096,
+    TRAIN_STEPS steps at (128, 8), the lr-0 control, LONG_STEPS at (4096,
     1)."""
     from repro_torch.models import layers
     free_card(torch)
@@ -3454,9 +3643,11 @@ def phase_drill(torch, np, card):
              f"differ after the resume")
     spans = lambda n: [s.t1 - s.t0 for s in tracer.spans if s.name == n]
     saves, restores = spans("train.ckpt_save"), spans("train.ckpt_restore")
-    if len(saves) != 5 or len(restores) != 1:
+    n_saves = (DRILL_FAIL // DRILL_EVERY              # before the kill, the
+               + (DRILL_STEPS - resumed) // DRILL_EVERY + 1)   # run's end
+    if len(saves) != n_saves or len(restores) != 1:
         fail(f"drill: {len(saves)} saves and {len(restores)} restores, "
-             f"wanted 5 and 1")
+             f"wanted {n_saves} and 1")
     n_bytes = sum(t.numel() * t.element_size() for t in leaves((pa, oa)))
     del pa, oa, pb, ob
     free_card(torch)
@@ -3470,7 +3661,7 @@ def phase_drill(torch, np, card):
         f"killed at step {DRILL_FAIL}, resumed from {resumed}: losses, "
         f"parameters and moments bit for bit equal to the uninterrupted "
         f"run; a checkpoint {n_bytes / 1e9:.2f} GB, save "
-        f"{out['save_s_median']:.2f} s (median of 5), restore "
+        f"{out['save_s_median']:.2f} s (median of {n_saves}), restore "
         f"{restores[0]:.2f} s (host clock); runs {t_a:.1f} s and "
         f"{t_b:.1f} s")
     return out
@@ -4818,6 +5009,282 @@ def phase_dryrun(torch, np, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the examples' twins (phase 35); the published configurations
+# served on K10 (phase 36) are with starcoder2-7b's phase above
+# ---------------------------------------------------------------------------
+
+EXAMPLE_DIR = ROOT / "build" / "examples"   # the trace and the training
+#                                             workdirs (git-ignored), deleted
+NBODY_MEDIAN_TOL, NBODY_MEAN_TOL = 2e-2, 5e-2   # per-particle relative force
+#   error against the direct sum, median and mean: the reference's accuracy
+#   bounds (tests/test_barneshut.py::test_accuracy_vs_direct); the control,
+#   the same accelerations read in the input order instead of the tree's
+#   sorted one, must exceed both
+# efficiencies the card run simulates again on the host beside the
+# example's own (the simulator is host code; at 64 workers it takes ~27 s at
+# 20k particles on one core, the reference's as well, so that one is held
+# only in tests/test_torch_examples.py, against the reference, at 2,000)
+NBODY_RESIMULATE = (1, 8, 32)
+
+
+def load_example(name):
+    """examples/<name>_torch.py as a module (the examples are scripts, not
+    a package), so its ``main()`` runs in this process."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_quickstart(torch, np):
+    """quickstart_torch.main() on the card against itself on the CPU."""
+    from repro_torch.kernels.qr_tile import kernel as qk
+    qs = load_example("quickstart")
+    reset_all_counts()
+    cpu = qs.main(["--device", "cpu"])
+    cpu_calls = dict(qk.PLAIN_CALLS)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = qs.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(qk.LAUNCHES), plain_calls()
+    if out["order"][0] != "A" or sorted(out["order"]) != ["A", "B", "C"]:
+        fail(f"quickstart: execution order {out['order']}")
+    if out["makespan"] != 3.0:
+        fail(f"quickstart: makespan {out['makespan']}, wanted 3.0")
+    a, r = out["a"].double(), out["r"].double()
+    gram = float((r.T @ r - a.T @ a).norm() / a.norm() ** 2)
+    # control: R rounded to half precision (TF32's 10-bit mantissa)
+    rh = out["r"].half().double()
+    gram_ctrl = float((rh.T @ rh - a.T @ a).norm() / a.norm() ** 2)
+    if not gram <= GRAM_TOL < gram_ctrl:
+        fail(f"quickstart: ‖RᵀR − AᵀA‖_F/‖A‖_F² {gram:.3e}, its control "
+             f"(R in half precision) {gram_ctrl:.3e}, limit {GRAM_TOL}")
+    if not torch.equal(out["r_engine"], out["r"]):
+        fail("quickstart: the engine's R is not bitwise the sequential R")
+    vs_cpu = float((out["r"].cpu() - cpu["r"]).norm() / cpu["r"].norm())
+    if not vs_cpu <= CPU_TOL:
+        fail(f"quickstart: R on the card vs the CPU {vs_cpu:.3e} > {CPU_TOL}")
+    for k in ("order", "makespan", "nr_tasks", "host_dispatches",
+              "engine_dispatches", "speedups"):
+        if out[k] != cpu[k]:
+            fail(f"quickstart: {k} {out[k]} on the card, {cpu[k]} on the CPU")
+    if plain or launches != cpu_calls or not all(launches.values()):
+        fail(f"quickstart: kernels launched {launches} (the CPU's plain "
+             f"calls {cpu_calls}), plain versions on the card {plain}")
+    log(f"[quickstart] order {out['order']}, makespan {out['makespan']}; "
+        f"{out['nr_tasks']} tasks, |RᵀR − AᵀA| max {out['gram_err']:.2e}, "
+        f"‖·‖_F/‖A‖_F² {gram:.3e} (limit {GRAM_TOL}; R in half precision "
+        f"{gram_ctrl:.3e}); engine R bitwise the sequential R; R vs the CPU "
+        f"{vs_cpu:.3e}; host dispatches {out['host_dispatches']} -> "
+        f"{out['engine_dispatches']} as on the CPU; launches {launches} = "
+        f"the CPU's plain calls, no plain version on the card; "
+        f"{wall:.2f} s")
+    return {"wall_s": wall, "gram_rel": gram, "gram_control": gram_ctrl,
+            "gram_err_max": out["gram_err"], "vs_cpu": vs_cpu,
+            "launches": launches, "speedups": out["speedups"]}
+
+
+def example_nbody(torch, np):
+    """nbody_torch.main() at its defaults on the card: K6/K7 one launch a
+    task, the accuracy bounds with their control, the host's graph and
+    simulation."""
+    from repro_torch.apps import barneshut as bh
+    from repro_torch.core import simulate
+    from repro_torch.kernels.nbody import kernel as nbk
+    nb = load_example("nbody")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = nb.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(nbk.LAUNCHES), plain_calls()
+    g = out["state"].g
+    want = {"acc_self": sum(len(v) for v in g.self_blocks.values()),
+            "acc_pair": 2 * sum(len(v) for d in (g.self_pairs, g.pair_pairs)
+                                for v in d.values())
+            + sum(1 for v in g.pc_lists.values() if v), "bh_walk": 0}
+    if plain or launches != want or not want["acc_self"]:
+        fail(f"nbody: kernels launched {launches}, wanted {want} (one a "
+             f"self block, two a direct pair, one a PC list); plain versions "
+             f"on the card {plain}")
+    x, m = out["x"], out["m"]
+    host = bh.build_graph(bh.Octree(x, m, n_max=nb.N_MAX), n_task=nb.N_TASK)
+    if out["counts"] != host.counts:
+        fail(f"nbody: graph counts {out['counts']}, the host's build "
+             f"{host.counts}")
+    for w in NBODY_RESIMULATE:
+        gw = bh.build_graph(bh.Octree(x, m, n_max=nb.N_MAX),
+                            n_task=nb.N_TASK, nr_queues=w)
+        r = simulate(gw.sched, w)
+        if out["efficiency"][w] != r.total_cost / (w * r.makespan):
+            fail(f"nbody: efficiency at {w} workers {out['efficiency'][w]}, "
+                 f"the host's simulation {r.total_cost / (w * r.makespan)}")
+    dev = out["acc"].device
+    ctrl = nb.relative_errors(out["acc"], nb.direct_sum(
+        torch.as_tensor(x.T, dtype=torch.float32, device=dev),
+        torch.as_tensor(m, dtype=torch.float32, device=dev)))
+    med, mean = out["median_rel"], out["mean_rel"]
+    c_med, c_mean = float(np.median(ctrl)), float(ctrl.mean())
+    if not (med < NBODY_MEDIAN_TOL and mean < NBODY_MEAN_TOL):
+        fail(f"nbody: relative force error median {med:.3e}, mean "
+             f"{mean:.3e} (limits {NBODY_MEDIAN_TOL}, {NBODY_MEAN_TOL})")
+    if c_med < NBODY_MEDIAN_TOL or c_mean < NBODY_MEAN_TOL:
+        fail(f"nbody: the control (input order) passes the limits: median "
+             f"{c_med:.3e}, mean {c_mean:.3e}")
+    log(f"[nbody] N {out['n']}: solve {out['solve_s']:.2f} s on the card "
+        f"(sequential, one launch a task), graph {out['counts']} = the "
+        f"host's build; launches {launches}; relative force error vs the "
+        f"direct sum median {med:.3e}, mean {mean:.3e} (limits "
+        f"{NBODY_MEDIAN_TOL}, {NBODY_MEAN_TOL}; read in the input order "
+        f"{c_med:.3e}, {c_mean:.3e}); efficiencies "
+        f"{ {w: round(e, 6) for w, e in out['efficiency'].items()} } "
+        f"({list(NBODY_RESIMULATE)} = the host's simulation again); "
+        f"{wall:.2f} s")
+    return {"wall_s": wall, "solve_s": out["solve_s"], "counts": out["counts"],
+            "launches": launches, "median_rel": med, "mean_rel": mean,
+            "control_median": c_med, "control_mean": c_mean,
+            "efficiency": out["efficiency"]}
+
+
+def example_trace_qr(torch, np):
+    """trace_qr_torch.main() on the card: one QR walk launch a round and an
+    item (and a warm-up of each), a valid two-process trace."""
+    from repro_torch.kernels.qr_tile import kernel as qk
+    from repro_torch.obs import validate_chrome_trace
+    tq = load_example("trace_qr")
+    EXAMPLE_DIR.mkdir(parents=True, exist_ok=True)
+    path = EXAMPLE_DIR / "trace_qr.json"
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = tq.main(["--out", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(qk.LAUNCHES), plain_calls()
+    info = validate_chrome_trace(str(path))
+    with open(path) as f:
+        trace = json.load(f)
+    path.unlink()
+    names = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    tasks = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X" and e.get("cat") == "task":
+            tasks[names[e["pid"]]] = tasks.get(names[e["pid"]], 0) + 1
+    items = out["nr_items"]
+    if (info["processes"] != ["measured", "predicted"]
+            or tasks != {"measured": items, "predicted": items}
+            or out["n_pred"] != items):
+        fail(f"trace_qr: processes {info['processes']}, task events "
+             f"{tasks}, {out['n_pred']} predicted, wanted {items} each")
+    rounds = int((np.diff(out["tables"].round_offsets) > 0).sum())
+    want = {k: 0 for k in launches}
+    want["qr_walk"] = 2 * rounds + 1 + items   # warm-up and timed rounds,
+    #                                            one item warm-up, the items
+    if plain or launches != want:
+        fail(f"trace_qr: kernels launched {launches}, wanted {want}; plain "
+             f"versions on the card {plain}")
+    bad = json.loads(json.dumps(trace))
+    task = next(e for e in bad["traceEvents"] if e.get("cat") == "task")
+    task["dur"] = -1.0
+    try:
+        validate_chrome_trace(bad)
+    except ValueError:
+        pass
+    else:
+        fail("trace_qr: the validator took an event of negative duration")
+    log(f"[trace_qr] {out['nr_tasks']} tasks, {items} items; qr_walk "
+        f"launches {launches['qr_walk']} ({rounds} rounds twice, one warm-up"
+        f" item, {items} items); measured serial "
+        f"{out['measured_s'] * 1e3:.3f} ms, predicted makespan "
+        f"{out['makespan'] * 1e3:.3f} ms; trace {info['events']} events, "
+        f"processes {info['processes']}, task events {tasks}, valid (a copy "
+        f"with a negative duration refused); {wall:.2f} s")
+    return {"wall_s": wall, "items": items, "launches": launches["qr_walk"],
+            "measured_ms": out["measured_s"] * 1e3,
+            "predicted_ms": out["makespan"] * 1e3, "events": info["events"]}
+
+
+def example_train_lm(torch, np, full_width):
+    """train_lm_torch.main() on the card at its defaults (300 steps),
+    default width or --full-width: no kernel and no plain version, the loss
+    windows' drop beside the lr-0 control's, its checkpoints, 16 greedy
+    ids."""
+    import shutil
+    tl = load_example("train_lm")
+    tag = "train_lm" + ("_full" if full_width else "")
+    workdir = EXAMPLE_DIR / tag
+    shutil.rmtree(workdir, ignore_errors=True)
+    reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = tl.main(["--workdir", str(workdir)]
+                  + (["--full-width"] if full_width else []))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    no_kernel_ran(f"{tag} (example)")
+    ckpts = sorted(os.listdir(workdir / "ckpt"))
+    shutil.rmtree(workdir, ignore_errors=True)
+    losses, cfg = out["losses"], out["cfg"]
+    if ckpts != ["step_00000100", "step_00000200", "step_00000300"]:
+        fail(f"{tag}: checkpoints {ckpts}")
+    if len(out["sample"]) != 16 or not all(0 <= t < cfg.vocab
+                                           for t in out["sample"]):
+        fail(f"{tag}: greedy sample {out['sample']}")
+    ctrl = traced_run(torch, np, cfg, f"{tag}-control", CONTROL_STEPS,
+                      lr=0.0)
+    drop, c_drop = loss_drop(np, losses), loss_drop(np, ctrl["losses"])
+    if ctrl["losses"][0] != losses[0]:
+        fail(f"{tag}: the lr-0 control's first loss {ctrl['losses'][0]} is "
+             f"not the run's {losses[0]}")
+    if not (drop >= LOSS_MARGIN > c_drop):
+        fail(f"{tag}: the first {LOSS_WINDOW} losses' mean minus the last's "
+             f"{drop:.4f}, the lr-0 control's {c_drop:.4f}, margin "
+             f"{LOSS_MARGIN}")
+    log(f"[{tag}] {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{out['n_params']:,} params (param_count), {len(losses)} steps at "
+        f"(128, 8): loss {losses[0]:.4f} -> {losses[-1]:.4f}, window drop "
+        f"{drop:.4f} (margin {LOSS_MARGIN}; lr-0 control over "
+        f"{CONTROL_STEPS} steps {c_drop:.4f}); checkpoints {ckpts}; greedy "
+        f"ids {out['sample']}; no kernel ran; {wall:.2f} s "
+        f"({wall / len(losses) * 1e3:.1f} ms a step with the checkpoints "
+        f"and the sample), peak {peak:.2f} GiB")
+    return {"wall_s": wall, "steps": len(losses), "params": out["n_params"],
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "loss_drop": drop, "control_drop": c_drop, "peak_gib": peak,
+            "sample": out["sample"]}
+
+
+def phase_examples(torch, np, card):
+    """Phase 35: the four examples' twins in this process, on the card."""
+    import shutil
+    out = {"quickstart": example_quickstart(torch, np),
+           "nbody": example_nbody(torch, np),
+           "trace_qr": example_trace_qr(torch, np)}
+    for full in (False, True):
+        out["train_lm" + ("_full" if full else "")] = example_train_lm(
+            torch, np, full)
+        free_card(torch)
+    shutil.rmtree(EXAMPLE_DIR, ignore_errors=True)
+    log(f"[examples] the four twins passed on the card; {card}")
+    return out
+
+
+@contextlib.contextmanager
+def phase_clock(name, times):
+    """Log the seconds of the phases run inside, into ``times[name]``."""
+    t0 = time.perf_counter()
+    yield
+    times[name] = time.perf_counter() - t0
+    log(f"[phase-s] {name}: {times[name]:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -4828,79 +5295,113 @@ def main():
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32):
         fail("TF32 is on")
-    card = phase_device(torch)
-    phase_build()
-    errs = phase_ops(torch, np)
-    walk_err = phase_walk(torch, np)
-    a, launches, vs_cpu, wide = phase_main(torch, np)
-    rows = phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu,
-                        wide, card)
-    del a
-    torch.cuda.empty_cache()
-    nb_errs = phase_nbody_ops(torch, np)
-    bh_err, ms20k, plain20k, rows20k = phase_bh_walk(torch, np)
-    bh_launches, firsts = phase_bh_main(torch, np)
-    paper_launches, paper_rounds = phase_bh_paper(torch, np)
-    rows += phase_bh_timing(torch, np, firsts, bh_launches, paper_launches,
-                            paper_rounds, nb_errs, bh_err,
-                            {"ms": ms20k, "plain_ms": plain20k,
-                             "rows": rows20k}, card)
-    k10_errs = phase_k10(torch, np)
-    serve = phase_serve(torch, np)
-    rows.append(phase_k10_timing(torch, np, k10_errs, serve, card))
-    log("[serve-json] " + json.dumps(
-        {k: serve[k] for k in ("a", "b", "bf16_logit_rel", "profile")}))
-    del serve
-    free_card(torch)
-    sc2 = phase_serve_starcoder2(torch, np)
-    rows[-1]["launches_starcoder2"] = sc2["launches"]
-    log("[serve-sc2-json] " + json.dumps(sc2))
-    del sc2
-    k11_errs = phase_k11(torch, np)
-    serve_mla = phase_serve_mla(torch, np)
-    rows.append(phase_k11_timing(torch, np, k11_errs, serve_mla, card))
-    log("[serve-mla-json] " + json.dumps(
-        {k: serve_mla[k] for k in ("weights", "init_peak_gib", "a", "b",
-                                   "bf16_logit_rel", "profile")}))
-    del serve_mla
-    free_card(torch)
-    k9_err, k9_wide = phase_k9(torch, np)
-    pipe_run = phase_pipe(torch, np)
-    rows.append(phase_pipe_timing(torch, np, k9_err, k9_wide, pipe_run,
-                                  card))
-    del pipe_run
-    k12_errs = phase_k12(torch, np)
-    k12_launches, qkvo = phase_k12_path(torch)
-    rows.append(phase_k12_timing(torch, np, k12_errs, k12_launches, qkvo,
-                                 card))
-    del qkvo
-    train = phase_train(torch, np, card)
-    train["drill"] = phase_drill(torch, np, card)
-    train["fp32"] = phase_train_fp32(torch, np, card)
-    log("[train-json] " + json.dumps(train))
-    del train
-    free_card(torch)
-    log("[rounds-json] " + json.dumps(phase_rounds(torch, np, card)))
-    free_card(torch)
-    log("[ssm-json] " + json.dumps(phase_serve_ssm(torch, np, card)))
-    free_card(torch)
-    log("[ssm-train-json] " + json.dumps(phase_train_ssm(torch, np, card)))
-    free_card(torch)
-    for arch in (ARCH_HYBRID, ARCH_ENCDEC, ARCH_VLM):
-        log(f"[{arch}-json] " + json.dumps(phase_serve_family(torch, np, card,
-                                                              arch)))
+    times = {}
+    with phase_clock("1-2 device, build", times):
+        card = phase_device(torch)
+        phase_build()
+    with phase_clock("3-6 QR", times):
+        errs = phase_ops(torch, np)
+        walk_err = phase_walk(torch, np)
+        a, launches, vs_cpu, wide = phase_main(torch, np)
+        rows = phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu,
+                            wide, card)
+        del a
+        torch.cuda.empty_cache()
+    with phase_clock("7-11 Barnes-Hut", times):
+        nb_errs = phase_nbody_ops(torch, np)
+        bh_err, ms20k, plain20k, rows20k = phase_bh_walk(torch, np)
+        bh_launches, firsts = phase_bh_main(torch, np)
+        paper_launches, paper_rounds, paper_run = phase_bh_paper(torch, np)
+        rows += phase_bh_timing(torch, np, firsts, bh_launches,
+                                paper_launches, paper_rounds, paper_run,
+                                nb_errs, bh_err,
+                                {"ms": ms20k, "plain_ms": plain20k,
+                                 "rows": rows20k}, card)
+        del paper_run
+        torch.cuda.empty_cache()
+    with phase_clock("12-14 K10, qwen3-1.7b", times):
+        k10_errs = phase_k10(torch, np)
+        serve = phase_serve(torch, np)
+        k10_row = phase_k10_timing(torch, np, k10_errs, serve, card)
+        rows.append(k10_row)
+        log("[serve-json] " + json.dumps(
+            {k: serve[k] for k in ("a", "b", "bf16_logit_rel", "profile")}))
+        del serve
         free_card(torch)
-    log("[family-train-json] " + json.dumps(phase_train_families(torch, np,
-                                                                 card)))
-    free_card(torch)
-    log("[dist-json] " + json.dumps(phase_dist(torch, np, card)))
-    free_card(torch)
-    log("[dryrun-json] " + json.dumps(phase_dryrun(torch, np, card)))
+    with phase_clock("14a starcoder2-7b", times):
+        sc2 = phase_serve_starcoder2(torch, np)
+        k10_row["launches_starcoder2"] = sc2["launches"]
+        log("[serve-sc2-json] " + json.dumps(sc2))
+        del sc2
+    with phase_clock("15-17 K11, deepseek-v3-671b", times):
+        k11_errs = phase_k11(torch, np)
+        serve_mla = phase_serve_mla(torch, np)
+        rows.append(phase_k11_timing(torch, np, k11_errs, serve_mla, card))
+        log("[serve-mla-json] " + json.dumps(
+            {k: serve_mla[k] for k in ("weights", "init_peak_gib", "a", "b",
+                                       "bf16_logit_rel", "profile")}))
+        del serve_mla
+        free_card(torch)
+    with phase_clock("18-20 K9, pipeline", times):
+        k9_err, k9_wide = phase_k9(torch, np)
+        pipe_run = phase_pipe(torch, np)
+        rows.append(phase_pipe_timing(torch, np, k9_err, k9_wide, pipe_run,
+                                      card))
+        del pipe_run
+    with phase_clock("21-22 K12", times):
+        k12_errs = phase_k12(torch, np)
+        k12_launches, qkvo = phase_k12_path(torch)
+        rows.append(phase_k12_timing(torch, np, k12_errs, k12_launches, qkvo,
+                                     card))
+        del qkvo
+    with phase_clock("23-25 training", times):
+        train = phase_train(torch, np, card)
+        train["drill"] = phase_drill(torch, np, card)
+        train["fp32"] = phase_train_fp32(torch, np, card)
+        log("[train-json] " + json.dumps(train))
+        del train
+        free_card(torch)
+    with phase_clock("26 round times", times):
+        log("[rounds-json] " + json.dumps(phase_rounds(torch, np, card)))
+        free_card(torch)
+    with phase_clock("27 falcon-mamba-7b serving", times):
+        log("[ssm-json] " + json.dumps(phase_serve_ssm(torch, np, card)))
+        free_card(torch)
+    with phase_clock("28 falcon-mamba-7b training", times):
+        log("[ssm-train-json] " + json.dumps(phase_train_ssm(torch, np,
+                                                             card)))
+        free_card(torch)
+    for i, arch in zip((29, 30, 31), (ARCH_HYBRID, ARCH_ENCDEC, ARCH_VLM)):
+        with phase_clock(f"{i} {arch}", times):
+            log(f"[{arch}-json] " + json.dumps(phase_serve_family(
+                torch, np, card, arch)))
+            free_card(torch)
+    with phase_clock("32 family training", times):
+        log("[family-train-json] " + json.dumps(phase_train_families(
+            torch, np, card)))
+        free_card(torch)
+    with phase_clock("33 distributed", times):
+        log("[dist-json] " + json.dumps(phase_dist(torch, np, card)))
+        free_card(torch)
+    with phase_clock("34 dry run", times):
+        log("[dryrun-json] " + json.dumps(phase_dryrun(torch, np, card)))
+    with phase_clock("35 examples", times):
+        log("[examples-json] " + json.dumps(phase_examples(torch, np, card)))
+        free_card(torch)
+    with phase_clock("36 configurations", times):
+        configs = phase_serve_configs(torch, np)
+        for name, (arch, *_) in zip(K10_LAYOUTS, CONFIG_SERVES):
+            k10_row[f"launches_{name}"] = configs[arch]["launches"]
+            k10_row[f"launches_per_tick_{name}"] = (
+                configs[arch]["launches"] / configs[arch]["ticks"])
+        log("[serve-configs-json] " + json.dumps(configs))
+        del configs
     leaked = sorted(k for k in sys.modules if k == "jax"
                     or k.startswith("jax.") or k == "repro"
                     or k.startswith("repro."))
     if leaked:
         fail(f"imported {leaked}")
+    log("[phase-json] " + json.dumps(times))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -480,6 +480,12 @@ PAGED_SHAPES = [(4, 2, 32, 8, torch.float32),        # qwen3-1.7b reduced
                 (16, 8, 128, 16, torch.bfloat16),
                 (36, 4, 128, 8, torch.float32),      # starcoder2-7b: H/Hkv 9
                 (36, 4, 128, 16, torch.bfloat16),
+                (32, 8, 128, 8, torch.float32),      # granite-8b: H/Hkv 4
+                (32, 8, 128, 16, torch.bfloat16),
+                (24, 8, 128, 8, torch.float32),      # phi4-mini-3.8b: 3
+                (24, 8, 128, 16, torch.bfloat16),
+                (64, 8, 128, 8, torch.float32),      # kimi-k2-1t-a32b: 8
+                (64, 8, 128, 16, torch.bfloat16),
                 (32, 2, 128, 8, torch.bfloat16),     # n_rep 16
                 (8, 2, 20, 8, torch.bfloat16)]       # rows not on 16 bytes
 
@@ -519,9 +525,10 @@ def test_paged_gqa_kernel_matches_plain_on_card(cuda, bs, n_heads, n_kv, hd,
 def test_paged_gqa_kernel_matches_plain_at_serving_depth(cuda, dtype):
     """Workload (b) of chip_smoke.py's serving phase: 8 slots of 40 pages
     at positions spread over 256-319 (288 among them), up to 40 pages
-    walked a slot, at qwen3-1.7b's heads and starcoder2-7b's."""
+    walked a slot, at the heads of every GQA model served on K10: qwen3-1.7b,
+    starcoder2-7b, granite-8b, phi4-mini-3.8b and kimi-k2-1t-a32b."""
     pos = [256, 263, 264, 277, 288, 300, 311, 319]
-    for n_heads, n_kv in ((16, 8), (36, 4)):
+    for n_heads, n_kv in ((16, 8), (36, 4), (32, 8), (24, 8), (64, 8)):
         ops_, rows, p = pa_ref.random_case(8, 8, dtype, 21, cuda,
                                            max_pages=40, pos=pos,
                                            n_heads=n_heads, n_kv=n_kv, hd=128)

@@ -3,6 +3,8 @@ of ``repro``, its entry points default to the card and refuse to run
 quietly on the CPU, and its backend registry is its own."""
 
 import importlib
+import importlib.util
+import pathlib
 import pkgutil
 import subprocess
 import sys
@@ -171,3 +173,47 @@ def test_backend_registry_is_the_ports_own():
         del backends._BACKENDS["probe-only-in-port"]
     if not torch.cuda.is_available():
         assert not backends.get_backend("engine").compiled_kernels()
+
+
+EXAMPLES = pathlib.Path(__file__).resolve().parent.parent / "examples"
+TWINS = ("quickstart", "nbody", "trace_qr", "train_lm")
+RUN_HELP = """
+import runpy, sys
+sys.argv = [{path!r}, '--help']
+try:
+    runpy.run_path({path!r}, run_name='__main__')
+except SystemExit as e:
+    code = e.code
+bad = sorted(k for k in sys.modules
+             if k == 'jax' or k.startswith('jax.') or k == 'repro'
+             or k.startswith('repro.'))
+print(bad)
+sys.exit(1 if bad or code else 0)
+"""
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twin_imports_no_jax_and_nothing_of_repro(name):
+    """examples/<name>_torch.py run as a program with --help loads no jax
+    and no module of repro."""
+    path = str(EXAMPLES / f"{name}_torch.py")
+    out = subprocess.run([sys.executable, "-c", RUN_HELP.format(path=path)],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "--device" in out.stdout
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twin_defaults_to_cuda_and_raises_without_card(name,
+                                                               tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", EXAMPLES / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    argv = {"trace_qr": ["--out", str(tmp_path / "t.json")],
+            "train_lm": ["--workdir", str(tmp_path / "w")]}.get(name, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    assert not any(tmp_path.iterdir())

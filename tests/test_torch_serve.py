@@ -146,6 +146,51 @@ def test_prefill_and_decode_logits_match_reference(model, decode):
         pos = pos + 1
 
 
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("serve", [c[:2] for c in _chip_smoke()
+                                   .CONFIG_SERVES],
+                         ids=lambda c: f"{c[0]}-{c[1]}")
+def test_card_configs_draw_what_chip_smoke_expects(serve):
+    """chip_smoke.py's phase 36 models on ``meta`` (``lm.param_shapes``:
+    init_params, nothing allocated): their weights are the reference
+    config's ``param_count()`` plus the norm scales (2 a layer and the
+    final one, which param_count leaves out), at the published widths,
+    and the weights and bytes are exactly those phase 36 checks on the
+    card."""
+    from repro_torch.models import lm as tlm
+    arch, layers = serve
+    want = {c[0]: c[2:] for c in _chip_smoke().CONFIG_SERVES}[arch]
+    jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    if layers is not None:
+        jcfg = dataclasses.replace(jcfg, n_layers=layers)
+        tcfg = dataclasses.replace(tcfg, n_layers=layers)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    leaves = []
+
+    def walk(tree):
+        for v in tree.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+
+    walk(tlm.param_shapes(tcfg))
+    assert all(t.device.type == "meta" for t in leaves)
+    n = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    assert n == jcfg.param_count() + tcfg.d_model * (2 * tcfg.n_layers + 1)
+    assert (n, nbytes) == tuple(want)
+    # bf16 matrices; float32 norm scales and MoE router
+    f32 = sum(t.numel() for t in leaves if t.dtype == torch.float32)
+    assert nbytes == 2 * (n - f32) + 4 * f32
+
+
 # the dense configs without qk_norm: the port's model matched the reference
 # on them at --reduced (the largest gap 4.3e-6), held here at TOL
 DENSE_NO_QK_NORM = ("starcoder2-7b", "granite-8b", "phi4-mini-3.8b")
