@@ -39,9 +39,12 @@ Phases, each fatal when it fails (each phase's seconds are logged):
  1. the card: name and power limit (nvidia-smi), versions, capability 9.0;
  2. build the kernels (nvcc, sm_90a) and report the build time;
  3. K1-K4 (geqrf, tsqrf, apply_qt, apply_tsqt) against their plain
-    PyTorch versions on the card, b in {1, 7, 16, 32, 33, 64, 96, 128}
-    (past 64 the global-memory bodies), batch 1 and 8 (a zero column, a
-    triangular and a zero tile among the 8);
+    PyTorch versions on the card, b in {1, 7, 16, 32, 33, 64, 65, 96, 128,
+    256} (past 64 the blocked bodies), batch 1 and 8 (a zero column, a
+    triangular and a zero tile among the 8); at b = 1000 (panels of 8),
+    where two float32 QRs lie about the limit apart, each output within
+    the limit of its float64 version or no further from it than the plain
+    float32 version;
  4. K5 (the QR task-table walk, one cooperative launch a plan) against the
     plain walk at 256² / 32² tiles, on the 2048² / 64² plan, whose
     longest phase (296 rows) is longer than the resident grid (264
@@ -52,14 +55,23 @@ Phases, each fatal when it fails (each phase's seconds are logged):
     plain path's on the CPU within tolerance, and the launch counters
     showing that every QR kernel ran, the engine's plan took one walk
     launch and no plain version ran on the card; then the same at
-    1024² / 128² (the global-memory bodies; its launches counted apart);
+    1024² / 128², 1024² / 256² and 2048² / 512² (the blocked bodies;
+    their launches counted apart);
  6. QR timings (CUDA events, median of 3 after warm-up): run_qr per mode
     at 2048² (threaded one run) and engine mode at 4096², launches per plan (one), the walk
     of the 2048² plan beside its barrier floor (the same table with every
     row a QR_NOOP: 125 grid barriers, one launch) and of the 1024² /
-    128² plan beside its own, each kernel at b = 64 and 128 beside its
+    128² plan beside its own, each kernel at b = 64, 128 and 256 beside its
     bound, its plain version and a PyTorch yardstick (torch.geqrf,
-    torch.ormqr, torch.linalg.qr — never called by the port);
+    torch.ormqr, torch.linalg.qr — never called by the port), the b = 128
+    times beside their first form's (PERF.md §6);
+ 6a. the paper's QR graph (32 x 32 tiles, 11,440 tasks, 125 phases) on a
+    seeded 4096² matrix at 128² tiles: run_qr in engine mode, its counts
+    zeroed before and read after (one walk launch, no plain version), R
+    valid (Gram, float64 LAPACK up to signs) and within 1e-4 of the plain
+    path on the CPU; the engine wall (median of 3) beside the same matrix
+    at 64² tiles and torch.linalg.qr at 4096², the walk beside its barrier
+    floor and bound;
  7. K6/K7 (acc_pair, acc_self) against their plain versions on the card,
     Ni, Nj in {1, 30, 37, 58, 100, 128, 463, 1000}, with coincident
     particles and zero masses, two launches bitwise equal;
@@ -357,12 +369,29 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, str(ROOT / "src"))
 
 N_MAIN, B_MAIN = 2048, 64        # the paper's benchmark matrix and tile
-N_WIDE, B_WIDE = 1024, 128       # tiles past 64: the global-memory bodies
+N_WIDE, B_WIDE = 1024, 128       # tiles past 64: the blocked bodies
+B_WIDER = 256                    # panels of 32, eight a tile
 # K1-K4 tile sizes: edges of the kernels' 4-row and 4-thread blocks, the
 # reference tests' and run_qr's 32, the paper's 64, and tiles past 64
-# (the global-memory bodies)
-OP_SIZES = (1, 7, 16, 32, 33, 64, 96, 128)
+# (the blocked bodies: panels of 64 + 1, 64 + 32, two of 64, eight of 32)
+OP_SIZES = (1, 7, 16, 32, 33, 64, 65, 96, 128, 256)
+# past 256 two float32 QRs lie about the kernel-vs-plain limit apart, so
+# K1-K4 at b = 1000 (panels of 8) are held to float64 instead: each output
+# within OP_TOL of the float64 version, or no further from it than the
+# plain float32 version is; and run_qr at 2048² / 512² (panels of 16)
+B_F64 = 1000
+N_WIDEST, B_WIDEST = 2048, 512
 N_LARGE = 4096
+# the paper's QR graph (benchmarks/qr_scaling.py: 32 x 32 tiles, 11,440
+# tasks, 125 phases) on a 4096^2 matrix at 128^2 tiles
+B_PAPER = 128
+# K1-K5 at b = 128 in their first form (the global-memory bodies; runs
+# r19 and r20 in PERF.md §6, NVIDIA H100 80GB HBM3, 700 W), logged beside
+# this run's times
+FIRST_FORM_B128 = {"geqrf": (2.46060, 2.45007), "tsqrf": (3.73366, 3.64253),
+                   "apply_qt": (0.87340, 0.86420),
+                   "apply_tsqt": (0.93421, 0.92700),
+                   "qr_walk": (105.427, 103.903)}
 LANES = 4
 MODES = ("sequential", "threaded", "rounds", "engine")
 FP32_PEAK = 67e12     # H100 SXM fp32 outside the tensor cores (data sheet)
@@ -411,6 +440,19 @@ def fail(msg):
 
 def median_of(fn, reps=3):
     return statistics.median(fn() for _ in range(reps))
+
+
+@contextlib.contextmanager
+def one_cpu_thread(torch):
+    """The QR plain path on the CPU is thousands of ops on small tiles:
+    one intra-op thread runs it many times faster than a pool contending
+    for each op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------------------
@@ -531,7 +573,64 @@ def phase_ops(torch, np):
     log(f"[ops] K1-K4 match their plain versions, b in {OP_SIZES}, batch "
         f"1 and 8 (zero column, triangular and zero tiles), atol 2e-5 rtol "
         f"1e-4; max |err| {errs}")
+    ops_vs_float64(torch, np, B_F64)
     return errs
+
+
+def tol_dist(np, got, want):
+    """max |got - want| / (atol + rtol |want|) at OP_TOL: 1 is the limit."""
+    g, w = (x.double().cpu().numpy() for x in (got, want))
+    if not np.isfinite(g).all():
+        fail("non-finite kernel output")
+    return float((np.abs(g - w) / (OP_TOL["atol"] + OP_TOL["rtol"]
+                                   * np.abs(w))).max())
+
+
+def ops_vs_float64(torch, np, b):
+    """K1-K4 at tile size b (batch 1, seeded) against the float64 versions
+    of their plain functions on the same float32 inputs: each output within
+    OP_TOL of float64, or no further from it than the plain float32
+    version; returns the distances (1 = the limit)."""
+    from repro_torch.kernels.qr_tile import ops, ref
+    rng = np.random.default_rng(b)
+    a, c1, c2, r0 = (torch.tensor(rng.standard_normal((b, b)),
+                                  dtype=torch.float32, device="cuda")
+                     for _ in range(4))
+    r0 = torch.triu(r0)
+    rv, _, t = ref.geqrf_ref(a)
+    _, v2, _, t2 = ref.tsqrf_ref(r0, c1)
+    d64 = lambda *x: [y.double() for y in x]     # noqa: E731
+    cases = {
+        "geqrf": ([y[0] for y in ops.geqrf(a[None])], ref.geqrf_ref(a),
+                  ref.geqrf_ref(a.double())),
+        "tsqrf": ([y[0] for y in ops.tsqrf(r0[None], c1[None])],
+                  ref.tsqrf_ref(r0, c1), ref.tsqrf_ref(*d64(r0, c1))),
+        "apply_qt": ([ops.apply_qt(rv[None], t[None], c2[None])[0]],
+                     [ref.apply_qt_ref(rv, t, c2)],
+                     [ref.apply_qt_ref(*d64(rv, t, c2))]),
+        "apply_tsqt": ([y[0] for y in ops.apply_tsqt(v2[None], t2[None],
+                                                     c1[None], c2[None])],
+                       ref.apply_tsqt_ref(v2, t2, c1, c2),
+                       ref.apply_tsqt_ref(*d64(v2, t2, c1, c2)))}
+    torch.cuda.synchronize()
+    out = {}
+    for name, (got, plain, exact) in cases.items():
+        dk = [tol_dist(np, g, e) for g, e in zip(got, exact)]
+        dp = [tol_dist(np, p, e) for p, e in zip(plain, exact)]
+        dkp = [tol_dist(np, g, p) for g, p in zip(got, plain)]
+        out[name] = dk
+        log(f"[ops-f64] {name} b = {b}: distance from float64 (1 = atol "
+            f"2e-5 rtol 1e-4) kernel {fmt(dk)}, plain float32 {fmt(dp)}; "
+            f"kernel from plain {fmt(dkp)}")
+        for k, p in zip(dk, dp):
+            if k > max(1.0, p):
+                fail(f"{name} at b = {b} lies {k:.3f} from float64, past "
+                     f"the limit and the plain version's {p:.3f}")
+    return out
+
+
+def fmt(xs):
+    return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
 
 
 def plan_tables(torch, n, b):
@@ -593,7 +692,7 @@ def walk_tiles(torch, np, tables, a, b):
 def phase_walk(torch, np):
     """K5 against the plain walk at 256² / 32², on the main path's
     2048² / 64² plan, whose longest phase is longer than the resident
-    grid, and at 1024² / 128² (the global-memory bodies)."""
+    grid, and at 1024² / 128² (the blocked bodies)."""
     from repro_torch.kernels.qr_tile import kernel
     out = {"abs": 0.0, "rel": 0.0}
     for n, b in ((256, 32), (N_MAIN, B_MAIN), (N_WIDE, B_WIDE)):
@@ -631,11 +730,17 @@ def run_mode(torch, qr, a, mode, tile=B_MAIN):
 
 def phase_main(torch, np):
     """run_qr at 2048² / 64² (the main path: its launches are the kernels
-    line's), then at 1024² / 128² (the global-memory bodies), each in the
-    four modes with every check."""
+    line's), then at 1024² / 128² and 256² and 2048² / 512² (the blocked
+    bodies), each in the four modes with every check."""
     a, total, vs_cpu = qr_modes(torch, np, N_MAIN, B_MAIN, "main")
     wide = qr_modes(torch, np, N_WIDE, B_WIDE, "main-wide")
-    return a, total, vs_cpu, {"launches": wide[1], "vs_cpu": wide[2]}
+    wider = qr_modes(torch, np, N_WIDE, B_WIDER, "main-wide256")
+    widest = qr_modes(torch, np, N_WIDEST, B_WIDEST, "main-wide512")
+    return a, total, vs_cpu, {"launches": wide[1], "vs_cpu": wide[2],
+                              "launches_b256": wider[1],
+                              "vs_cpu_b256": wider[2],
+                              "launches_b512": widest[1],
+                              "vs_cpu_b512": widest[2]}
 
 
 def qr_modes(torch, np, n, b, tag):
@@ -676,7 +781,8 @@ def qr_modes(torch, np, n, b, tag):
     s = np.sign(np.diag(r)) * np.sign(np.diag(r64))
     lap = float(np.linalg.norm(r * s[:, None] - r64) / np.linalg.norm(r64))
     t0 = time.perf_counter()
-    r_cpu, _ = qr.run_qr(a_np, tile=b, mode="engine", device="cpu")
+    with one_cpu_thread(torch):
+        r_cpu, _ = qr.run_qr(a_np, tile=b, mode="engine", device="cpu")
     cpu_s = time.perf_counter() - t0
     r_cpu = r_cpu.double().numpy()
     vs_cpu = float(np.linalg.norm(r - r_cpu) / np.linalg.norm(r_cpu))
@@ -753,9 +859,47 @@ def graph_ms(torch, fn, reps=50):
     return e0.elapsed_time(e1) / reps
 
 
+def walk_times(torch, mat, b):
+    """K5 over the whole plan of ``mat`` at tile b, on fresh copies of the
+    stack, desc and offsets uploaded beforehand (as execute_plan does), and
+    beside it the barrier floor: the same table with every row a no-op.
+    Returns (tables, ms, floor ms, bound ms, bound_by, flops), the times
+    medians of 3 after a warm-up (CUDA events)."""
+    from repro_torch import engine
+    dev = torch.device("cuda")
+    tab = plan_tables(torch, mat.shape[0], b)
+    init = stack_of(torch, mat, b)
+    noops = tab.desc.copy()
+    noops[:, 0] = engine.QR_NOOP
+
+    def walk_ms_of(table):
+        desc, phases = engine.upload_phases(table, tab.phase_offsets, dev)
+
+        def once():
+            tiles, tmat = init[0].clone(), init[1].clone()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            engine.qr_round_fn(desc, phases, (), (tiles, tmat))
+            e1.record()
+            torch.cuda.synchronize()
+            return e0.elapsed_time(e1)
+
+        once()
+        return median_of(once)
+
+    etypes = tab.desc[:, 0]
+    names = ("geqrf", "apply_qt", "tsqrf", "apply_tsqt")  # QR_* order
+    flops = sum(2 * macs(nm, b) * int((etypes == k).sum())
+                for k, nm in enumerate(names))
+    nbytes = tab.desc.nbytes + 3 * init[0].numel() * 4
+    return (tab, walk_ms_of(tab.desc), walk_ms_of(noops),
+            *bound_ms(flops, nbytes), flops)
+
+
 def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
                  card):
-    from repro_torch import engine
     from repro_torch.apps import qr
     from repro_torch.kernels.qr_tile import kernel, ops, ref
 
@@ -788,8 +932,8 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
         f"{per_plan_large} at {N_LARGE}²; {card}")
 
     # per-op kernels at b = 64, batch 1 (the run_one shape) and at the
-    # largest batch the rounds mode gives them; then at b = 128 (the
-    # global-memory bodies), batch 1
+    # largest batch the rounds mode gives them; then at b = 128 and 256
+    # (the blocked bodies), batch 1
     dev = torch.device("cuda")
     replaces = {"geqrf": "src/repro/kernels/qr_tile/kernel.py:173",
                 "tsqrf": "src/repro/kernels/qr_tile/kernel.py:190",
@@ -880,9 +1024,11 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
 
     per_op = op_times(B_MAIN)
     per_op_wide = op_times(B_WIDE)
+    per_op_wider = op_times(B_WIDER)
     rows = []
     for name, (ms, plain, lib, bms, by) in per_op.items():
         wms, wplain, wlib, wbms, _ = per_op_wide[name]
+        xms, xplain, xlib, xbms, _ = per_op_wider[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces[name],
                      "launches": launches[name],
@@ -890,49 +1036,24 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
                      "bound_ms": bms, "bound_by": by, "library_ms": lib,
                      "ms_b128": wms, "plain_ms_b128": wplain,
                      "bound_ms_b128": wbms, "library_ms_b128": wlib,
-                     "launches_1024_b128": wide["launches"][name]})
+                     "launches_1024_b128": wide["launches"][name],
+                     "ms_b256": xms, "plain_ms_b256": xplain,
+                     "bound_ms_b256": xbms, "library_ms_b256": xlib,
+                     "launches_1024_b256": wide["launches_b256"][name]})
+        log(f"[time] {name} b=128: {wms:.5f} ms (library {wlib:.5f} ms); "
+            f"first form {FIRST_FORM_B128[name][0]:.5f} and "
+            f"{FIRST_FORM_B128[name][1]:.5f} ms (PERF.md §6, runs r19, "
+            f"r20): {FIRST_FORM_B128[name][1] / wms:.1f}x; {card}")
 
-    # K5: the whole walk of the 2048² plan, on fresh copies of the stack,
-    # desc and offsets uploaded beforehand (as execute_plan does); beside
-    # it the barrier floor: the same table with every row a no-op; then
-    # the 1024² / 128² plan (the global-memory bodies)
-    def walk_times(mat, b):
-        tab = plan_tables(torch, mat.shape[0], b)
-        init = stack_of(torch, mat, b)
-        noops = tab.desc.copy()
-        noops[:, 0] = engine.QR_NOOP
-
-        def walk_ms_of(table):
-            desc, phases = engine.upload_phases(table, tab.phase_offsets,
-                                                dev)
-
-            def once():
-                tiles, tmat = init[0].clone(), init[1].clone()
-                torch.cuda.synchronize()
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                engine.qr_round_fn(desc, phases, (), (tiles, tmat))
-                e1.record()
-                torch.cuda.synchronize()
-                return e0.elapsed_time(e1)
-
-            once()
-            return median_of(once)
-
-        etypes = tab.desc[:, 0]
-        names = ("geqrf", "apply_qt", "tsqrf", "apply_tsqt")  # QR_* order
-        flops = sum(2 * macs(nm, b) * int((etypes == k).sum())
-                    for k, nm in enumerate(names))
-        nbytes = tab.desc.nbytes + 3 * init[0].numel() * 4
-        return (tab, walk_ms_of(tab.desc), walk_ms_of(noops),
-                *bound_ms(flops, nbytes), flops)
-
-    tables, walk_ms, floor_ms, wbms, wby, walk_flops = walk_times(a, B_MAIN)
+    # K5: the whole walk of the 2048² plan beside its barrier floor, then
+    # the 1024² / 128² plan (the blocked bodies)
+    tables, walk_ms, floor_ms, wbms, wby, walk_flops = walk_times(
+        torch, a, B_MAIN)
     walk_plain_ms = walk_err["plain_ms"]
     mid = torch.tensor(np.random.default_rng(N_WIDE).standard_normal(
         (N_WIDE, N_WIDE)), dtype=torch.float32, device="cuda")
-    tab_w, walk_w, floor_w, wbms_w, _, flops_w = walk_times(mid, B_WIDE)
+    tab_w, walk_w, floor_w, wbms_w, _, flops_w = walk_times(
+        torch, mid, B_WIDE)
     lib_w = median_of(lambda: events_ms(
         torch, lambda: torch.linalg.qr(mid, mode="r"), 3))
     rows.append({"name": "qr_walk", "route": "cuda", "source": source,
@@ -952,7 +1073,10 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
                  "bound_ms_1024_b128": wbms_w, "library_ms_1024": lib_w,
                  "launches_1024_b128": wide["launches"]["qr_walk"],
                  "rel_fro_vs_cpu_1024_b128": wide["vs_cpu"],
-                 "resident_grid_b128": walk_err["grid_wide"]})
+                 "resident_grid_b128": walk_err["grid_wide"],
+                 "launches_1024_b256": wide["launches_b256"]["qr_walk"],
+                 "rel_fro_vs_cpu_1024_b256": wide["vs_cpu_b256"],
+                 "engine_wall_s_4096_b64": walls[f"engine@{N_LARGE}"]})
     log(f"[time] qr_walk {N_MAIN}² plan ({tables.nr_items} rows, "
         f"{tables.nr_phases} phases, {per_plan} launch, "
         f"{walk_err['grid']} resident blocks): {walk_ms:.3f} ms (median of "
@@ -965,8 +1089,77 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
         f"resident blocks): {walk_w:.3f} ms (median of 3), barrier floor "
         f"{floor_w:.4f} ms, bound {wbms_w:.4f} ms ({flops_w / 1e9:.3f} "
         f"GFLOP), plain walk {walk_err['plain_ms_wide']:.1f} ms (one run, "
-        f"phase 4), torch.linalg.qr {N_WIDE}² {lib_w:.3f} ms; {card}")
+        f"phase 4), torch.linalg.qr {N_WIDE}² {lib_w:.3f} ms; first form "
+        f"{FIRST_FORM_B128['qr_walk'][0]:.3f} and "
+        f"{FIRST_FORM_B128['qr_walk'][1]:.3f} ms (PERF.md §6, runs r19, "
+        f"r20): {FIRST_FORM_B128['qr_walk'][1] / walk_w:.1f}x; {card}")
     return rows
+
+
+def phase_qr_paper(torch, np, card):
+    """The paper's QR graph (32 x 32 tiles) on a seeded 4096² matrix at
+    128² tiles through run_qr's engine mode, its counts zeroed before and
+    read after, held as the main path is (phase 5); then its engine wall,
+    its walk beside the barrier floor and bound, and torch.linalg.qr.
+    Returns the keys phase 6's qr_walk row takes for it."""
+    from repro_torch.apps import qr
+    from repro_torch.kernels.qr_tile import kernel
+    n, b = N_LARGE, B_PAPER
+    a_np = np.random.default_rng(n).standard_normal((n, n)).astype(
+        np.float32)              # phase 6's engine@4096 matrix (64² tiles)
+    a = torch.tensor(a_np, device="cuda")
+    kernel.reset_counts()
+    r_dev, secs = run_mode(torch, qr, a, "engine", b)
+    launches = dict(kernel.LAUNCHES)
+    if launches["qr_walk"] != 1 or any(v for k, v in launches.items()
+                                       if k != "qr_walk"):
+        fail(f"{n}² / {b}² engine launches {launches}: not one walk")
+    if any(kernel.PLAIN_CALLS.values()):
+        fail(f"{n}² / {b}²: a plain version ran on the card "
+             f"{kernel.PLAIN_CALLS}")
+    r = r_dev.double().cpu().numpy()
+    a64 = a_np.astype(np.float64)
+    if not np.isfinite(r).all() or np.abs(np.tril(r, -1)).max() != 0.0:
+        fail(f"{n}² / {b}²: R is not a finite upper-triangular matrix")
+    gram = float(np.linalg.norm(r.T @ r - a64.T @ a64)
+                 / np.linalg.norm(a64) ** 2)
+    r64 = np.linalg.qr(a64, mode="r")
+    sgn = np.sign(np.diag(r)) * np.sign(np.diag(r64))
+    lap = float(np.linalg.norm(r * sgn[:, None] - r64)
+                / np.linalg.norm(r64))
+    t0 = time.perf_counter()
+    with one_cpu_thread(torch):
+        r_cpu, _ = qr.run_qr(a_np, tile=b, mode="engine", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    r_cpu = r_cpu.double().numpy()
+    vs_cpu = float(np.linalg.norm(r - r_cpu) / np.linalg.norm(r_cpu))
+    log(f"[paper] {n}² / {b}² tiles (the paper's 32 x 32-tile graph), "
+        f"{LANES} lanes, engine: launches {launches} (first run "
+        f"{secs:.3f} s); Gram {gram:.3e} (bound {GRAM_TOL}); LAPACK fp64 up "
+        f"to signs {lap:.3e} (bound {LAPACK_TOL}); engine vs plain CPU path "
+        f"{vs_cpu:.3e} (bound {CPU_TOL}; CPU run {cpu_s:.1f} s)")
+    for name, val, tol in (("Gram", gram, GRAM_TOL), ("LAPACK", lap,
+                           LAPACK_TOL), ("CPU", vs_cpu, CPU_TOL)):
+        if not val < tol:
+            fail(f"{n}² / {b}² {name} check {val:.3e} >= {tol}")
+    wall = median_of(lambda: run_mode(torch, qr, a, "engine", b)[1])
+    tab, walk, floor, bms, by, flops = walk_times(torch, a, b)
+    lib = median_of(lambda: events_ms(
+        torch, lambda: torch.linalg.qr(a, mode="r"), 3))
+    grid = kernel.walk_grid(b)
+    log(f"[time] {n}² / {b}² engine wall {wall:.4f} s (median of 3); "
+        f"qr_walk ({tab.nr_items} rows, {tab.nr_phases} phases, longest "
+        f"{tab.stats['max_phase_len']}, {grid} resident blocks) "
+        f"{walk:.3f} ms, barrier floor {floor:.4f} ms, bound {bms:.4f} ms "
+        f"({by}, {flops / 1e9:.3f} GFLOP); torch.linalg.qr {n}² "
+        f"{lib:.3f} ms; {card}")
+    return {"ms_4096_b128": walk, "barrier_floor_ms_4096_b128": floor,
+            "bound_ms_4096_b128": bms, "library_ms_4096": lib,
+            "launches_4096_b128": launches["qr_walk"],
+            "rel_fro_vs_cpu_4096_b128": vs_cpu, "gram_4096_b128": gram,
+            "lapack_4096_b128": lap, "engine_wall_s_4096_b128": wall,
+            "rows_4096_b128": int(tab.nr_items),
+            "phases_4096_b128": int(tab.nr_phases)}
 
 
 # ---------------------------------------------------------------------------
@@ -5306,6 +5499,10 @@ def main():
         rows = phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu,
                             wide, card)
         del a
+        torch.cuda.empty_cache()
+    with phase_clock("6a QR 4096² / 128²", times):
+        next(r for r in rows if r["name"] == "qr_walk").update(
+            phase_qr_paper(torch, np, card))
         torch.cuda.empty_cache()
     with phase_clock("7-11 Barnes-Hut", times):
         nb_errs = phase_nbody_ops(torch, np)

@@ -18,24 +18,25 @@
 // factorization), so it is bound by the latency of one tile body and of
 // the barrier, not by bytes (0.22 ms for the whole plan's operations at
 // the fp32 rate) or by flops.  What the design does about it: the tile
-// bodies (qr_tile.cuh) keep each chain short — panels in registers with
-// one block barrier a column and T built after the loop, products
-// register-blocked 4 x 4 a thread from float4 shared-memory reads — and
-// the walk is one launch, so no phase waits on a host launch.  Two blocks
-// fit an SM (six 18 KB tile slots at b = 64); the grid is every resident
-// block (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, for the
-// shared memory the body that runs takes), capped at the longest phase,
-// and a phase with more rows than the grid takes them in turns.  A tile a
-// row reads may have been written by another SM in an earlier phase, and
-// L1 is not coherent across SMs: every tile and T load bypasses L1
-// (__ldcg); the grid barrier orders the writes.
+// bodies (qr_tile.cuh) keep each chain short — panels with one block
+// barrier a column and T built after the loop, products register-blocked
+// 4 x 4 a thread from float4 shared-memory reads — and the walk is one
+// launch, so no phase waits on a host launch.  Two blocks fit an SM at b
+// <= 64 (six 18 KB tile slots), one past it (the wide bodies' registers);
+// the grid is every resident block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, for the shared
+// memory the body that runs takes), capped at the longest phase, and a
+// phase with more rows than the grid takes them in turns.  A tile a row
+// reads may have been written by another SM in an earlier phase, and L1
+// is not coherent across SMs: every tile and T load bypasses L1 (__ldcg);
+// the grid barrier orders the writes.
 //
-// Tiles wider than QR_MAX_B run the wide bodies of qr_tile.cuh on the
-// tiles in global memory, in place, with qr_wide_floats(b) floats of
-// global scratch a block from the wrapper (ws): every kernel and the walk
-// choose the body by b, so at any b the four modes run one body per op.
-// The per-op kernels copy their inputs into their outputs and run the
-// body there, as the walk runs it on the tile stack.
+// Tiles wider than QR_MAX_B run the blocked bodies of qr_tile.cuh on the
+// tiles in global memory, in place, through their own shared-memory
+// layout (qr_wide_floats): every kernel and the walk choose the body by
+// b, so at any b the four modes run one body per op.  The per-op kernels
+// copy their inputs into their outputs and run the body there, as the
+// walk runs it on the tile stack.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -43,8 +44,6 @@
 #include "qr_tile.cuh"
 
 namespace cg = cooperative_groups;
-
-extern __shared__ __align__(16) float qr_smem[];
 
 namespace {
 
@@ -96,38 +95,28 @@ __device__ __forceinline__ void store_vec(float* dst, const float* src,
 }
 
 // b > QR_MAX_B: a (b,b) tile global -> global, ahead of a wide body that
-// works on dst in place (the caller syncs)
+// works on dst in place (the caller syncs); 16 loads in flight a thread
 __device__ __forceinline__ void copy_tile(float* dst, const float* src,
                                           int b) {
-  const size_t n = (size_t)b * b;
-  for (size_t e = threadIdx.x; e < n; e += QR_THREADS)
-    qr_gs(dst + e, qr_gl(src + e));
-}
-
-// this block's global scratch of the wide bodies: W (b x b), u, taus
-struct Wide {
-  float *w, *u, *taus;
-};
-
-__device__ __forceinline__ Wide qr_wide(float* ws, int b) {
-  Wide x;
-  x.w = ws + (size_t)blockIdx.x * qr_wide_floats(b);
-  x.u = x.w + (size_t)b * b;
-  x.taus = x.u + b;
-  return x;
+  const int n = b * b;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 16 * QR_THREADS) {
+    float x[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int e = e0 + k * QR_THREADS;
+      x[k] = e < n ? __ldcg(src + e) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int e = e0 + k * QR_THREADS;
+      if (e < n) __stcg(dst + e, x[k]);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(QR_THREADS, 2)
-geqrf_kernel(const float* a, float* rv, float* tau, float* t, float* ws,
-             int b) {
+geqrf_kernel(const float* a, float* rv, float* tau, float* t, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
-  if (b > QR_MAX_B) {
-    copy_tile(rv + off, a + off, b);
-    __syncthreads();
-    geqrf_wide(rv + off, t + off, tau + (size_t)blockIdx.x * b,
-               qr_wide(ws, b).u, qr_smem, b);
-    return;
-  }
   Slots s = qr_slots(b);
   load_tile(s.t[0], a + off, b);
   __syncthreads();
@@ -139,16 +128,8 @@ geqrf_kernel(const float* a, float* rv, float* tau, float* t, float* ws,
 
 __global__ void __launch_bounds__(QR_THREADS, 2)
 tsqrf_kernel(const float* r, const float* a, float* r1, float* v2,
-             float* tau, float* t, float* ws, int b) {
+             float* tau, float* t, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
-  if (b > QR_MAX_B) {
-    copy_tile(r1 + off, r + off, b);
-    copy_tile(v2 + off, a + off, b);
-    __syncthreads();
-    tsqrf_wide(r1 + off, v2 + off, t + off, tau + (size_t)blockIdx.x * b,
-               qr_wide(ws, b).u, qr_smem, b);
-    return;
-  }
   Slots s = qr_slots(b);
   load_tile(s.t[0], r + off, b);
   load_tile(s.t[1], a + off, b);
@@ -162,14 +143,8 @@ tsqrf_kernel(const float* r, const float* a, float* r1, float* v2,
 
 __global__ void __launch_bounds__(QR_THREADS, 2)
 apply_qt_kernel(const float* rv, const float* t, const float* c, float* out,
-                float* ws, int b) {
+                int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
-  if (b > QR_MAX_B) {
-    copy_tile(out + off, c + off, b);
-    __syncthreads();
-    apply_qt_wide(rv + off, t + off, out + off, qr_wide(ws, b).w, b);
-    return;
-  }
   Slots s = qr_slots(b);
   load_tile(s.t[0], rv + off, b);
   load_tile(s.t[1], t + off, b);
@@ -181,16 +156,8 @@ apply_qt_kernel(const float* rv, const float* t, const float* c, float* out,
 
 __global__ void __launch_bounds__(QR_THREADS, 2)
 apply_tsqt_kernel(const float* v2, const float* t, const float* c1,
-                  const float* c2, float* o1, float* o2, float* ws, int b) {
+                  const float* c2, float* o1, float* o2, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
-  if (b > QR_MAX_B) {
-    copy_tile(o1 + off, c1 + off, b);
-    copy_tile(o2 + off, c2 + off, b);
-    __syncthreads();
-    apply_tsqt_wide(v2 + off, t + off, o1 + off, o2 + off, qr_wide(ws, b).w,
-                    b);
-    return;
-  }
   Slots s = qr_slots(b);
   load_tile(s.t[0], v2 + off, b);
   load_tile(s.t[1], t + off, b);
@@ -202,25 +169,74 @@ apply_tsqt_kernel(const float* v2, const float* t, const float* c1,
   store_tile(o2 + off, s.t[3], b);
 }
 
+// b > QR_MAX_B: the blocked bodies, in kernels of their own, one block an
+// SM (__launch_bounds__(QR_THREADS, 1)): a panel column's 32 rows a thread
+// sit in double registers, which at 128 registers a thread spilled to
+// local memory inside every column step.  The per-op kernels copy their
+// inputs into their outputs and run the body there.
+__global__ void __launch_bounds__(QR_THREADS, 1)
+geqrf_wide_kernel(const float* a, float* rv, float* tau, float* t, int b) {
+  const size_t off = (size_t)blockIdx.x * b * b;
+  QR_STAMP(9);
+  copy_tile(rv + off, a + off, b);
+  __syncthreads();
+  QR_STAMP(10);
+  geqrf_wide(rv + off, t + off, tau + (size_t)blockIdx.x * b, b);
+}
+
+__global__ void __launch_bounds__(QR_THREADS, 1)
+tsqrf_wide_kernel(const float* r, const float* a, float* r1, float* v2,
+                  float* tau, float* t, int b) {
+  const size_t off = (size_t)blockIdx.x * b * b;
+  QR_STAMP(9);
+  copy_tile(r1 + off, r + off, b);
+  copy_tile(v2 + off, a + off, b);
+  __syncthreads();
+  QR_STAMP(10);
+  tsqrf_wide(r1 + off, v2 + off, t + off, tau + (size_t)blockIdx.x * b, b);
+}
+
+__global__ void __launch_bounds__(QR_THREADS, 1)
+apply_qt_wide_kernel(const float* rv, const float* t, const float* c,
+                     float* out, int b) {
+  const size_t off = (size_t)blockIdx.x * b * b;
+  QR_STAMP(9);
+  copy_tile(out + off, c + off, b);
+  __syncthreads();
+  QR_STAMP(10);
+  apply_qt_wide(rv + off, t + off, out + off, b);
+}
+
+__global__ void __launch_bounds__(QR_THREADS, 1)
+apply_tsqt_wide_kernel(const float* v2, const float* t, const float* c1,
+                       const float* c2, float* o1, float* o2, int b) {
+  const size_t off = (size_t)blockIdx.x * b * b;
+  QR_STAMP(9);
+  copy_tile(o1 + off, c1 + off, b);
+  copy_tile(o2 + off, c2 + off, b);
+  __syncthreads();
+  QR_STAMP(10);
+  apply_tsqt_wide(v2 + off, t + off, o1 + off, o2 + off, b);
+}
+
 // One row [etype, s0, s1, s2] of the table, by the whole block, b >
 // QR_MAX_B: the wide bodies on the tile stack in place.
 __device__ __forceinline__ void qr_row_wide(const int* row, float* tiles,
-                                            float* tmat, const Wide& w,
-                                            int b) {
+                                            float* tmat, int b) {
   const size_t bb = (size_t)b * b;
   const size_t s0 = row[1] * bb, s1 = row[2] * bb, s2 = row[3] * bb;
   switch (row[0]) {
     case 0:  // GEQRF [kk]
-      geqrf_wide(tiles + s0, tmat + s0, w.taus, w.u, qr_smem, b);
+      geqrf_wide(tiles + s0, tmat + s0, nullptr, b);
       break;
     case 1:  // LARFT [kk, kj]
-      apply_qt_wide(tiles + s0, tmat + s0, tiles + s1, w.w, b);
+      apply_qt_wide(tiles + s0, tmat + s0, tiles + s1, b);
       break;
     case 2:  // TSQRF [kk, ik]
-      tsqrf_wide(tiles + s0, tiles + s1, tmat + s1, w.taus, w.u, qr_smem, b);
+      tsqrf_wide(tiles + s0, tiles + s1, tmat + s1, nullptr, b);
       break;
     case 3:  // SSRFT [ik, kj, ij]
-      apply_tsqt_wide(tiles + s0, tmat + s0, tiles + s1, tiles + s2, w.w, b);
+      apply_tsqt_wide(tiles + s0, tmat + s0, tiles + s1, tiles + s2, b);
       break;
     default:  // QR_NOOP and anything out of range: no-op
       break;
@@ -281,26 +297,44 @@ __device__ __forceinline__ void qr_row(const int* row, float* tiles,
 // coloring guarantees the rows of a phase touch disjoint tiles, so they
 // may run in any order and on any block; the grid barrier makes phase p's
 // stores visible before phase p + 1 loads.  tiles and tmat are (ntiles,
-// b, b) stacks in column-major tile order, updated in place.  ws: the wide
-// bodies' scratch, qr_wide_floats(b) floats a block (b > QR_MAX_B only).
-__global__ void __launch_bounds__(QR_THREADS, 2)
-qr_walk_kernel(const int* __restrict__ desc, const int* __restrict__ offs,
-               int nphases, int width, float* tiles, float* tmat, float* ws,
-               int b) {
+// b, b) stacks in column-major tile order, updated in place.  WIDE: the
+// blocked bodies (qr_walk_wide_kernel, b > QR_MAX_B).
+template <bool WIDE>
+__device__ __forceinline__ void qr_walk_rows(const int* desc, const int* offs,
+                                             int nphases, int width,
+                                             float* tiles, float* tmat,
+                                             int b) {
   cg::grid_group grid = cg::this_grid();
-  const bool wide = b > QR_MAX_B;
   const Slots s = qr_slots(b);
-  const Wide w = qr_wide(ws, b);
   for (int p = 0; p < nphases; ++p) {
     const int q1 = offs[p + 1];
     for (int q = offs[p] + blockIdx.x; q < q1; q += gridDim.x) {
-      if (wide)
-        qr_row_wide(desc + (size_t)q * width, tiles, tmat, w, b);
+      if (WIDE)
+        qr_row_wide(desc + (size_t)q * width, tiles, tmat, b);
       else
         qr_row(desc + (size_t)q * width, tiles, tmat, s, b);
     }
     if (p + 1 < nphases) grid.sync();
   }
+}
+
+__global__ void __launch_bounds__(QR_THREADS, 2)
+qr_walk_kernel(const int* __restrict__ desc, const int* __restrict__ offs,
+               int nphases, int width, float* tiles, float* tmat, int b) {
+  qr_walk_rows<false>(desc, offs, nphases, width, tiles, tmat, b);
+}
+
+__global__ void __launch_bounds__(QR_THREADS, 1)
+qr_walk_wide_kernel(const int* __restrict__ desc, const int* __restrict__ offs,
+                    int nphases, int width, float* tiles, float* tmat,
+                    int b) {
+  qr_walk_rows<true>(desc, offs, nphases, width, tiles, tmat, b);
+}
+
+// the walk kernel of tile size b
+const void* walk_fn(int b) {
+  return b > QR_MAX_B ? (const void*)qr_walk_wide_kernel
+                      : (const void*)qr_walk_kernel;
 }
 
 size_t smem_bytes(int b) { return sizeof(float) * qr_smem_floats(b); }
@@ -311,14 +345,23 @@ size_t smem_bytes(int b) { return sizeof(float) * qr_smem_floats(b); }
 // Each launcher returns cudaGetLastError() of its launch (0 = launched).
 extern "C" {
 
-// Raise the dynamic shared-memory limit of every kernel to what b = 64
-// needs (over the 48 KB default); call once before any launch.
+// Raise the dynamic shared-memory limit of every kernel to the most any
+// tile size takes (over the 48 KB default: b = 64's six slots, and the
+// wide bodies' layout, 105 KB at most); call once before any launch.
 int qr_init(void) {
-  const int bytes = (int)smem_bytes(QR_MAX_B);
+  const size_t most = smem_bytes(QR_MAX_B) > smem_bytes(QR_WIDE_MAX_B)
+                          ? smem_bytes(QR_MAX_B)
+                          : smem_bytes(QR_WIDE_MAX_B);
+  const int bytes = (int)most;
   const void* fns[] = {(const void*)geqrf_kernel, (const void*)tsqrf_kernel,
                        (const void*)apply_qt_kernel,
                        (const void*)apply_tsqt_kernel,
-                       (const void*)qr_walk_kernel};
+                       (const void*)qr_walk_kernel,
+                       (const void*)geqrf_wide_kernel,
+                       (const void*)tsqrf_wide_kernel,
+                       (const void*)apply_qt_wide_kernel,
+                       (const void*)apply_tsqt_wide_kernel,
+                       (const void*)qr_walk_wide_kernel};
   for (const void* fn : fns) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -329,11 +372,8 @@ int qr_init(void) {
 
 int qr_max_b(void) { return QR_MAX_B; }
 
-// floats of global scratch a block of tile size b takes (0 at b <=
-// QR_MAX_B, whose bodies stay in shared memory)
-long long qr_scratch_floats(int b) {
-  return b > QR_MAX_B ? (long long)qr_wide_floats(b) : 0;
-}
+// bytes of dynamic shared memory a block of tile size b takes
+int qr_smem_bytes(int b) { return (int)smem_bytes(b); }
 
 int qr_threads(void) { return QR_THREADS; }
 
@@ -346,69 +386,79 @@ int qr_walk_grid(int b, int* blocks) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, qr_walk_kernel, QR_THREADS, smem_bytes(b));
+        &per_sm, walk_fn(b), QR_THREADS, smem_bytes(b));
   *blocks = per_sm * sms;
   return (int)err;
 }
 
-// The per-op launchers: n tiles, one block each; ws holds n x
-// qr_scratch_floats(b) floats (unused, and may be null, at b <= QR_MAX_B).
-int qr_geqrf(const float* a, float* rv, float* tau, float* t, float* ws,
-             int n, int b, void* stream) {
-  geqrf_kernel<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(
-      a, rv, tau, t, ws, b);
+// The per-op launchers: n tiles, one block each.
+int qr_geqrf(const float* a, float* rv, float* tau, float* t, int n, int b,
+             void* stream) {
+  const auto fn = b > QR_MAX_B ? geqrf_wide_kernel : geqrf_kernel;
+  fn<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(a, rv, tau, t,
+                                                             b);
   return (int)cudaGetLastError();
 }
 
 int qr_tsqrf(const float* r, const float* a, float* r1, float* v2,
-             float* tau, float* t, float* ws, int n, int b, void* stream) {
-  tsqrf_kernel<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(
-      r, a, r1, v2, tau, t, ws, b);
+             float* tau, float* t, int n, int b, void* stream) {
+  const auto fn = b > QR_MAX_B ? tsqrf_wide_kernel : tsqrf_kernel;
+  fn<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(r, a, r1, v2,
+                                                             tau, t, b);
   return (int)cudaGetLastError();
 }
 
 int qr_apply_qt(const float* rv, const float* t, const float* c, float* out,
-                float* ws, int n, int b, void* stream) {
-  apply_qt_kernel<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(
-      rv, t, c, out, ws, b);
+                int n, int b, void* stream) {
+  const auto fn = b > QR_MAX_B ? apply_qt_wide_kernel : apply_qt_kernel;
+  fn<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(rv, t, c, out,
+                                                             b);
   return (int)cudaGetLastError();
 }
 
 int qr_apply_tsqt(const float* v2, const float* t, const float* c1,
-                  const float* c2, float* o1, float* o2, float* ws, int n,
-                  int b, void* stream) {
-  apply_tsqt_kernel<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(
-      v2, t, c1, c2, o1, o2, ws, b);
+                  const float* c2, float* o1, float* o2, int n, int b,
+                  void* stream) {
+  const auto fn = b > QR_MAX_B ? apply_tsqt_wide_kernel : apply_tsqt_kernel;
+  fn<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(v2, t, c1, c2,
+                                                             o1, o2, b);
   return (int)cudaGetLastError();
 }
 
 // The whole plan: nphases phases, offs[0 .. nphases] the device row
 // offsets, max_rows the longest phase.  One cooperative launch of
 // min(resident blocks, max_rows) blocks; a refused launch (for example
-// cudaErrorCooperativeLaunchTooLarge) is returned, never retried.  At b >
-// QR_MAX_B, ws holds ws_blocks x qr_scratch_floats(b) floats and the grid
-// is cut to ws_blocks.
+// cudaErrorCooperativeLaunchTooLarge) is returned, never retried.
 int qr_walk(const int* desc, const int* offs, int nphases, int max_rows,
-            int width, float* tiles, float* tmat, float* ws, int ws_blocks,
-            int b, void* stream) {
+            int width, float* tiles, float* tmat, int b, void* stream) {
   int resident = 0;
   const int err = qr_walk_grid(b, &resident);
   if (err != 0) return err;
   if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  int blocks = max_rows < resident ? (max_rows > 0 ? max_rows : 1)
-                                   : resident;
-  if (b > QR_MAX_B) {
-    if (ws_blocks < 1) return (int)cudaErrorInvalidValue;
-    blocks = blocks < ws_blocks ? blocks : ws_blocks;
-  }
+  const int blocks = max_rows < resident ? (max_rows > 0 ? max_rows : 1)
+                                         : resident;
   void* args[] = {(void*)&desc, (void*)&offs, (void*)&nphases,
-                  (void*)&width, (void*)&tiles, (void*)&tmat, (void*)&ws,
-                  (void*)&b};
+                  (void*)&width, (void*)&tiles, (void*)&tmat, (void*)&b};
   const cudaError_t launch = cudaLaunchCooperativeKernel(
-      (const void*)qr_walk_kernel, dim3(blocks), dim3(QR_THREADS), args,
+      walk_fn(b), dim3(blocks), dim3(QR_THREADS), args,
       smem_bytes(b), (cudaStream_t)stream);
   if (launch != cudaSuccess) return (int)launch;
   return (int)cudaGetLastError();
 }
+
+#ifdef QR_STAMPS
+// the stamps since the last call (out, tags: 4096 each; n: their count)
+int qr_stamps(long long* out, int* tags, int* n) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(n, qr_sn, sizeof(int));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, qr_st, sizeof(long long) * 4096);
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(tags, qr_tag, sizeof(int) * 4096);
+  const int zero = 0;
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(qr_sn, &zero, sizeof(int));
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // Tile kernels of the tiled QR (paper §4.1) as device functions, one (b,b)
 // float32 tile per thread block of QR_THREADS threads.  Tiles of b <= 64
 // (QR_MAX_B) run the shared-memory bodies below; wider tiles run the
-// global-memory bodies at the end of this file (qr_*_wide).
+// blocked bodies at the end of this file (qr_*_wide).
 //
 // Replaces the bodies of the TPU kernels in src/repro/kernels/qr_tile/
 // kernel.py: geqrf_math, tsqrf_math, apply_qt_math and apply_tsqt_math.
@@ -60,24 +60,53 @@
 #define QR_TILES 6       // shared-memory tile slots of every kernel
 #define QR_TB 16         // column block of the T build
 
+// the wide bodies (b > QR_MAX_B): their 64-row slots' leading dimension
+// and size, the rows of a panel column a thread holds in registers and the
+// widest tile (a column's rows in one warp, 32 x QR_WR)
+#define QR_WL 72
+#define QR_WS (QR_MAX_B * QR_WL)
+#define QR_WR 32
+#define QR_WIDE_MAX_B 1024
+#define QR_CHAIN_MAX_B 256   // widest tile whose products sum as one chain
+
 __host__ __device__ inline int qr_ld(int b) { return (b + 23) / 32 * 32 + 8; }
 __host__ __device__ inline int qr_rows(int b) { return (b + 3) & ~3; }
 __host__ __device__ inline int qr_slot_floats(int b) {
   return qr_rows(b) * qr_ld(b);
 }
 
-// floats of dynamic shared memory every entry point takes for tile size b:
-// QR_TILES tile slots, two Householder-vector buffers and the taus; above
-// QR_MAX_B only the wide bodies' reduction buffer
-__host__ __device__ inline int qr_smem_floats(int b) {
-  return b > QR_MAX_B ? QR_WARPS
-                      : QR_TILES * qr_slot_floats(b) + 3 * QR_MAX_B;
+// A wide body's panel of nbw columns gives each column g = 256 / nbw
+// threads (QR_WR rows each) and keeps it column-major at a column length
+// of qr_wide_pld: b rounded up to 32, plus g mod 32, so that the g threads
+// of each of a warp's columns read 32 distinct banks.
+__host__ __device__ inline int qr_wide_group(int nbw) {
+  return QR_THREADS / nbw;
+}
+__host__ __device__ inline int qr_wide_pld(int b, int nbw) {
+  return ((b + 31) & ~31) + (qr_wide_group(nbw) & 31);
+}
+// panel width at tile size b: the widest power of two up to 64 whose
+// columns' rows fit their g threads' QR_WR registers (b <= QR_WR g): 64 to
+// b = 128, 32 to 256, 16 to 512, 8 to QR_WIDE_MAX_B
+__host__ __device__ inline int qr_wide_nb(int b) {
+  int nb = QR_MAX_B;
+  while (nb > 8 && b > QR_WR * qr_wide_group(nb)) nb >>= 1;
+  return nb;
+}
+// floats of dynamic shared memory of a wide body: the panel, four 64-row
+// slots (T of the panel; Gram / W / X; the Householder vectors / Y / the
+// staged rows; tsqrf's block of R) and the panel's taus: 105 KB at most
+__host__ __device__ inline int qr_wide_floats(int b) {
+  const int nb = qr_wide_nb(b), pld = qr_wide_pld(b, nb);
+  return nb * pld + 4 * QR_WS + QR_MAX_B;
 }
 
-// floats of global scratch one block of a wide body (b > QR_MAX_B) takes:
-// a b x b tile W, a b-vector u and the b taus
-__host__ __device__ inline size_t qr_wide_floats(int b) {
-  return (size_t)b * b + 2 * (size_t)b;
+// floats of dynamic shared memory every entry point takes for tile size b:
+// QR_TILES tile slots, two Householder-vector buffers and the taus; above
+// QR_MAX_B the wide bodies' layout
+__host__ __device__ inline int qr_smem_floats(int b) {
+  return b > QR_MAX_B ? qr_wide_floats(b)
+                      : QR_TILES * qr_slot_floats(b) + 3 * QR_MAX_B;
 }
 
 struct QrHouse {
@@ -492,215 +521,698 @@ __device__ __noinline__ void apply_tsqt_tile(const float* V2, const float* T,
 }
 
 // ---------------------------------------------------------------------------
-// b > QR_MAX_B: the four ops on tiles in global memory (row-major, leading
-// dimension b), a simple form.  Six 128^2 tiles are 384 KB, beyond the
-// 227 KB of shared memory a block may have, so the operands stay where they
-// lie and the wrapper gives each block qr_wide_floats(b) floats of global
-// scratch (W, u, taus).  A panel's column j: sigma^2 by a block reduction
-// in a fixed order, the Householder scalars by every thread from the same
-// bits (with the reference's guards, qr_householder), then one thread a
-// trailing column takes its dot and its update down the rows; T is built
-// after the loop a column at a time from the Gram column u = V^T v_j.  The
-// applies give each thread one column of C: every column is independent,
-// so the three products run without a barrier.  Every tile load and store
-// goes past L1 (__ldcg / __stcg): in the walk another SM may have written
-// the tile in an earlier phase, and L1 is not coherent across SMs.  Each
-// result depends only on b and blockDim, never on gridDim or on the block.
+// b > QR_MAX_B: the blocked bodies.  They replace the same TPU kernels
+// (repro/kernels/qr_tile/kernel.py:173 geqrf, :190 tsqrf, :208 apply_qt,
+// :221 apply_tsqt) and the bodies the walk runs (repro/engine/
+// megakernel.py:236) at tiles wider than 64, up to QR_WIDE_MAX_B, one
+// block an SM (their panel needs up to 255 registers a thread:
+// qr_tile.cu).  The tiles stay where they lie in global memory and the
+// bodies work through a fixed shared-memory layout (qr_wide_floats: at
+// most 105 KB) on any b.  All of an op's tiles do not fit a block
+// (tsqrf's three 128^2 tiles are 192 KB, apply_tsqt's four 256 KB, a tile
+// of b = 256 alone 256 KB).  Keeping just the tile an op updates in shared
+// memory (up to b = 180, 175 KB at b = 128), each panel of V read once
+// while it stays put, was built and timed on an H100 and was 0-5 % slower
+// than staging it (PERF.md §6), so it is not used.  Nor is a
+// cp.async ring for the staged blocks: its 4-byte copies (any b, any
+// column offset) go through L1, which the walk may not read (below).
+//
+// What bounds them: as below 64, the chain of dependent column steps (b of
+// them, one block barrier each), not bytes or flops.  The design:
+//   * a blocked Householder: panels of nbw columns (qr_wide_nb: 64 up to
+//     b = 128, 32 to 256, 16 to 512, 8 to 1024), g = 256 / nbw threads a
+//     column, each holding QR_WR rows of it in registers, in double
+//     (qr_w_factor).  A column step is one block barrier, as in qr_panel:
+//     every column takes its dot with reflector j - 1 by a g-lane
+//     butterfly (the columns right of it update their rows, the columns
+//     done give the Gram column), and the pivot column's warp forms
+//     reflector j and publishes v (double-buffered);
+//   * the trailing columns (and, for T, the columns left of the panel)
+//     take the panel's compact WY as register-tiled products, 4 x 4
+//     outputs a thread from float4 shared-memory reads: W = V^T M, staged
+//     64 rows x 64 columns at a time from global memory (one coalesced
+//     load of 16 floats a thread, all in flight), X = T_k^T W, then M -=
+//     V X straight into global memory.  Past b = QR_CHAIN_MAX_B the sums
+//     of W (and of T's merge) are blocked (qr_mm_nn4);
+//   * T panel by panel: T_k from the panel's Gram by qr_build_t (the b <=
+//     64 bodies' blocked recurrence), and T = [[T1, -T1 (V1^T V2) T2], [0,
+//     T2]], the Y = V1^T V2 of the columns left of the panel coming out of
+//     the same W product; the applies need only the diagonal blocks T_k,
+//     applying Q = Q_1 Q_2 ... panel by panel;
+//   * tsqrf's block of R (nbw x nbw) sits in shared memory, its top
+//     reflector rows e_j entering each dot by one lane of the column.
+// Every load of a tile goes past L1 (__ldcg): in the walk another SM may
+// have written it in an earlier phase, and L1 is not coherent across SMs.
+// Each result depends only on b and blockDim, never on gridDim or on the
+// block, and every entry point runs these same functions.
 
-__device__ __forceinline__ float qr_gl(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ void qr_gs(float* p, float x) { __stcg(p, x); }
+// the dynamic shared memory of every entry point (qr_smem_floats(b)
+// floats); the wide bodies address it directly, so that the compiler keeps
+// their pointers in the shared window
+extern __shared__ __align__(16) float qr_smem[];
 
-// sum of every thread's x over the block in a fixed order (a butterfly in
-// each warp, then the warps' sums 0, 1, ...); every thread gets the same
-// bits.  red: QR_WARPS floats of shared memory.
-__device__ __forceinline__ float qr_block_sum(float x, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+// Built with -DQR_STAMPS (tools/qr_wide_stamps.py), thread 0 of block 0
+// stamps clock64() after a block barrier at each stage of a wide body
+// (qr_stamps in qr_tile.cu reads them); otherwise QR_STAMP is nothing.
+#ifdef QR_STAMPS
+__device__ long long qr_st[4096];
+__device__ int qr_tag[4096];
+__device__ int qr_sn;
+#define QR_STAMP(t)                                                   \
+  do {                                                                \
+    __syncthreads();                                                  \
+    if (threadIdx.x == 0 && blockIdx.x == 0 && qr_sn < 4096) {        \
+      qr_tag[qr_sn] = (t);                                            \
+      qr_st[qr_sn++] = clock64();                                     \
+    }                                                                 \
+  } while (0)
+#else
+#define QR_STAMP(t) \
+  do {              \
+  } while (0)
+#endif
+
+// this wide body's shared memory: the panel p (nbw columns of pld rows),
+// the slots t (T of the panel, ld qr_ld(nb)), a (the Gram, then W and X),
+// s (while the panel is factored its two Householder vectors in double,
+// each as QR_WR / 2 double2 of each of a column's g threads: double2 r2 g
+// + q holds rows q + g (2 r2) and q + g (2 r2 + 1) of it, 4 QR_WR g <=
+// QR_WS floats; then qr_build_t's Y, then the staged rows of the matrix
+// updated), r (tsqrf's block of R, ld QR_WL) and taus (nb)
+struct QrW {
+  float *p, *t, *a, *s, *r, *taus;
+  int nbw, g, pld;
+};
+
+__device__ __forceinline__ QrW qr_w(int b) {
+  QrW w;
+  w.nbw = qr_wide_nb(b);
+  w.g = qr_wide_group(w.nbw);
+  w.pld = qr_wide_pld(b, w.nbw);
+  w.p = qr_smem;
+  w.t = w.p + w.nbw * w.pld;
+  w.a = w.t + QR_WS;
+  w.s = w.a + QR_WS;
+  w.r = w.s + QR_WS;
+  w.taus = w.r + QR_WS;
+  return w;
+}
+
+// sum of x over an aligned group of g lanes (a power of two up to 32), in
+// a fixed order; every lane of the group gets the same bits.  Every lane of
+// the warp calls it.
+__device__ __forceinline__ double qr_group_sum(double x, int g) {
+  for (int off = 1; off < g; off <<= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
-  __syncthreads();                       // red's last readers are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float s = 0.0f;
+  return x;
+}
+
+// acc[i][k] += the four rows t .. t + 3 of qr_mm_nn4's sum (pa, pb at
+// row t): four float4 of A along t and four of B along the columns, 64
+// fmas
+__device__ __forceinline__ void qr_mm_step(const float* pa, int lda,
+                                           const float* pb, int ldb,
+                                           float (&acc)[4][4]) {
+  float xs[4][4], ys[4][4];
 #pragma unroll
-  for (int w = 0; w < QR_WARPS; ++w) s += red[w];
-  return s;
+  for (int i = 0; i < 4; ++i) {
+    const float4 x = *reinterpret_cast<const float4*>(pa + i * lda);
+    const float4 y = *reinterpret_cast<const float4*>(pb + i * ldb);
+    xs[i][0] = x.x; xs[i][1] = x.y; xs[i][2] = x.z; xs[i][3] = x.w;
+    ys[i][0] = y.x; ys[i][1] = y.y; ys[i][2] = y.z; ys[i][3] = y.w;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        acc[i][k] = fmaf(xs[i][u], ys[u][k], acc[i][k]);
 }
 
-// T (b x b, upper triangular, zero below) from the reflectors V and taus:
-// T[:j, j] = -tau_j T[:j, :j] u, u = V[:, :j]^T v_j, T[j][j] = tau_j.  TS:
-// V is V2, dense (tsqrf: the top identity blocks add nothing to u); else V
-// is the strict lower part of A with a unit diagonal (geqrf).  Thread c
-// owns row c of T.  u: b floats of scratch.
+#define QR_MM_IN 16   // rows of qr_mm_nn4's inner blocks (BLK)
+
+// acc[i][k] += sum_{t < n} A[(r0 + i) lda + t] B[t ldb + c0 + k], n a
+// multiple of 4 up to 64: four float4 of A along t and four of B along the
+// columns a step, 64 fmas.  BLK (b > QR_CHAIN_MAX_B): the sum is blocked,
+// QR_MM_IN rows into fresh accumulators, added into the call's own, added
+// into acc once a call (callers take up to 64 rows a call), so that a
+// float32 rounding grows with QR_MM_IN + 64 / QR_MM_IN + the calls, not
+// with the rows.  Summed as one chain (acc updated by every fma, as up to
+// b = QR_CHAIN_MAX_B), W = V^T M over b = 512 or 1000 rows left R and T
+// further from float64 than the plain float32 version (PERF.md §6).
+template <bool BLK>
+__device__ __forceinline__ void qr_mm_nn4(const float* A, int lda,
+                                          const float* B, int ldb, int n,
+                                          int r0, int c0,
+                                          float (&acc)[4][4]) {
+  const float* pa = A + r0 * lda;
+  const float* pb = B + c0;
+  if (BLK) {
+    float mid[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mid[i][k] = 0.0f;
+    for (int t0 = 0; t0 < n; t0 += QR_MM_IN) {
+      float in[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) in[i][k] = 0.0f;
+#pragma unroll
+      for (int t = 0; t < QR_MM_IN; t += 4, pa += 4, pb += 4 * ldb) {
+        if (t0 + t >= n) break;
+        qr_mm_step(pa, lda, pb, ldb, in);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) mid[i][k] += in[i][k];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] += mid[i][k];
+    return;
+  }
+#pragma unroll 2
+  for (int t = 0; t < n; t += 4, pa += 4, pb += 4 * ldb)
+    qr_mm_step(pa, lda, pb, ldb, acc);
+}
+
+// acc[i][k] = sum_{t < n} A[t lda + r0 + i] B[t ldb + c0 + k]
+__device__ __forceinline__ void qr_mm_tn2(const float* A, int lda,
+                                          const float* B, int ldb, int n,
+                                          int r0, int c0,
+                                          float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+  const float* pa = A + r0;
+  const float* pb = B + c0;
+#pragma unroll 4
+  for (int t = 0; t < n; ++t, pa += lda, pb += ldb) {
+    const float4 x = *reinterpret_cast<const float4*>(pa);
+    const float4 y = *reinterpret_cast<const float4*>(pb);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    const float ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = fmaf(xs[i], ys[k], acc[i][k]);
+  }
+}
+
+// S (64 rows at QR_WL) <- the n x nc block of X (row-major, ld ldx), zeros
+// elsewhere: 16 coalesced loads a thread, all in flight before the stores
+__device__ __forceinline__ void qr_w_stage(float* S, const float* X, int ldx,
+                                           int n, int nc) {
+  float x[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int e = threadIdx.x + k * QR_THREADS, i = e >> 6, c = e & 63;
+    x[k] = i < n && c < nc ? __ldcg(X + (size_t)i * ldx + c) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int e = threadIdx.x + k * QR_THREADS, i = e >> 6, c = e & 63;
+    S[i * QR_WL + c] = x[k];
+  }
+}
+
+// the panel <- rows 0 .. rows - 1, columns 0 .. nb - 1 of X (the panel's
+// top-left corner, row-major at ld ldx), column-major, zeros in every other
+// row and column of it.  unit: geqrf's V from RV (1 on the diagonal, 0
+// above it).  A warp reads a row's columns, so global loads coalesce.
+__device__ __forceinline__ void qr_w_load_panel(const QrW& w, const float* X,
+                                                int ldx, int rows, int nb,
+                                                bool unit) {
+  const int n = w.nbw * w.pld;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 8 * QR_THREADS) {
+    float x[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * QR_THREADS, i = e / w.nbw, c = e % w.nbw;
+      const bool in = e < n && i < rows && c < nb && (!unit || i >= c);
+      x[k] = in ? (unit && i == c ? 1.0f : __ldcg(X + (size_t)i * ldx + c))
+                : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int e = e0 + k * QR_THREADS, i = e / w.nbw, c = e % w.nbw;
+      if (e < n) w.p[c * w.pld + i] = x[k];
+    }
+  }
+}
+
+// the panel's rows 0 .. rows - 1, columns 0 .. nb - 1 -> X; unit: the
+// panel becomes geqrf's V (1 on the diagonal, 0 above it) in the same pass
+__device__ __forceinline__ void qr_w_store_panel(const QrW& w, float* X,
+                                                 int ldx, int rows, int nb,
+                                                 bool unit) {
+  for (int e = threadIdx.x; e < rows * nb; e += QR_THREADS) {
+    const int i = e / nb, c = e % nb;
+    float* p = w.p + c * w.pld + i;
+    __stcg(X + (size_t)i * ldx + c, *p);
+    if (unit && i <= c) *p = i == c ? 1.0f : 0.0f;
+  }
+}
+
+// geqrf's pivot column j in a thread of its group (rows q + g r): rows
+// with r < K = j / g lie above row j, rows with r > K below it, and row
+// q + g K is above, at or below j as q is <, = or > jq = j % g.  K is the
+// same for the whole warp, so qr_w_factor switches on it (one jump, no
+// divergence) into code whose row tests are resolved at compile time, as
+// qr_tail_geqrf and qr_pivot_geqrf do for the b <= 64 panel.
+template <int K>
+__device__ __forceinline__ void qr_w_tail(const double (&a)[QR_WR], int q,
+                                          int jq, double& sigma2,
+                                          double& alpha) {
+  double s[4] = {q > jq ? a[K] * a[K] : 0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+  for (int r = K + 1; r < QR_WR; ++r) s[r & 3] = fma(a[r], a[r], s[r & 3]);
+  sigma2 = (s[0] + s[1]) + (s[2] + s[3]);
+  alpha = a[K];
+}
+
+template <int K>
+__device__ __forceinline__ void qr_w_pivot(double (&a)[QR_WR], int q, int jq,
+                                           const QrHouse& h, double2* vj,
+                                           int g) {
+  const double inv = h.inv;
+#pragma unroll
+  for (int r = 0; r < QR_WR; r += 2) {
+    double v[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int rr = r + k;
+      const double x = a[rr] * inv;
+      if (rr < K) {
+        v[k] = 0.0;
+      } else if (rr > K) {
+        v[k] = x;
+        a[rr] = x;
+      } else {
+        v[k] = q < jq ? 0.0 : (q == jq ? 1.0 : x);
+        a[rr] = q < jq ? a[rr] : (q == jq ? (double)h.beta : x);
+      }
+    }
+    vj[(r >> 1) * g] = make_double2(v[0], v[1]);
+  }
+}
+
+// The panel's column steps: geqrf (TS = false; the panel's row c is its
+// column c's diagonal) or tsqrf (TS = true: [R; A], R's block in w.r, the
+// top reflector block e_j).  Column m belongs to threads m g .. m g + g -
+// 1, thread q of them holding rows q + g r (r < QR_WR) of it in registers,
+// in double (a[r]; rows past the panel hold 0), read from w.p and rounded
+// back to it at the end: within a panel the updates and their dots carry
+// no float rounding.  At b = 256 float panels leave R up to 1.5 times the
+// kernel-vs-plain limit from float64 on random tiles (as far as the plain
+// float32 version itself lies), and the trailing matrix rounds once a
+// panel instead.  The Householder scalars come from the column rounded to
+// float, by qr_householder (the reference's guards); v = a * inv in double
+// is rounded once, when the panel is written back.
+// Step j applies reflector j - 1 to every column (the dot by a g-lane
+// butterfly; tsqrf's w adds R[j - 1][m], read and written by lane q == 0
+// alone): the columns right of it update their rows, the columns done give
+// the Gram entry G[m][j - 1] = v_m . v_{j-1} (w.a at ld tld), from which
+// qr_build_t builds T.  Then column j's warp forms reflector j (its v to
+// w.s, half j & 1) and the block meets at one barrier.  Every shuffle runs
+// with its warp converged.  taus: nb floats out (w.taus).
 template <bool TS>
-__device__ __forceinline__ void qr_build_t_wide(const float* V, float* T,
-                                                const float* taus, float* u,
-                                                int b) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < b; ++j) {
-    for (int c = tid; c < j; c += QR_THREADS) {
-      float s = TS ? 0.0f : qr_gl(V + (size_t)j * b + c);   // v_c[j] * 1
-      for (int i = TS ? 0 : j + 1; i < b; ++i)
-        s = fmaf(qr_gl(V + (size_t)i * b + c), qr_gl(V + (size_t)i * b + j),
-                 s);
-      qr_gs(u + c, s);
+__device__ __forceinline__ void qr_w_factor(const QrW& w, int rows, int nb,
+                                            int tld) {
+  const int g = w.g, pld = w.pld;
+  const int tid = threadIdx.x, lane = tid & 31, m = tid / g, q = tid % g;
+  const bool own = m < nb;
+  float* pm = w.p + m * pld + q;         // m < nbw: every thread's column
+  const unsigned all = 0xffffffffu;
+  double a[QR_WR];
+#pragma unroll
+  for (int r = 0; r < QR_WR; ++r)
+    a[r] = own && q + g * r < rows ? (double)pm[g * r] : 0.0;
+  double2* v2 = reinterpret_cast<double2*>(w.s);
+  for (int j = 0;; ++j) {
+    if (j > 0) {                         // apply reflector p = j - 1
+      const int p = j - 1;
+      const double2* vp = v2 + (p & 1) * (QR_WR / 2) * g + q;
+      const double tau = w.taus[p];
+      const float rpm = TS && own && m > p && q == 0 ? w.r[p * QR_WL + m]
+                                                     : 0.0f;
+      double v[QR_WR], d[4] = {rpm, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int r = 0; r < QR_WR; r += 2) {   // v: two rows a load
+        const double2 x = vp[(r >> 1) * g];
+        v[r] = x.x;
+        v[r + 1] = x.y;
+        d[r & 2] = fma(x.x, a[r], d[r & 2]);
+        d[(r & 2) + 1] = fma(x.y, a[r + 1], d[(r & 2) + 1]);
+      }
+      const double dot = qr_group_sum((d[0] + d[1]) + (d[2] + d[3]), g);
+      if (own && m > p) {                // the trailing update
+        const double tw = tau * dot;
+        if (TS && q == 0)
+          w.r[p * QR_WL + m] = (float)fma(-tau, dot, (double)rpm);
+#pragma unroll
+        for (int r = 0; r < QR_WR; ++r) a[r] = fma(-v[r], tw, a[r]);
+      } else if (own && m < p && q == 0) {
+        w.a[m * tld + p] = (float)dot;   // a done column: the Gram entry
+      }
+    }
+    if (j == nb) break;
+    // reflector j, in column j's warp only (a warp-uniform branch, so its
+    // shuffles run converged); the pivot group's sums are used
+    if (tid >> 5 == (j * g) >> 5) {
+      const int jq = j % g;
+      double sigma2 = 0.0, mine = 0.0;
+      if (TS) {
+        double s[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+        for (int r = 0; r < QR_WR; ++r) s[r & 3] = fma(a[r], a[r], s[r & 3]);
+        sigma2 = (s[0] + s[1]) + (s[2] + s[3]);
+        mine = w.r[j * QR_WL + j];
+      } else {
+        switch (j / g) {
+#define QR_W_TAIL(K) \
+  case K:            \
+    qr_w_tail<K>(a, q, jq, sigma2, mine); \
+    break;
+          QR_CASES(QR_W_TAIL)
+#undef QR_W_TAIL
+        }
+      }
+      const float alpha = (float)__shfl_sync(all, mine, (lane & ~(g - 1)) | jq);
+      sigma2 = qr_group_sum(sigma2, g);
+      __syncwarp();                      // every lane has read R[j][j]
+      if (m == j) {                      // the pivot column's g threads
+        const QrHouse h = qr_householder(alpha, (float)sigma2);
+        double2* vj = v2 + (j & 1) * (QR_WR / 2) * g + q;
+        if (TS) {
+#pragma unroll
+          for (int r = 0; r < QR_WR; r += 2) {
+            a[r] *= (double)h.inv;
+            a[r + 1] *= (double)h.inv;
+            vj[(r >> 1) * g] = make_double2(a[r], a[r + 1]);
+          }
+        } else {
+          switch (j / g) {
+#define QR_W_PIVOT(K) \
+  case K:             \
+    qr_w_pivot<K>(a, q, jq, h, vj, g); \
+    break;
+            QR_CASES(QR_W_PIVOT)
+#undef QR_W_PIVOT
+          }
+        }
+        if (q == 0) {
+          w.taus[j] = h.tau;
+          if (TS) w.r[j * QR_WL + j] = h.beta;
+        }
+      }
     }
     __syncthreads();
-    const float tj = qr_gl(taus + j);
-    for (int c = tid; c < b; c += QR_THREADS) {
-      float x = c == j ? tj : 0.0f;
-      if (c < j) {
-        float s = 0.0f;
-        for (int k = c; k < j; ++k)
-          s = fmaf(qr_gl(T + (size_t)c * b + k), qr_gl(u + k), s);
-        x = -tj * s;
-      }
-      qr_gs(T + (size_t)c * b + j, x);
-    }
-    __syncthreads();                     // u is read before it is rewritten
+  }
+#pragma unroll
+  for (int r = 0; r < QR_WR; ++r)
+    if (own && q + g * r < rows) pm[g * r] = (float)a[r];
+}
+
+// T[J, J] <- the panel's T (its strict lower part zero) and T[J, 0:j0] <-
+// 0, J = j0 .. j0 + nb - 1 (T row-major at ld b)
+__device__ __forceinline__ void qr_w_store_t(const QrW& w, float* T, int b,
+                                             int j0, int nb, int tld) {
+  const int n = j0 + nb;
+  for (int e = threadIdx.x; e < nb * n; e += QR_THREADS) {
+    const int i = e / n, c = e % n;
+    __stcg(T + (size_t)(j0 + i) * b + c,
+           c < j0 ? 0.0f : w.t[i * tld + c - j0]);
   }
 }
 
-// GEQRF, b > QR_MAX_B: A -> RV in place, T, taus (b floats).  u: b
-// floats of scratch; red: QR_WARPS floats of shared memory.
-__device__ __noinline__ void geqrf_wide(float* A, float* T, float* taus,
-                                        float* u, float* red, int b) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < b; ++j) {
-    float s = 0.0f;
-    for (int i = j + 1 + tid; i < b; i += QR_THREADS) {
-      const float x = qr_gl(A + (size_t)i * b + j);
-      s = fmaf(x, x, s);
-    }
-    const float sigma2 = qr_block_sum(s, red);
-    const QrHouse h = qr_householder(qr_gl(A + (size_t)j * b + j), sigma2);
-    for (int i = j + 1 + tid; i < b; i += QR_THREADS) {   // v below row j
-      float* p = A + (size_t)i * b + j;
-      qr_gs(p, qr_gl(p) * h.inv);
-    }
-    if (tid == 0) qr_gs(taus + j, h.tau);
+// the panel's T <- the nb x nb diagonal block of T at X (row-major, ld b),
+// its upper triangle, zeros in the rest of the slot
+__device__ __forceinline__ void qr_w_load_t(const QrW& w, const float* X,
+                                            int b, int nb, int tld) {
+  for (int e = threadIdx.x; e < qr_rows(nb) * tld; e += QR_THREADS) {
+    const int i = e / tld, c = e % tld;
+    w.t[e] = i <= c && c < nb ? __ldcg(X + (size_t)i * b + c) : 0.0f;
+  }
+}
+
+// tsqrf's block of R (nb x nb at X, row-major, ld b) <-> w.r: the upper
+// triangle only (the strict lower part is neither read nor written)
+__device__ __forceinline__ void qr_w_load_r(const QrW& w, const float* X,
+                                            int b, int nb) {
+  for (int e = threadIdx.x; e < nb * nb; e += QR_THREADS) {
+    const int i = e / nb, c = e % nb;
+    w.r[i * QR_WL + c] = i <= c ? __ldcg(X + (size_t)i * b + c) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void qr_w_store_r(const QrW& w, float* X, int b,
+                                             int nb) {
+  for (int e = threadIdx.x; e < nb * nb; e += QR_THREADS) {
+    const int i = e / nb, c = e % nb;
+    if (i <= c) __stcg(X + (size_t)i * b + c, w.r[i * QR_WL + c]);
+  }
+}
+
+// The panel's block reflector (V in w.p, T_k in w.t at ld tld) on columns
+// c0 .. c1 - 1 (at most 64) of the row-major (ld b) matrix M, its rows r0
+// .. r0 + rows - 1:
+//   W = Top[:, c0:c1] + V^T M[r0:, c0:c1]   (Top: nb rows at ld b, or none)
+//   X = T_k^T W
+// then, for a chunk left of the panel (Z: T's block column), Z[c][r] =
+// X[r][c] (Y T_k, Y = V_prev^T V); else Top -= X and M[r0:, c0:c1] -= V X.
+// W's rows are staged 64 at a time; V X goes straight to global memory.
+__device__ __forceinline__ void qr_w_chunk(const QrW& w, int nb, int tld,
+                                           float* M, int b, int r0, int rows,
+                                           int c0, int c1, float* Top,
+                                           float* Z) {
+  const int tr = (threadIdx.x >> 4) * 4, tc = (threadIdx.x & 15) * 4;
+  const int nc = c1 - c0;
+  const bool mine = tr < nb && tc < nc;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      acc[i][k] = Top && mine && tr + i < nb && tc + k < nc
+                      ? __ldcg(Top + (size_t)(tr + i) * b + c0 + tc + k)
+                      : 0.0f;
+  for (int tb = 0; tb < rows; tb += QR_MAX_B) {   // W = Top + V^T M
+    const int n = min(QR_MAX_B, rows - tb);
+    qr_w_stage(w.s, M + (size_t)(r0 + tb) * b + c0, b, n, nc);
     __syncthreads();
-    for (int m = j + 1 + tid; m < b; m += QR_THREADS) {   // trailing columns
-      float* aj = A + (size_t)j * b + m;
-      float w = qr_gl(aj);                                // v_j = 1
-      for (int i = j + 1; i < b; ++i)
-        w = fmaf(qr_gl(A + (size_t)i * b + j), qr_gl(A + (size_t)i * b + m),
-                 w);
-      const float tw = h.tau * w;
-      qr_gs(aj, qr_gl(aj) - tw);
-      for (int i = j + 1; i < b; ++i) {
-        float* p = A + (size_t)i * b + m;
-        qr_gs(p, fmaf(-qr_gl(A + (size_t)i * b + j), tw, qr_gl(p)));
-      }
+    if (mine)
+    {
+      if (b > QR_CHAIN_MAX_B)
+        qr_mm_nn4<true>(w.p + tb, w.pld, w.s, QR_WL, (n + 3) & ~3, tr, tc,
+                        acc);
+      else
+        qr_mm_nn4<false>(w.p + tb, w.pld, w.s, QR_WL, (n + 3) & ~3, tr, tc,
+                         acc);
     }
-    if (tid == 0) qr_gs(A + (size_t)j * b + j, h.beta);
     __syncthreads();
   }
-  qr_build_t_wide<false>(A, T, taus, u, b);
+  if (mine) qr_store_block(w.a, QR_WL, acc, tr, tc);
+  __syncthreads();
+  if (mine) qr_mm_tn2(w.t, tld, w.a, QR_WL, nb, tr, tc, acc);   // X
+  __syncthreads();                       // every read of W is done
+  if (Z) {
+    if (mine)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (tr + i < nb && tc + k < nc)
+            __stcg(Z + (size_t)(c0 + tc + k) * b + tr + i, acc[i][k]);
+    return;
+  }
+  if (mine) {
+    qr_store_block(w.a, QR_WL, acc, tr, tc);
+    if (Top)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (tr + i < nb && tc + k < nc) {
+            float* p = Top + (size_t)(tr + i) * b + c0 + tc + k;
+            __stcg(p, __ldcg(p) - acc[i][k]);
+          }
+  }
+  __syncthreads();
+  for (int i0 = tr; i0 < rows; i0 += QR_MAX_B) {  // M -= V X, rows i0 ..
+    if (tc >= nc) break;
+    qr_mm_tn2(w.p + i0, w.pld, w.a, QR_WL, nb, 0, tc, acc);
+    float* row = M + (size_t)(r0 + i0) * b + c0 + tc;
+    float x[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        x[i][k] = i0 + i < rows && tc + k < nc ? __ldcg(row + i * b + k) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i0 + i < rows && tc + k < nc)
+          __stcg(row + i * b + k, x[i][k] - acc[i][k]);
+  }
+}
+
+// T[0:j0, J] <- -T[0:j0, 0:j0] Z, Z = T[0:j0, J] on entry (the chunks left
+// of the panel wrote it), in 64-row blocks top down: block i reads Z's
+// rows from i on only, so it may overwrite its own rows when it is done
+__device__ __forceinline__ void qr_w_merge(const QrW& w, float* T, int b,
+                                           int j0, int nb) {
+  const int tr = (threadIdx.x >> 4) * 4, tc = (threadIdx.x & 15) * 4;
+  for (int i0 = 0; i0 < j0; i0 += QR_MAX_B) {
+    const int ni = min(QR_MAX_B, j0 - i0);
+    const bool mine = tr < ni && tc < nb;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+    for (int t0 = i0; t0 < j0; t0 += QR_MAX_B) {   // T1 is upper triangular
+      const int nt = min(QR_MAX_B, j0 - t0);
+      __syncthreads();                   // the slots' last readers are done
+      qr_w_stage(w.s, T + (size_t)i0 * b + t0, b, ni, nt);
+      qr_w_stage(w.a, T + (size_t)t0 * b + j0, b, nt, nb);
+      __syncthreads();
+      if (mine)
+      {
+        if (b > QR_CHAIN_MAX_B)
+          qr_mm_nn4<true>(w.s, QR_WL, w.a, QR_WL, (nt + 3) & ~3, tr, tc,
+                          acc);
+        else
+          qr_mm_nn4<false>(w.s, QR_WL, w.a, QR_WL, (nt + 3) & ~3, tr, tc,
+                           acc);
+      }
+    }
+    if (mine)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (tr + i < ni && tc + k < nb)
+            __stcg(T + (size_t)(i0 + tr + i) * b + j0 + tc + k, -acc[i][k]);
+  }
+}
+
+// The panel of geqrf (TS = false: rows j0 .. b - 1 of A) or tsqrf (TS:
+// all b rows of A under R's block) after its load: factor it, write it
+// back, build its T, update the columns right of it, fold it into T.
+// R: tsqrf's R (row-major, ld b); taus: b floats out, or null.
+template <bool TS>
+__device__ __forceinline__ void qr_w_fact_panel(const QrW& w, float* R,
+                                                float* A, float* T,
+                                                float* taus, int j0, int b) {
+  const int nb = min(w.nbw, b - j0), tld = qr_ld(nb);
+  const int r0 = TS ? 0 : j0, rows = b - r0;
+  float* pa = A + (size_t)r0 * b + j0;
+  QR_STAMP(1);
+  qr_w_factor<TS>(w, rows, nb, tld);
+  __syncthreads();                       // the panel is back in w.p
+  QR_STAMP(2);
+  qr_w_store_panel(w, pa, b, rows, nb, !TS);   // RV / V2 out, V in w.p
+  if (TS) qr_w_store_r(w, R + (size_t)j0 * b + j0, b, nb);
+  if (taus)
+    for (int c = threadIdx.x; c < nb; c += QR_THREADS)
+      __stcg(taus + j0 + c, w.taus[c]);
+  __syncthreads();
+  QR_STAMP(3);
+  qr_build_t(w.t, w.a, w.taus, w.s, nb);
+  QR_STAMP(4);
+  qr_w_store_t(w, T, b, j0, nb, tld);
+  float* top = TS ? R + (size_t)j0 * b : nullptr;
+  for (int c = j0 + nb; c < b; c += QR_MAX_B)    // the trailing columns
+    qr_w_chunk(w, nb, tld, A, b, r0, rows, c, min(c + QR_MAX_B, b), top,
+               nullptr);
+  QR_STAMP(5);
+  for (int c = 0; c < j0; c += QR_MAX_B)         // Y T_k, Y = V_prev^T V
+    qr_w_chunk(w, nb, tld, A, b, r0, rows, c, min(c + QR_MAX_B, j0),
+               nullptr, T + j0);
+  QR_STAMP(6);
+  qr_w_merge(w, T, b, j0, nb);
+  QR_STAMP(7);
+}
+
+// GEQRF, b > QR_MAX_B: A -> RV in place, T, taus (b floats, or null).
+// The block's dynamic shared memory holds qr_wide_floats(b) floats.
+__device__ __noinline__ void geqrf_wide(float* A, float* T, float* taus,
+                                        int b) {
+  const QrW w = qr_w(b);
+  for (int j0 = 0; j0 < b; j0 += w.nbw) {
+    const int nb = min(w.nbw, b - j0);
+    __syncthreads();                     // the last panel's readers are done
+    QR_STAMP(0);
+    qr_w_load_panel(w, A + (size_t)j0 * b + j0, b, b - j0, nb, false);
+    qr_zero_slot(w.t, nb);
+    __syncthreads();
+    qr_w_fact_panel<false>(w, nullptr, A, T, taus, j0, b);
+  }
+  __syncthreads();
 }
 
 // TSQRF, b > QR_MAX_B: [R; A] -> R' (upper triangle of R in place; the
 // strict lower part is neither read nor written), V2 in place of A, T,
-// taus.  u: b floats of scratch; red: QR_WARPS floats of shared memory.
+// taus (or null).
 __device__ __noinline__ void tsqrf_wide(float* R, float* A, float* T,
-                                        float* taus, float* u, float* red,
-                                        int b) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < b; ++j) {
-    float s = 0.0f;
-    for (int i = tid; i < b; i += QR_THREADS) {
-      const float x = qr_gl(A + (size_t)i * b + j);
-      s = fmaf(x, x, s);
-    }
-    const float sigma2 = qr_block_sum(s, red);
-    const QrHouse h = qr_householder(qr_gl(R + (size_t)j * b + j), sigma2);
-    for (int i = tid; i < b; i += QR_THREADS) {           // v2 in column j
-      float* p = A + (size_t)i * b + j;
-      qr_gs(p, qr_gl(p) * h.inv);
-    }
-    if (tid == 0) qr_gs(taus + j, h.tau);
+                                        float* taus, int b) {
+  const QrW w = qr_w(b);
+  for (int j0 = 0; j0 < b; j0 += w.nbw) {
+    const int nb = min(w.nbw, b - j0);
     __syncthreads();
-    for (int m = j + 1 + tid; m < b; m += QR_THREADS) {
-      float* rj = R + (size_t)j * b + m;
-      const float rpm = qr_gl(rj);
-      float w = rpm;                     // w = R[j][m] + v2 . A[:, m]
-      for (int i = 0; i < b; ++i)
-        w = fmaf(qr_gl(A + (size_t)i * b + j), qr_gl(A + (size_t)i * b + m),
-                 w);
-      qr_gs(rj, fmaf(-h.tau, w, rpm));
-      for (int i = 0; i < b; ++i) {
-        float* p = A + (size_t)i * b + m;
-        qr_gs(p, fmaf(-h.tau, qr_gl(A + (size_t)i * b + j) * w, qr_gl(p)));
-      }
-    }
-    if (tid == 0) qr_gs(R + (size_t)j * b + j, h.beta);
+    QR_STAMP(0);
+    qr_w_load_panel(w, A + j0, b, b, nb, false);
+    qr_w_load_r(w, R + (size_t)j0 * b + j0, b, nb);
+    qr_zero_slot(w.t, nb);
     __syncthreads();
-  }
-  qr_build_t_wide<true>(A, T, taus, u, b);
-}
-
-// w <- T^T w for the column m of W (T upper triangular), in place from
-// the bottom row up: row r needs w[0 .. r] only
-__device__ __forceinline__ void qr_tt_column(const float* T, float* W, int m,
-                                             int b) {
-  for (int r = b - 1; r >= 0; --r) {
-    float s = 0.0f;
-    for (int k = 0; k <= r; ++k)
-      s = fmaf(qr_gl(T + (size_t)k * b + r), qr_gl(W + (size_t)k * b + m), s);
-    qr_gs(W + (size_t)r * b + m, s);
-  }
-}
-
-// LARFT apply, b > QR_MAX_B: C <- C - V (T^T (V^T C)), V the unit-lower
-// part of RV (read only).  W: b x b scratch; thread m owns column m.
-__device__ __noinline__ void apply_qt_wide(const float* RV, const float* T,
-                                           float* C, float* W, int b) {
-  for (int m = threadIdx.x; m < b; m += QR_THREADS) {
-    for (int k = 0; k < b; ++k) {        // W = V^T C
-      float s = qr_gl(C + (size_t)k * b + m);
-      for (int i = k + 1; i < b; ++i)
-        s = fmaf(qr_gl(RV + (size_t)i * b + k), qr_gl(C + (size_t)i * b + m),
-                 s);
-      qr_gs(W + (size_t)k * b + m, s);
-    }
-    qr_tt_column(T, W, m, b);            // W <- T^T W
-    for (int i = 0; i < b; ++i) {        // C -= V W
-      float s = qr_gl(W + (size_t)i * b + m);
-      for (int k = 0; k < i; ++k)
-        s = fmaf(qr_gl(RV + (size_t)i * b + k), qr_gl(W + (size_t)k * b + m),
-                 s);
-      float* p = C + (size_t)i * b + m;
-      qr_gs(p, qr_gl(p) - s);
-    }
+    qr_w_fact_panel<true>(w, R, A, T, taus, j0, b);
   }
   __syncthreads();
 }
 
-// SSRFT apply, b > QR_MAX_B: W = T^T (C1 + V2^T C2); C1 -= W; C2 -= V2 W.
-// W: b x b scratch; thread m owns column m.
+// LARFT apply, b > QR_MAX_B: C <- Q^T C, Q = Q_1 Q_2 ... the panels'
+// block reflectors (V_k from the unit-lower part of RV, T_k the diagonal
+// blocks of T), Q_1^T first.
+__device__ __noinline__ void apply_qt_wide(const float* RV, const float* T,
+                                           float* C, int b) {
+  const QrW w = qr_w(b);
+  for (int j0 = 0; j0 < b; j0 += w.nbw) {
+    const int nb = min(w.nbw, b - j0), tld = qr_ld(nb);
+    __syncthreads();
+    qr_w_load_panel(w, RV + (size_t)j0 * b + j0, b, b - j0, nb, true);
+    qr_w_load_t(w, T + (size_t)j0 * b + j0, b, nb, tld);
+    __syncthreads();
+    QR_STAMP(8);
+    for (int c = 0; c < b; c += QR_MAX_B)
+      qr_w_chunk(w, nb, tld, C, b, j0, b - j0, c, min(c + QR_MAX_B, b),
+                 nullptr, nullptr);
+  }
+  __syncthreads();
+}
+
+// SSRFT apply, b > QR_MAX_B: [C1; C2] <- Q^T [C1; C2] panel by panel: W =
+// C1[J, :] + V2_k^T C2; X = T_k^T W; C1[J, :] -= X; C2 -= V2_k X.
 __device__ __noinline__ void apply_tsqt_wide(const float* V2, const float* T,
-                                             float* C1, float* C2, float* W,
-                                             int b) {
-  for (int m = threadIdx.x; m < b; m += QR_THREADS) {
-    for (int k = 0; k < b; ++k) {        // W = C1 + V2^T C2
-      float s = 0.0f;
-      for (int i = 0; i < b; ++i)
-        s = fmaf(qr_gl(V2 + (size_t)i * b + k), qr_gl(C2 + (size_t)i * b + m),
-                 s);
-      qr_gs(W + (size_t)k * b + m, qr_gl(C1 + (size_t)k * b + m) + s);
-    }
-    qr_tt_column(T, W, m, b);            // X = T^T W
-    for (int k = 0; k < b; ++k) {        // C1 -= X
-      float* p = C1 + (size_t)k * b + m;
-      qr_gs(p, qr_gl(p) - qr_gl(W + (size_t)k * b + m));
-    }
-    for (int i = 0; i < b; ++i) {        // C2 -= V2 X
-      float s = 0.0f;
-      for (int k = 0; k < b; ++k)
-        s = fmaf(qr_gl(V2 + (size_t)i * b + k), qr_gl(W + (size_t)k * b + m),
-                 s);
-      float* p = C2 + (size_t)i * b + m;
-      qr_gs(p, qr_gl(p) - s);
-    }
+                                             float* C1, float* C2, int b) {
+  const QrW w = qr_w(b);
+  for (int j0 = 0; j0 < b; j0 += w.nbw) {
+    const int nb = min(w.nbw, b - j0), tld = qr_ld(nb);
+    __syncthreads();
+    qr_w_load_panel(w, V2 + j0, b, b, nb, false);
+    qr_w_load_t(w, T + (size_t)j0 * b + j0, b, nb, tld);
+    __syncthreads();
+    QR_STAMP(8);
+    for (int c = 0; c < b; c += QR_MAX_B)
+      qr_w_chunk(w, nb, tld, C2, b, 0, b, c, min(c + QR_MAX_B, b),
+                 C1 + (size_t)j0 * b, nullptr);
   }
   __syncthreads();
 }

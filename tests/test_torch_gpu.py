@@ -6,7 +6,7 @@ card).  No jax import, so the file runs on the machine with the H100:
 Each kernel is held against its plain PyTorch version on the same CUDA
 inputs, at the reference's kernel-vs-oracle tolerance (QR: atol 2e-5,
 rtol 1e-4, tests/test_kernels_qr.py, at every tile size, past 64 through
-the global-memory bodies; N-body: rtol 2e-4, atol 1e-5,
+the blocked bodies; N-body: rtol 2e-4, atol 1e-5,
 tests/test_kernels_nbody.py).  Across the four execution modes the card's
 QR R is bitwise equal (one set of ``__device__`` functions, one
 blockDim); against the plain path on the CPU it agrees to atol
@@ -84,8 +84,8 @@ def close(got, want):
 
 
 # K1-K4 tile sizes: the shared-memory bodies' edges (1, 7, 16, 33, 64),
-# the reference tests' and run_qr's 32, and the global-memory bodies past
-# 64 (65, 96, 128, 256)
+# the reference tests' and run_qr's 32, and the blocked bodies past 64
+# (65, 96, 128, 256: panels of 64 + 1, 64 + 32, two of 64, eight of 32)
 QR_SIZES = [1, 7, 16, 32, 33, 64, 65, 96, 128, 256]
 
 
@@ -117,6 +117,52 @@ def test_kernels_match_plain_on_card(cuda, b, n):
         close((s1[i], s2[i]), ref.apply_tsqt_ref(v2[i], t2[i], c1[i], c2[i]))
 
 
+def tol_dist(got, want):
+    """max |got - want| / (atol + rtol |want|) at TOL: 1 is the limit."""
+    g, w = got.double().cpu(), want.double().cpu()
+    assert bool(torch.isfinite(g).all())
+    return float(((g - w).abs() / (TOL["atol"] + TOL["rtol"] * w.abs()))
+                 .max())
+
+
+@pytest.mark.parametrize("b", [512, 1000])
+def test_wide_kernels_no_further_from_float64_than_plain(cuda, b):
+    """K1-K4 at b = 512 and 1000 (panels of 16 and 8).  Past 256 two
+    float32 QRs lie about the kernel-vs-plain limit apart (the plain
+    version itself lies past it from float64 at b = 1000), so each output
+    is held to the float64 version of its plain function on the same
+    float32 inputs: within the limit, or no further than the plain float32
+    version is."""
+    rng = np.random.default_rng(b)
+    a, c1, c2, r = (torch.tensor(rng.standard_normal((2, b, b)),
+                                 dtype=torch.float32, device=cuda)
+                    for _ in range(4))
+    r = torch.triu(r)
+    got_f = [ops.geqrf(a), ops.tsqrf(r, c1)]
+    for i in range(2):
+        rv, _, t = ref.geqrf_ref(a[i])
+        _, v2, _, t2 = ref.tsqrf_ref(r[i], c1[i])
+        d64 = [x.double() for x in (a[i], r[i], c1[i], c2[i], rv, t, v2,
+                                    t2)]
+        cases = [
+            ([y[i] for y in got_f[0]], ref.geqrf_ref(a[i]),
+             ref.geqrf_ref(d64[0])),
+            ([y[i] for y in got_f[1]], ref.tsqrf_ref(r[i], c1[i]),
+             ref.tsqrf_ref(d64[1], d64[2])),
+            (ops.apply_qt(rv[None], t[None], c2[i][None]),
+             (ref.apply_qt_ref(rv, t, c2[i]),),
+             (ref.apply_qt_ref(d64[4], d64[5], d64[3]),)),
+            ([y[0] for y in ops.apply_tsqt(v2[None], t2[None], c1[i][None],
+                                           c2[i][None])],
+             ref.apply_tsqt_ref(v2, t2, c1[i], c2[i]),
+             ref.apply_tsqt_ref(d64[6], d64[7], d64[2], d64[3]))]
+        torch.cuda.synchronize()
+        for op, (got, plain, exact) in zip("K1 K2 K3 K4".split(), cases):
+            for k, (g, p, e) in enumerate(zip(got, plain, exact)):
+                dk, dp = tol_dist(g.squeeze(0), e), tol_dist(p, e)
+                assert dk <= max(1.0, dp), (op, i, k, dk, dp)
+
+
 def test_ops_check_operands(cuda):
     with pytest.raises(ValueError, match="float32"):
         ops.apply_qt(*(torch.zeros((8, 8), device=cuda,
@@ -127,15 +173,31 @@ def test_ops_check_operands(cuda):
     rv, tau, t = ops.geqrf(torch.eye(128, device=cuda))   # b > 64 is taken
     torch.cuda.synchronize()
     assert bool(torch.isfinite(rv).all()) and bool((tau == 0).all())
+    with pytest.raises(ValueError, match="b <= "):
+        ops.geqrf(torch.zeros((kernel.WIDE_MAX_B + 1,) * 2, device=cuda))
     nc = torch.zeros((16, 32), device=cuda)[:, :16]
     with pytest.raises(ValueError, match="contiguous"):
         ops.geqrf(nc)
 
 
-@pytest.mark.parametrize("n,b", [(256, 32), (512, 64), (1024, 128)])
+def test_shared_memory_fits_a_block(cuda):
+    """Every kind of tile size takes at most a block's 227 KB of shared
+    memory, b = 64's bodies fit two blocks an SM, and the walk keeps a
+    block on every SM."""
+    for b in (1, 33, 64, 65, 96, 128, 129, 256, 257, 512, 513, 1000,
+              kernel.WIDE_MAX_B):
+        assert kernel.lib().qr_smem_bytes(b) <= 232448, b
+        assert kernel.walk_grid(b) >= torch.cuda.get_device_properties(
+            cuda).multi_processor_count, b
+    assert 2 * (kernel.lib().qr_smem_bytes(64) + 1024) <= 233472
+
+
+@pytest.mark.parametrize("n,b", [(256, 32), (512, 64), (1024, 128),
+                                 (1024, 256), (2048, 512)])
 def test_modes_bitwise_equal_and_match_cpu(cuda, n, b):
-    """The four modes bitwise equal on the card (at 1024² / 128² through
-    the global-memory bodies), one walk launch a plan, R valid (Gram and
+    """The four modes bitwise equal on the card (at 1024² / 128² and 256²
+    and 2048² / 512² through the blocked bodies: panels of 64, 32 and 16),
+    one walk launch a plan, R valid (Gram and
     float64 LAPACK up to row signs, chip_smoke.py's limits) and close to
     the plain path on the CPU."""
     a = np.random.default_rng(1).standard_normal((n, n)).astype(
@@ -214,7 +276,7 @@ def test_walk_one_launch_matches_plain_walk(cuda, n, b):
     """K5 in one launch against the plain walk, per tile; at 1024²/16² the
     longest phase (1,135 rows) is longer than the resident grid, so blocks
     take a phase's rows in turns; at 1024²/128² the rows run the
-    global-memory bodies."""
+    blocked bodies."""
     tab = qr_table(n, b)
     init = qr_stack(n, b, n + b, cuda)
     kernel.reset_counts()
@@ -267,9 +329,17 @@ def test_walk_repeats_bitwise(cuda):
 
 
 def test_walk_repeats_bitwise_wide_tiles(cuda):
-    """The global-memory bodies (b = 128) repeat bit for bit too."""
+    """The blocked bodies (b = 128) repeat bit for bit too."""
     tab = qr_table(512, 128)
     init = qr_stack(512, 128, 5, cuda)
+    first, again = walk_once(tab, init), walk_once(tab, init)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_walk_repeats_bitwise_tiles_of_256(cuda):
+    """At b = 256 (panels of 32, eight a tile) as well."""
+    tab = qr_table(1024, 256)
+    init = qr_stack(1024, 256, 5, cuda)
     first, again = walk_once(tab, init), walk_once(tab, init)
     assert all(torch.equal(x, y) for x, y in zip(first, again))
 

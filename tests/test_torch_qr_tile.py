@@ -224,15 +224,159 @@ def test_launch_counts_exact_under_threads():
 
 
 def test_check_shape_takes_any_tile_size():
-    """The kernels take any b >= 1 (shared-memory bodies to 64, global-
-    memory bodies above, with a b x b tile and two b-vectors of scratch a
-    block); the check needs no card."""
+    """The kernels take every b from 1 to WIDE_MAX_B (shared-memory bodies
+    to 64, blocked bodies above), with no global scratch, and refuse the
+    rest; the check needs no card (tests/test_torch_gpu.py holds each tile
+    size's shared memory to a block's on the card)."""
     for b in (1, 33, 64, 65, 96, 128, 256, 1000):
         kernel.check_shape(b)
     with pytest.raises(ValueError, match="b >= 1"):
         kernel.check_shape(0)
-    assert kernel.scratch_floats(64) == 0
-    assert kernel.scratch_floats(128) == 128 * 128 + 2 * 128
+    kernel.check_shape(kernel.WIDE_MAX_B)
+    with pytest.raises(ValueError, match="b <= "):
+        kernel.check_shape(kernel.WIDE_MAX_B + 1)
+
+
+# ---------------------------------------------------------------------------
+# The blocked algorithm of the b > 64 bodies (csrc/qr_tile.cuh, qr_*_wide),
+# in float64 torch: panels factored column by column, each panel's T from
+# its Gram matrix, the trailing columns updated with the panel's compact
+# WY, T merged panel by panel as [[T1, -T1 (V1^T V2) T2], [0, T2]]; the
+# applies go panel by panel with the diagonal blocks of T.  Held to the
+# plain column-by-column versions (ref) in float64, where the two orders
+# agree to rounding: 1e-12.
+# ---------------------------------------------------------------------------
+
+BLOCKED = [(65, 64), (96, 64), (128, 64), (256, 64), (256, 32)]
+BLOCKED_TOL = 1e-12
+
+
+def _panel_t(v, taus):
+    """T of one panel from its Gram matrix G = V^T V (qr_build_t):
+    T[:j, j] = -tau_j T[:j, :j] G[:j, j], T[j, j] = tau_j."""
+    g = v.T @ v
+    nb = v.shape[1]
+    t = torch.zeros((nb, nb), dtype=v.dtype)
+    for j in range(nb):
+        t[:j, j] = -taus[j] * (t[:j, :j] @ g[:j, j])
+        t[j, j] = taus[j]
+    return t
+
+
+def _merge_t(t, y, j0, nb):
+    """T[:j0, J] = -T[:j0, :j0] (Y T_J), Y = V_prev^T V_J."""
+    t[:j0, j0:j0 + nb] = -t[:j0, :j0] @ (y @ t[j0:j0 + nb, j0:j0 + nb])
+
+
+def _blocked_geqrf(a, nbw):
+    a = a.clone()
+    b = a.shape[0]
+    t = torch.zeros_like(a)
+    taus = torch.zeros(b, dtype=a.dtype)
+    for j0 in range(0, b, nbw):
+        nb = min(nbw, b - j0)
+        p = a[j0:, j0:j0 + nb]              # the panel, a view
+        for j in range(nb):
+            x = p[:, j].clone()
+            beta, tau, inv = ref._householder(x[j], torch.sum(x[j + 1:] ** 2))
+            v = torch.zeros_like(x)
+            v[j] = 1.0
+            v[j + 1:] = x[j + 1:] * inv
+            p[:, j + 1:] -= torch.outer(v, tau * (v @ p[:, j + 1:]))
+            p[j, j] = beta
+            p[j + 1:, j] = v[j + 1:]
+            taus[j0 + j] = tau
+        v = torch.tril(p, -1) + torch.eye(*p.shape, dtype=a.dtype)
+        t[j0:j0 + nb, j0:j0 + nb] = _panel_t(v, taus[j0:j0 + nb])
+        tk = t[j0:j0 + nb, j0:j0 + nb]
+        c = a[j0:, j0 + nb:]
+        c -= v @ (tk.T @ (v.T @ c))
+        _merge_t(t, a[j0:, :j0].T @ v, j0, nb)
+    return a, taus, t
+
+
+def _blocked_tsqrf(r, a, nbw):
+    r, a = r.clone(), a.clone()
+    b = a.shape[0]
+    t = torch.zeros_like(a)
+    taus = torch.zeros(b, dtype=a.dtype)
+    for j0 in range(0, b, nbw):
+        nb = min(nbw, b - j0)
+        p, rb = a[:, j0:j0 + nb], r[j0:j0 + nb, j0:j0 + nb]
+        for j in range(nb):
+            x = p[:, j].clone()
+            beta, tau, inv = ref._householder(rb[j, j].clone(),
+                                              torch.sum(x * x))
+            v = x * inv
+            w = rb[j, j + 1:] + v @ p[:, j + 1:]
+            rb[j, j + 1:] -= tau * w
+            p[:, j + 1:] -= tau * torch.outer(v, w)
+            rb[j, j] = beta
+            p[:, j] = v
+            taus[j0 + j] = tau
+        t[j0:j0 + nb, j0:j0 + nb] = _panel_t(p, taus[j0:j0 + nb])
+        tk = t[j0:j0 + nb, j0:j0 + nb]
+        w = r[j0:j0 + nb, j0 + nb:] + p.T @ a[:, j0 + nb:]
+        x = tk.T @ w
+        r[j0:j0 + nb, j0 + nb:] -= x
+        a[:, j0 + nb:] -= p @ x
+        _merge_t(t, a[:, :j0].T @ p, j0, nb)
+    return r, a, taus, t
+
+
+def _blocked_apply_qt(rv, t, c, nbw):
+    c = c.clone()
+    b = c.shape[0]
+    for j0 in range(0, b, nbw):
+        nb = min(nbw, b - j0)
+        blk = rv[j0:, j0:j0 + nb]
+        v = torch.tril(blk, -1) + torch.eye(*blk.shape, dtype=c.dtype)
+        tk = t[j0:j0 + nb, j0:j0 + nb]
+        c[j0:] -= v @ (tk.T @ (v.T @ c[j0:]))
+    return c
+
+
+def _blocked_apply_tsqt(v2, t, c1, c2, nbw):
+    c1, c2 = c1.clone(), c2.clone()
+    for j0 in range(0, c1.shape[0], nbw):
+        nb = min(nbw, c1.shape[0] - j0)
+        v, tk = v2[:, j0:j0 + nb], t[j0:j0 + nb, j0:j0 + nb]
+        x = tk.T @ (c1[j0:j0 + nb] + v.T @ c2)
+        c1[j0:j0 + nb] -= x
+        c2 -= v @ x
+    return c1, c2
+
+
+def _max_gap(got, want):
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("b,nbw", BLOCKED)
+def test_blocked_factorizations_match_plain(b, nbw):
+    """The panel split and the T merge reproduce geqrf_ref's and
+    tsqrf_ref's RV / R', V2, taus and T."""
+    rng = np.random.default_rng(b + nbw)
+    a = torch.tensor(rng.standard_normal((b, b)))
+    r = torch.triu(torch.tensor(rng.standard_normal((b, b))))
+    got = _blocked_geqrf(a, nbw)
+    assert _max_gap(got, ref.geqrf_ref(a)) <= BLOCKED_TOL
+    got = _blocked_tsqrf(r, a, nbw)
+    assert _max_gap(got, ref.tsqrf_ref(r, a)) <= BLOCKED_TOL
+
+
+@pytest.mark.parametrize("b,nbw", BLOCKED)
+def test_blocked_applies_match_plain(b, nbw):
+    """Applying panel by panel with the diagonal blocks of the merged T
+    equals apply_qt_ref and apply_tsqt_ref with the whole T."""
+    rng = np.random.default_rng(2 * b + nbw)
+    a, c1, c2 = (torch.tensor(rng.standard_normal((b, b))) for _ in range(3))
+    r = torch.triu(torch.tensor(rng.standard_normal((b, b))))
+    rv, _, t = _blocked_geqrf(a, nbw)
+    got = _blocked_apply_qt(rv, t, c1, nbw)
+    assert _max_gap([got], [ref.apply_qt_ref(rv, t, c1)]) <= BLOCKED_TOL
+    _, v2, _, t2 = _blocked_tsqrf(r, a, nbw)
+    got = _blocked_apply_tsqt(v2, t2, c1, c2, nbw)
+    assert _max_gap(got, ref.apply_tsqt_ref(v2, t2, c1, c2)) <= BLOCKED_TOL
 
 
 def test_ops_refuse_other_devices():

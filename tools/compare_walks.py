@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K9 and K8 of two checkouts side by side on one card.
+"""The walks (K9, K8) or the QR kernels (K1-K5) of two checkouts side by
+side on one card.
 
-    python3 tools/compare_walks.py ROOT TAG
+    python3 tools/compare_walks.py ROOT TAG [--qr]
 
 Times, in the checkout at ROOT (its own ``chip_smoke.py`` and
 ``src/repro_torch``), the K9 walk of a whole (8, 64, 32, 2048) pipeline
@@ -13,6 +14,12 @@ or without the leaf counts and the bucket order).  The 1M plan is
 lowered once and kept in ``COMPARE_WALKS_CACHE`` (by default
 ``build/compare_walks/bh1m.pt`` under ROOT), which later runs reuse; run
 two checkouts in turns (A, B, B, A) with one cache to compare them.
+
+With ``--qr`` it times instead K1-K4 at b = 64, 128 and 256 (batch 1, the
+kernel launches alone with their outputs allocated beforehand, 50 of them
+in one CUDA graph, median of 3) and K5 over the 2048² / 64², 1024² / 128²
+and 1024² / 256² plans (``chip_smoke.walk_times``: median of 3 after a
+warm-up, beside the barrier floor).
 """
 
 from __future__ import annotations
@@ -24,7 +31,38 @@ import statistics
 import sys
 
 
-def main(root: pathlib.Path, tag: str) -> None:
+def qr_kernels(torch, np, cs, tag: str) -> None:
+    from repro_torch.kernels.qr_tile import kernel, ops
+    dev = torch.device("cuda")
+    out = []
+    for b in (64, 128, 256):
+        rng = np.random.default_rng(7)
+        x, c1, c2 = (torch.tensor(rng.standard_normal((1, b, b)),
+                                  dtype=torch.float32, device=dev)
+                     for _ in range(3))
+        r0 = torch.triu(x)
+        rv, _, t = ops.geqrf(x)
+        _, v2, _, t2 = ops.tsqrf(r0, c1)
+        o1, o2, o3 = (torch.empty_like(x) for _ in range(3))
+        tv = torch.empty((1, b), device=dev)
+        fns = {"geqrf": lambda: kernel.geqrf(x, o1, tv, o2),
+               "tsqrf": lambda: kernel.tsqrf(r0, c1, o1, o2, tv, o3),
+               "apply_qt": lambda: kernel.apply_qt(rv, t, c1, o1),
+               "apply_tsqt": lambda: kernel.apply_tsqt(v2, t2, c1, c2, o1,
+                                                        o2)}
+        for name, fn in fns.items():
+            ms = cs.median_of(lambda: cs.graph_ms(torch, fn))
+            out.append(f"{name}@{b} {ms:.5f}")
+    for n, b in ((2048, 64), (1024, 128), (1024, 256)):
+        mat = torch.tensor(np.random.default_rng(n).standard_normal((n, n)),
+                           dtype=torch.float32, device=dev)
+        _, ms, floor, *_ = cs.walk_times(torch, mat, b)
+        out.append(f"qr_walk@{n}/{b} {ms:.4f} (floor {floor:.4f})")
+    print(f"[compare] {tag} ({torch.cuda.get_device_name(0)}): "
+          + ", ".join(out), flush=True)
+
+
+def main(root: pathlib.Path, tag: str, qr: bool = False) -> None:
     sys.path.insert(0, str(root))
     sys.path.insert(0, str(root / "src"))
     os.chdir(root)
@@ -35,6 +73,9 @@ def main(root: pathlib.Path, tag: str) -> None:
     from repro_torch.kernels.nbody import kernel as nbk
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
+    if qr:
+        qr_kernels(torch, np, cs, tag)
+        return
     cs.phase_build()
     S, M, Bt, D = cs.PIPE_FULL
     tab, statics, fresh = cs.pipe_state(torch, S, M, Bt, D, seed=0)
@@ -115,4 +156,5 @@ def main(root: pathlib.Path, tag: str) -> None:
 
 
 if __name__ == "__main__":
-    main(pathlib.Path(sys.argv[1]).resolve(), sys.argv[2])
+    main(pathlib.Path(sys.argv[1]).resolve(), sys.argv[2],
+         "--qr" in sys.argv[3:])
