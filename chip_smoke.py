@@ -42,9 +42,10 @@ Phases, each fatal when it fails (each phase's seconds are logged):
     PyTorch versions on the card, b in {1, 7, 16, 32, 33, 64, 65, 96, 128,
     256} (past 64 the blocked bodies), batch 1 and 8 (a zero column, a
     triangular and a zero tile among the 8); at b = 1000 (panels of 8),
-    where two float32 QRs lie about the limit apart, each output within
-    the limit of its float64 version or no further from it than the plain
-    float32 version;
+    1025 and 2048 (panels of 4: a column over two warps), where two
+    float32 QRs lie about the limit apart, each output within the limit
+    of its float64 version or no further from it than the plain float32
+    version, each op one kernel launch and no plain call;
  4. K5 (the QR task-table walk, one cooperative launch a plan) against the
     plain walk at 256² / 32² tiles, on the 2048² / 64² plan, whose
     longest phase (296 rows) is longer than the resident grid (264
@@ -58,13 +59,15 @@ Phases, each fatal when it fails (each phase's seconds are logged):
     1024² / 128², 1024² / 256² and 2048² / 512² (the blocked bodies;
     their launches counted apart);
  6. QR timings (CUDA events, median of 3 after warm-up): run_qr per mode
-    at 2048² (threaded one run) and engine mode at 4096², launches per plan (one), the walk
+    at 2048² (one run after phase 5's; threaded: phase 5's run) and
+    engine mode at 4096², launches per plan (one), the walk
     of the 2048² plan beside its barrier floor (the same table with every
     row a QR_NOOP: 125 grid barriers, one launch) and of the 1024² /
     128² plan beside its own, each kernel at b = 64, 128 and 256 beside its
     bound, its plain version and a PyTorch yardstick (torch.geqrf,
     torch.ormqr, torch.linalg.qr — never called by the port), the b = 128
-    times beside their first form's (PERF.md §6);
+    times beside their first form's (PERF.md §6), and at b = 1025 and
+    2048 (one timed launch each);
  6a. the paper's QR graph (32 x 32 tiles, 11,440 tasks, 125 phases) on a
     seeded 4096² matrix at 128² tiles: run_qr in engine mode, its counts
     zeroed before and read after (one walk launch, no plain version), R
@@ -72,6 +75,13 @@ Phases, each fatal when it fails (each phase's seconds are logged):
     path on the CPU; the engine wall (median of 3) beside the same matrix
     at 64² tiles and torch.linalg.qr at 4096², the walk beside its barrier
     floor and bound;
+ 6b. run_qr on 2 x 2 tiles of 2048² (a 4096² matrix; panels of 4 columns,
+    a column over two warps) in engine mode: one walk launch, no plain
+    version, R held by the Gram identity and float64 LAPACK as in 6a; K5
+    held per tile to the plain walk run in float64 on the card (within
+    1e-4 of it, or no further than the plain float32 walk, as the op
+    checks past 1000 are; on the CPU the plain path took 30-64 s at b =
+    2048); the walk beside its barrier floor and bound;
  7. K6/K7 (acc_pair, acc_self) against their plain versions on the card,
     Ni, Nj in {1, 30, 37, 58, 100, 128, 463, 1000}, with coincident
     particles and zero masses, two launches bitwise equal;
@@ -91,9 +101,8 @@ Phases, each fatal when it fails (each phase's seconds are logged):
     launches per plan at most the plan's rounds.  The host modes run at
     100k and not at 1M: at 1M they would make about 800k per-op launches
     from Python, more than this script's time limit holds;
-11. BH timings: solve per mode at 100k (the engine a median of 3, the
-    host modes one run, a mode whose first run took 15 s or more,
-    threaded, not run again) and engine at 1M (phase 10's one run), split
+11. BH timings: the engine's solve at 100k (one run; the host modes' walls
+    are phase 9's first runs) and at 1M (phase 10's one run), split
     into tree, graph, lowering and execution; the walk over the whole 1M
     plan, with
     the pair interactions it evaluates beside those the data needs and
@@ -380,6 +389,11 @@ OP_SIZES = (1, 7, 16, 32, 33, 64, 65, 96, 128, 256)
 # within OP_TOL of the float64 version, or no further from it than the
 # plain float32 version is; and run_qr at 2048² / 512² (panels of 16)
 B_F64 = 1000
+# past 1024 a panel column spreads over several warps (panels of 4 columns,
+# two warps a column, to b = 2048): K1-K4 at 1025 and 2048 are held to
+# float64 as at 1000, and run_qr runs on 2 x 2 tiles of 2048^2 (phase 6b)
+B_SPAN = (1025, 2048)
+N_SPAN, B_SPAN_MAIN = 4096, 2048
 N_WIDEST, B_WIDEST = 2048, 512
 N_LARGE = 4096
 # the paper's QR graph (benchmarks/qr_scaling.py: 32 x 32 tiles, 11,440
@@ -573,7 +587,8 @@ def phase_ops(torch, np):
     log(f"[ops] K1-K4 match their plain versions, b in {OP_SIZES}, batch "
         f"1 and 8 (zero column, triangular and zero tiles), atol 2e-5 rtol "
         f"1e-4; max |err| {errs}")
-    ops_vs_float64(torch, np, B_F64)
+    for b in (B_F64, *B_SPAN):
+        ops_vs_float64(torch, np, b)
     return errs
 
 
@@ -590,21 +605,24 @@ def ops_vs_float64(torch, np, b):
     """K1-K4 at tile size b (batch 1, seeded) against the float64 versions
     of their plain functions on the same float32 inputs: each output within
     OP_TOL of float64, or no further from it than the plain float32
-    version; returns the distances (1 = the limit)."""
-    from repro_torch.kernels.qr_tile import ops, ref
+    version; each op launched its kernel once and ran no plain version;
+    returns the distances (1 = the limit)."""
+    from repro_torch.kernels.qr_tile import kernel, ops, ref
+    kernel.reset_counts()
     rng = np.random.default_rng(b)
     a, c1, c2, r0 = (torch.tensor(rng.standard_normal((b, b)),
                                   dtype=torch.float32, device="cuda")
                      for _ in range(4))
     r0 = torch.triu(r0)
-    rv, _, t = ref.geqrf_ref(a)
-    _, v2, _, t2 = ref.tsqrf_ref(r0, c1)
+    plain_f, plain_t = ref.geqrf_ref(a), ref.tsqrf_ref(r0, c1)
+    rv, _, t = plain_f
+    _, v2, _, t2 = plain_t
     d64 = lambda *x: [y.double() for y in x]     # noqa: E731
     cases = {
-        "geqrf": ([y[0] for y in ops.geqrf(a[None])], ref.geqrf_ref(a),
+        "geqrf": ([y[0] for y in ops.geqrf(a[None])], plain_f,
                   ref.geqrf_ref(a.double())),
         "tsqrf": ([y[0] for y in ops.tsqrf(r0[None], c1[None])],
-                  ref.tsqrf_ref(r0, c1), ref.tsqrf_ref(*d64(r0, c1))),
+                  plain_t, ref.tsqrf_ref(*d64(r0, c1))),
         "apply_qt": ([ops.apply_qt(rv[None], t[None], c2[None])[0]],
                      [ref.apply_qt_ref(rv, t, c2)],
                      [ref.apply_qt_ref(*d64(rv, t, c2))]),
@@ -613,6 +631,10 @@ def ops_vs_float64(torch, np, b):
                        ref.apply_tsqt_ref(v2, t2, c1, c2),
                        ref.apply_tsqt_ref(*d64(v2, t2, c1, c2)))}
     torch.cuda.synchronize()
+    if (any(kernel.LAUNCHES[k] != 1 for k in cases)
+            or any(kernel.PLAIN_CALLS.values())):
+        fail(f"K1-K4 at b = {b}: launches {kernel.LAUNCHES}, plain "
+             f"{kernel.PLAIN_CALLS}, not one kernel launch an op")
     out = {}
     for name, (got, plain, exact) in cases.items():
         dk = [tol_dist(np, g, e) for g, e in zip(got, exact)]
@@ -655,10 +677,17 @@ def stack_of(torch, a, b):
     return tiles, torch.zeros_like(tiles)
 
 
-def walk_tiles(torch, np, tables, a, b):
+def walk_tiles(torch, np, tables, a, b, f64=False):
     """K5 (one launch, as execute_plan hands it the table) and the plain
     walk from the same stack; returns the worst tile's max|Δ|/max(1,
-    max|plain|), max|Δ| and the plain walk's ms (host clock, one run)."""
+    max|plain|), max|Δ| and the plain walk's ms (host clock, one run).
+    Each tile is held to the plain walk's within WALK_TOL; with ``f64``
+    (b = 2048, where two float32 walks lie about WALK_TOL apart: 5.4e-5
+    to 9.7e-5 on four seeds) it is held instead to the plain walk run in
+    float64 on the same stack, as the op checks at b >= 1000 are: within
+    WALK_TOL of it, or no further from it than the plain float32 walk's
+    tile is, and the worst (K5's, plain's) distances from float64 come
+    back as a fourth value."""
     from repro_torch import engine
     from repro_torch.kernels.qr_tile import kernel
     tiles, tmat = stack_of(torch, a, b)
@@ -671,18 +700,36 @@ def walk_tiles(torch, np, tables, a, b):
     if kernel.LAUNCHES["qr_walk"] != 1 or any(kernel.PLAIN_CALLS.values()):
         fail(f"walk at {a.shape[0]}²: launches {kernel.LAUNCHES}, plain "
              f"{kernel.PLAIN_CALLS}")
+    exact = [x.double() for x in stack_of(torch, a, b)] if f64 else None
     t0 = time.perf_counter()
     engine.qr_walk_plain(tables.desc, tables.phase_offsets, p_tiles, p_tmat)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    if f64:
+        engine.qr_walk_plain(tables.desc, tables.phase_offsets, *exact)
+        torch.cuda.synchronize()
     worst = worst_abs = 0.0
-    for got, want in ((tiles, p_tiles), (tmat, p_tmat)):
-        for g, w in zip(got, want):
+    vs_f64 = (0.0, 0.0)
+    for k, (got, want) in enumerate(((tiles, p_tiles), (tmat, p_tmat))):
+        for i, (g, w) in enumerate(zip(got, want)):
             d = float((g - w).abs().max())
             if not np.isfinite(d):
                 fail("walk: non-finite tile")
             worst_abs = max(worst_abs, d)
             worst = max(worst, d / max(1.0, float(w.abs().max())))
+            if f64:
+                e = exact[k][i]
+                scale = max(1.0, float(e.abs().max()))
+                dk = float((g.double() - e).abs().max()) / scale
+                dp = float((w.double() - e).abs().max()) / scale
+                if dk > max(WALK_TOL, dp):
+                    fail(f"walk at {a.shape[0]}² / {b}²: tile {i} lies "
+                         f"{dk:.3e} from the float64 walk, past "
+                         f"{WALK_TOL} and the plain walk's {dp:.3e}")
+                if dk > vs_f64[0]:
+                    vs_f64 = (dk, dp)
+    if f64:
+        return worst, worst_abs, plain_ms, vs_f64
     if worst > WALK_TOL:
         fail(f"walk vs plain walk at {a.shape[0]}² / {b}²: tile error "
              f"{worst:.3e} > {WALK_TOL}")
@@ -732,7 +779,7 @@ def phase_main(torch, np):
     """run_qr at 2048² / 64² (the main path: its launches are the kernels
     line's), then at 1024² / 128² and 256² and 2048² / 512² (the blocked
     bodies), each in the four modes with every check."""
-    a, total, vs_cpu = qr_modes(torch, np, N_MAIN, B_MAIN, "main")
+    a, total, vs_cpu, firsts = qr_modes(torch, np, N_MAIN, B_MAIN, "main")
     wide = qr_modes(torch, np, N_WIDE, B_WIDE, "main-wide")
     wider = qr_modes(torch, np, N_WIDE, B_WIDER, "main-wide256")
     widest = qr_modes(torch, np, N_WIDEST, B_WIDEST, "main-wide512")
@@ -740,7 +787,8 @@ def phase_main(torch, np):
                               "launches_b256": wider[1],
                               "vs_cpu_b256": wider[2],
                               "launches_b512": widest[1],
-                              "vs_cpu_b512": widest[2]}
+                              "vs_cpu_b512": widest[2],
+                              "threaded_first_s": firsts["threaded"]}
 
 
 def qr_modes(torch, np, n, b, tag):
@@ -750,9 +798,11 @@ def qr_modes(torch, np, n, b, tag):
         np.float32)
     a = torch.tensor(a_np, device="cuda")
     rs, per_mode, total = {}, {}, dict.fromkeys(kernel.LAUNCHES, 0)
+    firsts = {}
     for mode in MODES:
         kernel.reset_counts()
         rs[mode], secs = run_mode(torch, qr, a, mode, b)
+        firsts[mode] = secs
         per_mode[mode] = dict(kernel.LAUNCHES)
         if any(kernel.PLAIN_CALLS.values()):
             fail(f"{mode}: a plain version ran on the card "
@@ -795,7 +845,7 @@ def qr_modes(torch, np, n, b, tag):
         if not val < tol:
             fail(f"{name} check {val:.3e} >= {tol}")
     log(f"[{tag}] launches over the four modes: {total}")
-    return a, total, vs_cpu
+    return a, total, vs_cpu, firsts
 
 
 def lib_check(torch, one, ra, rv2, cc):
@@ -823,9 +873,11 @@ def lib_check(torch, one, ra, rv2, cc):
         f"(atol {LIB_TOL['atol']}, rtol {LIB_TOL['rtol']})")
 
 
-def events_ms(torch, fn, reps):
-    """Mean device ms of fn over reps back-to-back calls (CUDA events)."""
-    fn()
+def events_ms(torch, fn, reps, warm=True):
+    """Mean device ms of fn over reps back-to-back calls (CUDA events),
+    after a warm-up call unless fn ran just before (``warm=False``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -859,12 +911,13 @@ def graph_ms(torch, fn, reps=50):
     return e0.elapsed_time(e1) / reps
 
 
-def walk_times(torch, mat, b):
+def walk_times(torch, mat, b, reps=3, warm=True):
     """K5 over the whole plan of ``mat`` at tile b, on fresh copies of the
     stack, desc and offsets uploaded beforehand (as execute_plan does), and
     beside it the barrier floor: the same table with every row a no-op.
     Returns (tables, ms, floor ms, bound ms, bound_by, flops), the times
-    medians of 3 after a warm-up (CUDA events)."""
+    medians of ``reps`` (CUDA events), after a warm-up run unless the
+    caller has just run the same walk (``warm=False``)."""
     from repro_torch import engine
     dev = torch.device("cuda")
     tab = plan_tables(torch, mat.shape[0], b)
@@ -886,8 +939,9 @@ def walk_times(torch, mat, b):
             torch.cuda.synchronize()
             return e0.elapsed_time(e1)
 
-        once()
-        return median_of(once)
+        if warm:
+            once()
+        return median_of(once, reps)
 
     etypes = tab.desc[:, 0]
     names = ("geqrf", "apply_qt", "tsqrf", "apply_tsqt")  # QR_* order
@@ -905,16 +959,15 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
 
     walls = {}
     for mode in MODES:
-        # threaded (~7 s a run, the GIL) once: phase 5 ran it once already
-        walls[mode] = median_of(lambda: run_mode(torch, qr, a, mode)[1],
-                                reps=1 if mode == "threaded" else 3)
+        # one run each after phase 5's (threaded, ~7 s a run: phase 5's)
+        walls[mode] = (wide["threaded_first_s"] if mode == "threaded" else
+                       run_mode(torch, qr, a, mode)[1])
     big = torch.tensor(np.random.default_rng(4096).standard_normal(
         (N_LARGE, N_LARGE)), dtype=torch.float32, device="cuda")
     kernel.reset_counts()
     run_mode(torch, qr, big, "engine")                       # warm-up
     per_plan_large = kernel.LAUNCHES["qr_walk"]
-    walls[f"engine@{N_LARGE}"] = median_of(
-        lambda: run_mode(torch, qr, big, "engine")[1])
+    walls[f"engine@{N_LARGE}"] = run_mode(torch, qr, big, "engine")[1]
     del big
     tables = plan_tables(torch, N_MAIN, B_MAIN)
     kernel.reset_counts()
@@ -925,7 +978,8 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
              f"{per_plan_large} at {N_LARGE}²: not one")
     lib_qr = median_of(lambda: events_ms(
         torch, lambda: torch.linalg.qr(a, mode="r"), 3))
-    log(f"[time] run_qr wall s (median of 3; threaded one run): "
+    log(f"[time] run_qr wall s (one run after phase 5's; threaded phase "
+        f"5's run): "
         + ", ".join(f"{k} {v:.4f}" for k, v in walls.items())
         + f"; torch.linalg.qr {N_MAIN}² {lib_qr:.3f} ms; walk launches per "
         f"plan {per_plan} at {N_MAIN}² ({tables.nr_phases} phases), "
@@ -942,7 +996,12 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
     batch_main = {"apply_qt": 31, "apply_tsqt": 286}  # largest rounds batch
     source = "src/repro_torch/kernels/qr_tile/csrc/qr_tile.cu"
 
-    def op_times(b):
+    def op_times(b, reps=None, rounds=3, warm=True):
+        """Each op's ms (events over ``reps`` launches, the median of
+        ``rounds``), its plain version's and the library's, its bound;
+        ``warm=False``: no warm-up call (the inputs and the yardstick
+        check have launched every op at this b just before)."""
+        reps = reps or (50 if b <= 64 else 10)
         rng = np.random.default_rng(7)
 
         def rand(n):
@@ -1002,10 +1061,12 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
         lib_check(torch, one, ra, rv2, cc)
         out = {}
         for name, fn in fns.items():
-            ms = median_of(lambda: events_ms(torch, fn, 50 if b <= 64
-                                             else 10))
-            plain = median_of(lambda: events_ms(torch, plains[name], 3))
-            lib = median_of(lambda: events_ms(torch, libs[name], 20))
+            ms = median_of(lambda: events_ms(torch, fn, reps, warm),
+                           rounds)
+            plain = median_of(lambda: events_ms(
+                torch, plains[name], min(3, reps), warm), rounds)
+            lib = median_of(lambda: events_ms(torch, libs[name],
+                                              min(20, 2 * reps)), rounds)
             bms, by = bound_ms(2 * macs(name, b), tile_bytes(name, b))
             out[name] = (ms, plain, lib, bms, by)
             extra = ""
@@ -1025,6 +1086,10 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
     per_op = op_times(B_MAIN)
     per_op_wide = op_times(B_WIDE)
     per_op_wider = op_times(B_WIDER)
+    # past 1024 (panels of 4) a launch takes 0.1 s and more: one timed
+    # launch, and one call of the plain version
+    per_op_span = {b: op_times(b, reps=1, rounds=1, warm=False)
+                   for b in B_SPAN}
     rows = []
     for name, (ms, plain, lib, bms, by) in per_op.items():
         wms, wplain, wlib, wbms, _ = per_op_wide[name]
@@ -1040,6 +1105,11 @@ def phase_timing(torch, np, a, launches, errs, walk_err, vs_cpu, wide,
                      "ms_b256": xms, "plain_ms_b256": xplain,
                      "bound_ms_b256": xbms, "library_ms_b256": xlib,
                      "launches_1024_b256": wide["launches_b256"][name]})
+        for b, times in per_op_span.items():
+            sms, splain, slib, sbms, sby = times[name]
+            rows[-1].update({f"ms_b{b}": sms, f"plain_ms_b{b}": splain,
+                             f"bound_ms_b{b}": sbms, f"bound_by_b{b}": sby,
+                             f"library_ms_b{b}": slib})
         log(f"[time] {name} b=128: {wms:.5f} ms (library {wlib:.5f} ms); "
             f"first form {FIRST_FORM_B128[name][0]:.5f} and "
             f"{FIRST_FORM_B128[name][1]:.5f} ms (PERF.md §6, runs r19, "
@@ -1160,6 +1230,73 @@ def phase_qr_paper(torch, np, card):
             "lapack_4096_b128": lap, "engine_wall_s_4096_b128": wall,
             "rows_4096_b128": int(tab.nr_items),
             "phases_4096_b128": int(tab.nr_phases)}
+
+
+def phase_qr_span(torch, np, card):
+    """run_qr on 2 x 2 tiles of 2048² (a 4096² matrix; panels of 4
+    columns, a column over two warps) in engine mode, its counts zeroed
+    before and read after (one walk launch, no plain version), R held by
+    the Gram identity and float64 LAPACK up to signs; K5 against the plain
+    walk in float64 on the card, per tile (walk_tiles' f64); then the walk
+    beside its barrier floor and bound (one timed run, after the checked
+    ones).
+    Returns the keys phase 6's qr_walk row takes for it."""
+    from repro_torch.apps import qr
+    from repro_torch.kernels.qr_tile import kernel
+    n, b = N_SPAN, B_SPAN_MAIN
+    a_np = np.random.default_rng(n + 1).standard_normal((n, n)).astype(
+        np.float32)
+    a = torch.tensor(a_np, device="cuda")
+    kernel.reset_counts()
+    r_dev, secs = run_mode(torch, qr, a, "engine", b)
+    launches = dict(kernel.LAUNCHES)
+    if launches["qr_walk"] != 1 or any(v for k, v in launches.items()
+                                       if k != "qr_walk"):
+        fail(f"{n}² / {b}² engine launches {launches}: not one walk")
+    if any(kernel.PLAIN_CALLS.values()):
+        fail(f"{n}² / {b}²: a plain version ran on the card "
+             f"{kernel.PLAIN_CALLS}")
+    r = r_dev.double().cpu().numpy()
+    a64 = a_np.astype(np.float64)
+    if not np.isfinite(r).all() or np.abs(np.tril(r, -1)).max() != 0.0:
+        fail(f"{n}² / {b}²: R is not a finite upper-triangular matrix")
+    gram = float(np.linalg.norm(r.T @ r - a64.T @ a64)
+                 / np.linalg.norm(a64) ** 2)
+    r64 = np.linalg.qr(a64, mode="r")
+    sgn = np.sign(np.diag(r)) * np.sign(np.diag(r64))
+    lap = float(np.linalg.norm(r * sgn[:, None] - r64)
+                / np.linalg.norm(r64))
+    for name, val, tol in (("Gram", gram, GRAM_TOL), ("LAPACK", lap,
+                           LAPACK_TOL)):
+        if not val < tol:
+            fail(f"{n}² / {b}² {name} check {val:.3e} >= {tol}")
+    worst, worst_abs, plain_ms, (vs64, plain64) = walk_tiles(
+        torch, np, plan_tables(torch, n, b), a, b, f64=True)
+    log(f"[span] {n}² / {b}² tiles (panels of 4, a column over two warps), "
+        f"{LANES} lanes, engine: launches {launches} (first run "
+        f"{secs:.3f} s); Gram {gram:.3e} (bound {GRAM_TOL}); LAPACK fp64 up "
+        f"to signs {lap:.3e} (bound {LAPACK_TOL}); K5 vs the plain walk in "
+        f"float64 on the card: worst tile max|Δ|/max(1,max|f64|) "
+        f"{vs64:.3e}, the plain float32 walk's there {plain64:.3e} (bound: "
+        f"{WALK_TOL} or the plain walk's); K5 vs the plain float32 walk "
+        f"{worst:.3e}, max|Δ| {worst_abs:.3e}; plain walk {plain_ms:.1f} ms")
+    tab, walk, floor, bms, by, flops = walk_times(torch, a, b, reps=1,
+                                                  warm=False)
+    names = ("geqrf", "apply_qt", "tsqrf", "apply_tsqt")  # QR_* order
+    rows = {nm: int((tab.desc[:, 0] == k).sum()) for k, nm in
+            enumerate(names)}
+    log(f"[time] {n}² / {b}² engine wall {secs:.4f} s (first run); qr_walk "
+        f"({tab.nr_items} rows {rows}, {tab.nr_phases} phases, "
+        f"{kernel.walk_grid(b)} resident blocks) {walk:.3f} ms (one run "
+        f"after the checked one), barrier floor {floor:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}, {flops / 1e9:.3f} GFLOP); {card}")
+    return {"ms_4096_b2048": walk, "barrier_floor_ms_4096_b2048": floor,
+            "bound_ms_4096_b2048": bms, "bound_by_4096_b2048": by,
+            "launches_4096_b2048": launches["qr_walk"],
+            "rel_err_per_tile_4096_b2048": worst,
+            "plain_ms_4096_b2048": plain_ms, "gram_4096_b2048": gram,
+            "lapack_4096_b2048": lap, "engine_wall_s_4096_b2048": secs,
+            "plan_rows_4096_b2048": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1575,16 +1712,13 @@ def phase_bh_timing(torch, np, firsts, launches, paper_launches,
     from repro_torch.kernels.nbody import ref
     x, m = bh_inputs(np, N_BH)
     for mode in MODES:
-        # a median of 3 unless the first run was long (threaded: the GIL),
-        # which is not run again: its wall time is phase 9's
-        if firsts[mode] >= 15.0:
+        # the host modes (6-40 s a run at 100k) are not run again: their
+        # wall times are phase 9's first runs; the engine once
+        if mode != "engine":
             log(f"[bh-time] {mode} at {N_BH}: not split into stages (its "
-                f"first run took {firsts[mode]:.1f} s); {card}")
+                f"first run, phase 9, took {firsts[mode]:.1f} s); {card}")
             continue
-        # the host modes (~9 s a run at 100k) once, as phase 9 ran each
-        # once already (3 until the examples and the three configurations
-        # came); the engine a median of 3
-        reps = 3 if mode == "engine" else 1
+        reps = 1
         runs = []
         for _ in range(reps):
             stages, keep = staged_solve(torch, x, m, NTASK_BH, mode)
@@ -5503,6 +5637,10 @@ def main():
     with phase_clock("6a QR 4096² / 128²", times):
         next(r for r in rows if r["name"] == "qr_walk").update(
             phase_qr_paper(torch, np, card))
+        torch.cuda.empty_cache()
+    with phase_clock("6b QR 4096² / 2048²", times):
+        next(r for r in rows if r["name"] == "qr_walk").update(
+            phase_qr_span(torch, np, card))
         torch.cuda.empty_cache()
     with phase_clock("7-11 Barnes-Hut", times):
         nb_errs = phase_nbody_ops(torch, np)

@@ -176,6 +176,7 @@ def qr_round_fn(desc: torch.Tensor, phase_bounds: Sequence[int], statics,
     del statics
     tiles, tmat = buffers
     if tiles.device.type == "cpu":
+        kernel.check_shape(tiles.shape[-1])
         check_qr_table(desc, phase_bounds, tiles.shape[0])
         kernel.count(kernel.PLAIN_CALLS, "qr_walk")
         qr_walk_plain(desc, phase_bounds, tiles, tmat)

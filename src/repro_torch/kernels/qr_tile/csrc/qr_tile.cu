@@ -346,12 +346,13 @@ size_t smem_bytes(int b) { return sizeof(float) * qr_smem_floats(b); }
 extern "C" {
 
 // Raise the dynamic shared-memory limit of every kernel to the most any
-// tile size takes (over the 48 KB default: b = 64's six slots, and the
-// wide bodies' layout, 105 KB at most); call once before any launch.
+// tile size it takes needs (over the 48 KB default: b = 64's six slots,
+// and the wide bodies' layout, 150 KB at most); call once before any
+// launch.
 int qr_init(void) {
-  const size_t most = smem_bytes(QR_MAX_B) > smem_bytes(QR_WIDE_MAX_B)
-                          ? smem_bytes(QR_MAX_B)
-                          : smem_bytes(QR_WIDE_MAX_B);
+  size_t most = 0;
+  for (int b = 1; b <= QR_WIDE_MAX_B; ++b)
+    if (smem_bytes(b) > most) most = smem_bytes(b);
   const int bytes = (int)most;
   const void* fns[] = {(const void*)geqrf_kernel, (const void*)tsqrf_kernel,
                        (const void*)apply_qt_kernel,

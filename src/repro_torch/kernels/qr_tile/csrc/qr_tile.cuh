@@ -62,12 +62,29 @@
 
 // the wide bodies (b > QR_MAX_B): their 64-row slots' leading dimension
 // and size, the rows of a panel column a thread holds in registers and the
-// widest tile (a column's rows in one warp, 32 x QR_WR)
+// widest tile (a one-column panel: a column's rows over the whole block,
+// QR_THREADS x QR_WR; 256 MB a tile)
 #define QR_WL 72
 #define QR_WS (QR_MAX_B * QR_WL)
 #define QR_WR 32
-#define QR_WIDE_MAX_B 1024
-#define QR_CHAIN_MAX_B 256   // widest tile whose products sum as one chain
+#define QR_WIDE_MAX_B (QR_THREADS * QR_WR)
+// widest tiles whose products sum as one float chain: T's merge
+// (qr_w_merge, QR_CHAIN_MAX_B) and W = V^T M (qr_w_chunk,
+// QR_W_CHAIN_MAX_B); past them the sums are blocked (qr_mm_nn4): float
+// blocks of 16 rows into a call's float partials, summed in float (to
+// QR_FLOAT_SUM_MAX_B), but W's call partials in double to QR_CHAIN_MAX_B
+// and everything in double past QR_FLOAT_SUM_MAX_B.  The forms measured
+// outside a criterion (PERF.md §6): at b = 256 W's float chain left K1
+// past the card tests' limit from float64 on 2 of 40 random tiles
+// (further than plain float32); float partials there, and double ones
+// summed in double, left one element 1.027 and 1.41 times that limit
+// from the plain version on the card test's tiles; past 2048
+// (panels of 2 and 1, two and four times 2048's trailing updates) float
+// sums left K1 up to 1.7 times as far from float64 as plain float32.
+// Double partials cost 13-17 % at b = 512, where float ones meet both.
+#define QR_CHAIN_MAX_B 256
+#define QR_W_CHAIN_MAX_B 128
+#define QR_FLOAT_SUM_MAX_B 2048
 
 __host__ __device__ inline int qr_ld(int b) { return (b + 23) / 32 * 32 + 8; }
 __host__ __device__ inline int qr_rows(int b) { return (b + 3) & ~3; }
@@ -87,18 +104,33 @@ __host__ __device__ inline int qr_wide_pld(int b, int nbw) {
 }
 // panel width at tile size b: the widest power of two up to 64 whose
 // columns' rows fit their g threads' QR_WR registers (b <= QR_WR g): 64 to
-// b = 128, 32 to 256, 16 to 512, 8 to QR_WIDE_MAX_B
+// b = 128, 32 to 256, 16 to 512, 8 to 1024 (g = 32: a column a warp), then
+// 4, 2 and 1 to 2048, 4096 and QR_WIDE_MAX_B (g = 64, 128, 256: a column
+// spread over 2, 4 and 8 warps)
 __host__ __device__ inline int qr_wide_nb(int b) {
   int nb = QR_MAX_B;
-  while (nb > 8 && b > QR_WR * qr_wide_group(nb)) nb >>= 1;
+  while (nb > 1 && b > QR_WR * qr_wide_group(nb)) nb >>= 1;
   return nb;
 }
-// floats of dynamic shared memory of a wide body: the panel, four 64-row
-// slots (T of the panel; Gram / W / X; the Householder vectors / Y / the
-// staged rows; tsqrf's block of R) and the panel's taus: 105 KB at most
+// floats of the slot that holds the panel's Householder vectors while it is
+// factored (then qr_build_t's Y and the staged rows): up to g = 32 two
+// buffers, 4 QR_WR g <= QR_WS floats; past 32 one buffer of a column's b
+// doubles, 2 QR_WR g floats (qr_w_factor_span)
+__host__ __device__ inline int qr_wide_sfloats(int g) {
+  return g > 32 && 2 * QR_WR * g > QR_WS ? 2 * QR_WR * g : QR_WS;
+}
+// floats of the cross-warp partial sums of a column spread over several
+// warps: QR_WARPS doubles of dots, QR_WARPS of squared norms, geqrf's
+// alpha
+#define QR_WRED (4 * QR_WARPS + 4)
+// floats of dynamic shared memory of a wide body: the panel, three 64-row
+// slots (T of the panel; Gram / W / X; tsqrf's block of R), the vector
+// slot (qr_wide_sfloats), the panel's taus and the partial sums: 105 KB
+// up to b = 1024, 150 KB at most (b > 4096)
 __host__ __device__ inline int qr_wide_floats(int b) {
   const int nb = qr_wide_nb(b), pld = qr_wide_pld(b, nb);
-  return nb * pld + 4 * QR_WS + QR_MAX_B;
+  return nb * pld + 3 * QR_WS + qr_wide_sfloats(qr_wide_group(nb)) +
+         QR_MAX_B + QR_WRED;
 }
 
 // floats of dynamic shared memory every entry point takes for tile size b:
@@ -527,8 +559,9 @@ __device__ __noinline__ void apply_tsqt_tile(const float* V2, const float* T,
 // megakernel.py:236) at tiles wider than 64, up to QR_WIDE_MAX_B, one
 // block an SM (their panel needs up to 255 registers a thread:
 // qr_tile.cu).  The tiles stay where they lie in global memory and the
-// bodies work through a fixed shared-memory layout (qr_wide_floats: at
-// most 105 KB) on any b.  All of an op's tiles do not fit a block
+// bodies work through a shared-memory layout that depends on b only
+// through the panel (qr_wide_floats: 105 KB up to b = 1024, at most 150
+// KB).  All of an op's tiles do not fit a block
 // (tsqrf's three 128^2 tiles are 192 KB, apply_tsqt's four 256 KB, a tile
 // of b = 256 alone 256 KB).  Keeping just the tile an op updates in shared
 // memory (up to b = 180, 175 KB at b = 128), each panel of V read once
@@ -540,20 +573,24 @@ __device__ __noinline__ void apply_tsqt_tile(const float* V2, const float* T,
 // What bounds them: as below 64, the chain of dependent column steps (b of
 // them, one block barrier each), not bytes or flops.  The design:
 //   * a blocked Householder: panels of nbw columns (qr_wide_nb: 64 up to
-//     b = 128, 32 to 256, 16 to 512, 8 to 1024), g = 256 / nbw threads a
-//     column, each holding QR_WR rows of it in registers, in double
-//     (qr_w_factor).  A column step is one block barrier, as in qr_panel:
-//     every column takes its dot with reflector j - 1 by a g-lane
-//     butterfly (the columns right of it update their rows, the columns
-//     done give the Gram column), and the pivot column's warp forms
-//     reflector j and publishes v (double-buffered);
+//     b = 128, 32 to 256, 16 to 512, 8 to 1024, then 4, 2, 1 to 2048,
+//     4096, 8192), g = 256 / nbw threads a column, each holding QR_WR rows
+//     of it in registers, in double.  Up to g = 32 (qr_w_factor) a column
+//     step is one block barrier, as in qr_panel: every column takes its
+//     dot with reflector j - 1 by a g-lane butterfly (the columns right of
+//     it update their rows, the columns done give the Gram column), and
+//     the pivot column's warp forms reflector j and publishes v
+//     (double-buffered).  Past 32 a column spans g / 32 warps
+//     (qr_w_factor_span): its sums add the warps' butterflies through
+//     shared memory in warp order, at one more barrier a step;
 //   * the trailing columns (and, for T, the columns left of the panel)
 //     take the panel's compact WY as register-tiled products, 4 x 4
 //     outputs a thread from float4 shared-memory reads: W = V^T M, staged
 //     64 rows x 64 columns at a time from global memory (one coalesced
 //     load of 16 floats a thread, all in flight), X = T_k^T W, then M -=
-//     V X straight into global memory.  Past b = QR_CHAIN_MAX_B the sums
-//     of W (and of T's merge) are blocked (qr_mm_nn4);
+//     V X straight into global memory.  Past b = QR_W_CHAIN_MAX_B the sums
+//     of W, past QR_CHAIN_MAX_B those of T's merge, are blocked
+//     (qr_mm_nn4);
 //   * T panel by panel: T_k from the panel's Gram by qr_build_t (the b <=
 //     64 bodies' blocked recurrence), and T = [[T1, -T1 (V1^T V2) T2], [0,
 //     T2]], the Y = V1^T V2 of the columns left of the panel coming out of
@@ -594,13 +631,15 @@ __device__ int qr_sn;
 
 // this wide body's shared memory: the panel p (nbw columns of pld rows),
 // the slots t (T of the panel, ld qr_ld(nb)), a (the Gram, then W and X),
-// s (while the panel is factored its two Householder vectors in double,
-// each as QR_WR / 2 double2 of each of a column's g threads: double2 r2 g
-// + q holds rows q + g (2 r2) and q + g (2 r2 + 1) of it, 4 QR_WR g <=
-// QR_WS floats; then qr_build_t's Y, then the staged rows of the matrix
-// updated), r (tsqrf's block of R, ld QR_WL) and taus (nb)
+// s (qr_wide_sfloats: while the panel is factored its Householder vectors
+// in double, each as QR_WR / 2 double2 of each of a column's g threads:
+// double2 r2 g + q holds rows q + g (2 r2) and q + g (2 r2 + 1) of it; then
+// qr_build_t's Y, then the staged rows of the matrix updated), r (tsqrf's
+// block of R, ld QR_WL), taus (nb) and red (QR_WRED: the cross-warp
+// partial sums of qr_w_factor_span)
 struct QrW {
   float *p, *t, *a, *s, *r, *taus;
+  double* red;
   int nbw, g, pld;
 };
 
@@ -613,8 +652,9 @@ __device__ __forceinline__ QrW qr_w(int b) {
   w.t = w.p + w.nbw * w.pld;
   w.a = w.t + QR_WS;
   w.s = w.a + QR_WS;
-  w.r = w.s + QR_WS;
+  w.r = w.s + qr_wide_sfloats(w.g);
   w.taus = w.r + QR_WS;
+  w.red = reinterpret_cast<double*>(w.taus + QR_MAX_B);
   return w;
 }
 
@@ -624,6 +664,16 @@ __device__ __forceinline__ QrW qr_w(int b) {
 __device__ __forceinline__ double qr_group_sum(double x, int g) {
   for (int off = 1; off < g; off <<= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// the sum of a column spread over gw warps from their partials (red[w0]
+// .. red[w0 + gw - 1], one a warp), added in warp order: every thread of
+// the column's group gets the same bits
+__device__ __forceinline__ double qr_warps_sum(const double* red, int w0,
+                                               int gw) {
+  double x = red[w0];
+  for (int k = 1; k < gw; ++k) x += red[w0 + k];
   return x;
 }
 
@@ -654,22 +704,23 @@ __device__ __forceinline__ void qr_mm_step(const float* pa, int lda,
 
 // acc[i][k] += sum_{t < n} A[(r0 + i) lda + t] B[t ldb + c0 + k], n a
 // multiple of 4 up to 64: four float4 of A along t and four of B along the
-// columns a step, 64 fmas.  BLK (b > QR_CHAIN_MAX_B): the sum is blocked,
-// QR_MM_IN rows into fresh accumulators, added into the call's own, added
-// into acc once a call (callers take up to 64 rows a call), so that a
-// float32 rounding grows with QR_MM_IN + 64 / QR_MM_IN + the calls, not
-// with the rows.  Summed as one chain (acc updated by every fma, as up to
-// b = QR_CHAIN_MAX_B), W = V^T M over b = 512 or 1000 rows left R and T
-// further from float64 than the plain float32 version (PERF.md §6).
-template <bool BLK>
+// columns a step, 64 fmas.  BLK (past the chain thresholds): the sum is
+// blocked, QR_MM_IN rows into fresh float accumulators, added into the
+// call's own partials of type P, added into acc (of type S) once a call
+// (callers take up to 64 rows a call), so that a float32 rounding grows
+// with QR_MM_IN and the calls (S = float) or with QR_MM_IN alone (P = S =
+// double), not with the rows.  Summed as one float chain (acc updated by
+// every fma, as up to the thresholds), W = V^T M over b = 512 or 1000 rows
+// left R and T further from float64 than the plain float32 version
+// (PERF.md §6).
+template <bool BLK, typename P, typename S>
 __device__ __forceinline__ void qr_mm_nn4(const float* A, int lda,
                                           const float* B, int ldb, int n,
-                                          int r0, int c0,
-                                          float (&acc)[4][4]) {
+                                          int r0, int c0, S (&acc)[4][4]) {
   const float* pa = A + r0 * lda;
   const float* pb = B + c0;
-  if (BLK) {
-    float mid[4][4];
+  if constexpr (BLK) {
+    P mid[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -693,12 +744,12 @@ __device__ __forceinline__ void qr_mm_nn4(const float* A, int lda,
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][k] += mid[i][k];
-    return;
-  }
+      for (int k = 0; k < 4; ++k) acc[i][k] += (S)mid[i][k];
+  } else {
 #pragma unroll 2
-  for (int t = 0; t < n; t += 4, pa += 4, pb += 4 * ldb)
-    qr_mm_step(pa, lda, pb, ldb, acc);
+    for (int t = 0; t < n; t += 4, pa += 4, pb += 4 * ldb)
+      qr_mm_step(pa, lda, pb, ldb, acc);
+  }
 }
 
 // acc[i][k] = sum_{t < n} A[t lda + r0 + i] B[t ldb + c0 + k]
@@ -823,10 +874,11 @@ __device__ __forceinline__ void qr_w_pivot(double (&a)[QR_WR], int q, int jq,
   }
 }
 
-// The panel's column steps: geqrf (TS = false; the panel's row c is its
-// column c's diagonal) or tsqrf (TS = true: [R; A], R's block in w.r, the
-// top reflector block e_j).  Column m belongs to threads m g .. m g + g -
-// 1, thread q of them holding rows q + g r (r < QR_WR) of it in registers,
+// The panel's column steps, g <= 32 (a column within one warp): geqrf (TS
+// = false; the panel's row c is its column c's diagonal) or tsqrf (TS =
+// true: [R; A], R's block in w.r, the top reflector block e_j).  Column m
+// belongs to threads m g .. m g + g - 1, thread q of them holding rows q +
+// g r (r < QR_WR) of it in registers,
 // in double (a[r]; rows past the panel hold 0), read from w.p and rounded
 // back to it at the end: within a panel the updates and their dots carry
 // no float rounding.  At b = 256 float panels leave R up to 1.5 times the
@@ -940,6 +992,110 @@ __device__ __forceinline__ void qr_w_factor(const QrW& w, int rows, int nb,
     if (own && q + g * r < rows) pm[g * r] = (float)a[r];
 }
 
+// The column steps of qr_w_factor for g > 32 (panels of 4, 2 or 1
+// columns): a column spans gw = g / 32 whole warps, so a sum over it is
+// each warp's butterfly, then the gw warp sums from w.red in warp order
+// (qr_warps_sum), and needs a barrier between the two.  With nb <= 4 < g,
+// every row at or above a pivot j < nb is a thread's first row (r = 0, q
+// <= j).  Step j, after barrier B of step j - 1 (every thread holding
+// reflector j - 1's scalars h):
+//   * every column takes its partial dot with v_{j-1} = u * inv (u the
+//     published column, 0 at and above row j - 1, and 1 at row j - 1 for
+//     geqrf), the warps' sums go to w.red; barrier A;
+//   * each column adds its warps' sums: the columns right of j - 1 update
+//     their rows, the columns done give the Gram entry.  Column j's group
+//     publishes its rows u (below j for geqrf; all rows for tsqrf) and its
+//     warps' squared norms, and geqrf's alpha (row j); barrier B;
+//   * every thread forms reflector j's scalars from the same sums in the
+//     same order (qr_householder: the same bits everywhere), and column j
+//     turns its rows into v (beta on the diagonal for geqrf).
+// Two barriers a column, one more than qr_w_factor; the vector slot holds
+// one vector (u is written after barrier A, when every read of the last
+// one is done).  Up to rounding of the sums' order, the arithmetic is
+// qr_w_factor's: v = a * inv in double, the dots and the update in double.
+template <bool TS>
+__device__ __forceinline__ void qr_w_factor_span(const QrW& w, int rows,
+                                                 int nb, int tld) {
+  const int g = w.g, pld = w.pld, gw = g >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m = tid / g, q = tid % g;
+  const bool own = m < nb;
+  float* pm = w.p + m * pld + q;         // m < nbw: every thread's column
+  double* red = w.red;                   // [dots | squared norms | alpha]
+  double a[QR_WR];
+#pragma unroll
+  for (int r = 0; r < QR_WR; ++r)
+    a[r] = own && q + g * r < rows ? (double)pm[g * r] : 0.0;
+  double2* u2 = reinterpret_cast<double2*>(w.s) + q;
+  QrHouse h = {0.0f, 0.0f, 0.0f};
+  for (int j = 0;; ++j) {
+    if (j > 0) {                         // apply reflector p = j - 1
+      const int p = j - 1;
+      const double inv = (double)h.inv, tau = (double)h.tau;
+      const float rpm = TS && own && m > p && q == 0 ? w.r[p * QR_WL + m]
+                                                     : 0.0f;
+      double v[QR_WR], d[4] = {rpm, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int r = 0; r < QR_WR; r += 2) {
+        const double2 x = u2[(r >> 1) * g];
+        v[r] = !TS && r == 0 && q == p ? 1.0 : x.x * inv;
+        v[r + 1] = x.y * inv;
+        d[r & 2] = fma(v[r], a[r], d[r & 2]);
+        d[(r & 2) + 1] = fma(v[r + 1], a[r + 1], d[(r & 2) + 1]);
+      }
+      const double part = qr_group_sum((d[0] + d[1]) + (d[2] + d[3]), 32);
+      if (lane == 0) red[warp] = part;
+      __syncthreads();                   // A: every warp's dot is in red
+      const double dot = qr_warps_sum(red, m * gw, gw);
+      if (own && m > p) {                // the trailing update
+        const double tw = tau * dot;
+        if (TS && q == 0)
+          w.r[p * QR_WL + m] = (float)fma(-tau, dot, (double)rpm);
+#pragma unroll
+        for (int r = 0; r < QR_WR; ++r) a[r] = fma(-v[r], tw, a[r]);
+      } else if (own && m < p && q == 0) {
+        w.a[m * tld + p] = (float)dot;   // a done column: the Gram entry
+      }
+    }
+    if (j == nb) break;
+    // reflector j: column j's g threads (whole warps) publish u and their
+    // squared norms; every thread reads R[j][j] (tsqrf's alpha) before the
+    // barrier, after which column j writes beta there
+    const float alpha_ts = TS ? w.r[j * QR_WL + j] : 0.0f;
+    if (m == j) {
+      double s[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int r = 0; r < QR_WR; r += 2) {
+        const double x0 = !TS && r == 0 && q <= j ? 0.0 : a[r];
+        s[r & 2] = fma(x0, x0, s[r & 2]);
+        s[(r & 2) + 1] = fma(a[r + 1], a[r + 1], s[(r & 2) + 1]);
+        u2[(r >> 1) * g] = make_double2(x0, a[r + 1]);
+      }
+      const double part = qr_group_sum((s[0] + s[1]) + (s[2] + s[3]), 32);
+      if (lane == 0) red[QR_WARPS + warp] = part;
+      if (!TS && q == j) red[2 * QR_WARPS] = a[0];
+    }
+    __syncthreads();                     // B: u, the norms and alpha
+    const double sigma2 = qr_warps_sum(red, QR_WARPS + j * gw, gw);
+    h = qr_householder(TS ? alpha_ts : (float)red[2 * QR_WARPS],
+                       (float)sigma2);
+    if (m == j) {                        // column j becomes v_j
+      const double inv = (double)h.inv;
+#pragma unroll
+      for (int r = 0; r < QR_WR; ++r)
+        if (TS || r > 0 || q > j) a[r] *= inv;
+        else if (q == j) a[r] = (double)h.beta;
+      if (q == 0) {
+        w.taus[j] = h.tau;
+        if (TS) w.r[j * QR_WL + j] = h.beta;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < QR_WR; ++r)
+    if (own && q + g * r < rows) pm[g * r] = (float)a[r];
+}
+
 // T[J, J] <- the panel's T (its strict lower part zero) and T[J, 0:j0] <-
 // 0, J = j0 .. j0 + nb - 1 (T row-major at ld b)
 __device__ __forceinline__ void qr_w_store_t(const QrW& w, float* T, int b,
@@ -980,6 +1136,25 @@ __device__ __forceinline__ void qr_w_store_r(const QrW& w, float* X, int b,
   }
 }
 
+// acc += V^T M[r0:r0 + rows, c0:c0 + nc] (V in w.p), M's rows staged 64
+// at a time through w.s; every thread takes part, the mine ones sum
+// (qr_mm_nn4<BLK, P>)
+template <bool BLK, typename P, typename S>
+__device__ __forceinline__ void qr_w_vtm(const QrW& w, const float* M,
+                                         int b, int r0, int rows, int c0,
+                                         int nc, int tr, int tc, bool mine,
+                                         S (&acc)[4][4]) {
+  for (int tb = 0; tb < rows; tb += QR_MAX_B) {
+    const int n = min(QR_MAX_B, rows - tb);
+    qr_w_stage(w.s, M + (size_t)(r0 + tb) * b + c0, b, n, nc);
+    __syncthreads();
+    if (mine)
+      qr_mm_nn4<BLK, P>(w.p + tb, w.pld, w.s, QR_WL, (n + 3) & ~3, tr, tc,
+                        acc);
+    __syncthreads();
+  }
+}
+
 // The panel's block reflector (V in w.p, T_k in w.t at ld tld) on columns
 // c0 .. c1 - 1 (at most 64) of the row-major (ld b) matrix M, its rows r0
 // .. r0 + rows - 1:
@@ -1003,20 +1178,23 @@ __device__ __forceinline__ void qr_w_chunk(const QrW& w, int nb, int tld,
       acc[i][k] = Top && mine && tr + i < nb && tc + k < nc
                       ? __ldcg(Top + (size_t)(tr + i) * b + c0 + tc + k)
                       : 0.0f;
-  for (int tb = 0; tb < rows; tb += QR_MAX_B) {   // W = Top + V^T M
-    const int n = min(QR_MAX_B, rows - tb);
-    qr_w_stage(w.s, M + (size_t)(r0 + tb) * b + c0, b, n, nc);
-    __syncthreads();
-    if (mine)
-    {
-      if (b > QR_CHAIN_MAX_B)
-        qr_mm_nn4<true>(w.p + tb, w.pld, w.s, QR_WL, (n + 3) & ~3, tr, tc,
-                        acc);
-      else
-        qr_mm_nn4<false>(w.p + tb, w.pld, w.s, QR_WL, (n + 3) & ~3, tr, tc,
-                         acc);
-    }
-    __syncthreads();
+  if (b > QR_FLOAT_SUM_MAX_B) {          // W = Top + V^T M
+    double wd[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wd[i][k] = acc[i][k];
+    qr_w_vtm<true, double>(w, M, b, r0, rows, c0, nc, tr, tc, mine, wd);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = (float)wd[i][k];
+  } else if (b > QR_CHAIN_MAX_B) {
+    qr_w_vtm<true, float>(w, M, b, r0, rows, c0, nc, tr, tc, mine, acc);
+  } else if (b > QR_W_CHAIN_MAX_B) {
+    qr_w_vtm<true, double>(w, M, b, r0, rows, c0, nc, tr, tc, mine, acc);
+  } else {
+    qr_w_vtm<false, float>(w, M, b, r0, rows, c0, nc, tr, tc, mine, acc);
   }
   if (mine) qr_store_block(w.a, QR_WL, acc, tr, tc);
   __syncthreads();
@@ -1064,43 +1242,50 @@ __device__ __forceinline__ void qr_w_chunk(const QrW& w, int nb, int tld,
   }
 }
 
+// rows i0 .. i0 + 63 of qr_w_merge (qr_mm_nn4<BLK, S> into S)
+template <bool BLK, typename S>
+__device__ __forceinline__ void qr_w_merge_rows(const QrW& w, float* T,
+                                                int b, int j0, int nb,
+                                                int i0) {
+  const int tr = (threadIdx.x >> 4) * 4, tc = (threadIdx.x & 15) * 4;
+  const int ni = min(QR_MAX_B, j0 - i0);
+  const bool mine = tr < ni && tc < nb;
+  S acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+  for (int t0 = i0; t0 < j0; t0 += QR_MAX_B) {   // T1 is upper triangular
+    const int nt = min(QR_MAX_B, j0 - t0);
+    __syncthreads();                     // the slots' last readers are done
+    qr_w_stage(w.s, T + (size_t)i0 * b + t0, b, ni, nt);
+    qr_w_stage(w.a, T + (size_t)t0 * b + j0, b, nt, nb);
+    __syncthreads();
+    if (mine)
+      qr_mm_nn4<BLK, S>(w.s, QR_WL, w.a, QR_WL, (nt + 3) & ~3, tr, tc, acc);
+  }
+  if (mine)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (tr + i < ni && tc + k < nb)
+          __stcg(T + (size_t)(i0 + tr + i) * b + j0 + tc + k,
+                 -(float)acc[i][k]);
+}
+
 // T[0:j0, J] <- -T[0:j0, 0:j0] Z, Z = T[0:j0, J] on entry (the chunks left
 // of the panel wrote it), in 64-row blocks top down: block i reads Z's
 // rows from i on only, so it may overwrite its own rows when it is done
 __device__ __forceinline__ void qr_w_merge(const QrW& w, float* T, int b,
                                            int j0, int nb) {
-  const int tr = (threadIdx.x >> 4) * 4, tc = (threadIdx.x & 15) * 4;
   for (int i0 = 0; i0 < j0; i0 += QR_MAX_B) {
-    const int ni = min(QR_MAX_B, j0 - i0);
-    const bool mine = tr < ni && tc < nb;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
-    for (int t0 = i0; t0 < j0; t0 += QR_MAX_B) {   // T1 is upper triangular
-      const int nt = min(QR_MAX_B, j0 - t0);
-      __syncthreads();                   // the slots' last readers are done
-      qr_w_stage(w.s, T + (size_t)i0 * b + t0, b, ni, nt);
-      qr_w_stage(w.a, T + (size_t)t0 * b + j0, b, nt, nb);
-      __syncthreads();
-      if (mine)
-      {
-        if (b > QR_CHAIN_MAX_B)
-          qr_mm_nn4<true>(w.s, QR_WL, w.a, QR_WL, (nt + 3) & ~3, tr, tc,
-                          acc);
-        else
-          qr_mm_nn4<false>(w.s, QR_WL, w.a, QR_WL, (nt + 3) & ~3, tr, tc,
-                           acc);
-      }
-    }
-    if (mine)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (tr + i < ni && tc + k < nb)
-            __stcg(T + (size_t)(i0 + tr + i) * b + j0 + tc + k, -acc[i][k]);
+    if (b > QR_FLOAT_SUM_MAX_B)
+      qr_w_merge_rows<true, double>(w, T, b, j0, nb, i0);
+    else if (b > QR_CHAIN_MAX_B)
+      qr_w_merge_rows<true, float>(w, T, b, j0, nb, i0);
+    else
+      qr_w_merge_rows<false, float>(w, T, b, j0, nb, i0);
   }
 }
 
@@ -1116,7 +1301,10 @@ __device__ __forceinline__ void qr_w_fact_panel(const QrW& w, float* R,
   const int r0 = TS ? 0 : j0, rows = b - r0;
   float* pa = A + (size_t)r0 * b + j0;
   QR_STAMP(1);
-  qr_w_factor<TS>(w, rows, nb, tld);
+  if (w.g > 32)
+    qr_w_factor_span<TS>(w, rows, nb, tld);
+  else
+    qr_w_factor<TS>(w, rows, nb, tld);
   __syncthreads();                       // the panel is back in w.p
   QR_STAMP(2);
   qr_w_store_panel(w, pa, b, rows, nb, !TS);   // RV / V2 out, V in w.p

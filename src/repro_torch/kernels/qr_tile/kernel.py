@@ -3,7 +3,7 @@
 ``csrc/qr_tile.cuh`` holds the four tile ops as ``__device__`` functions
 (shared-memory bodies for b <= ``SHARED_MAX_B``; above it blocked bodies,
 up to b = ``WIDE_MAX_B``, that work on the tiles in global memory through
-a fixed shared-memory layout);
+a shared-memory layout sized by the panel);
 ``csrc/qr_tile.cu`` wraps them in batched per-op kernels (one block per
 tile) and in the task-table walk ``qr_walk`` (one cooperative launch a
 plan: every resident block strides over the rows of each write-colored
@@ -41,9 +41,10 @@ SHARED_MAX_B = 64  # QR_MAX_B in csrc/qr_tile.cuh: the widest tile of the
 #                    shared-memory bodies (a panel holds 4 threads x 16 rows
 #                    of a column in registers); wider tiles run the blocked
 #                    bodies
-WIDE_MAX_B = 1024  # QR_WIDE_MAX_B: the widest tile of the blocked bodies
-#                    (a panel column's rows fill a warp's registers, 32 a
-#                    thread)
+WIDE_MAX_B = 8192  # QR_WIDE_MAX_B: the widest tile of the blocked bodies
+#                    (a one-column panel, its rows over the block's 256
+#                    threads, 32 a thread in registers; a 256 MB tile).
+#                    The ops refuse wider tiles on every device
 
 # kernel launches by wrapper, and plain-version calls taken by a wrapper
 # because its tensor lay on the CPU; chip_smoke.py zeroes both before the
@@ -76,12 +77,14 @@ _check, _ptr, _stream = _binding.check, _binding.ptr, _binding.stream
 
 
 def check_shape(b: int) -> None:
-    """Raise ValueError unless the kernels take (b,b) tiles: 1 <= b <=
+    """Raise ValueError unless the ops take (b,b) tiles: 1 <= b <=
     ``WIDE_MAX_B`` (shared-memory bodies up to ``SHARED_MAX_B``, blocked
-    bodies above).  Needs no card."""
+    bodies above: panels of 64 columns down to 1 as b grows).  The plain
+    path on the CPU holds the same contract, so no tile size runs on one
+    device and is refused on the other.  Needs no card."""
     if not 1 <= b <= WIDE_MAX_B:
-        raise ValueError(f"tile size {b} not supported: the CUDA kernels "
-                         f"take b >= 1 and b <= {WIDE_MAX_B}")
+        raise ValueError(f"tile size {b} not supported: the tile ops take "
+                         f"b >= 1 and b <= {WIDE_MAX_B} on every device")
 
 
 def lib() -> ctypes.CDLL:

@@ -4,10 +4,12 @@ Each op takes one (b,b) tile or a stack of n tiles (n,b,b), float32:
 
 * on a CPU tensor it runs the plain version (``ref``), tile by tile — a
   stack loops the single-tile function, so a batched call is bitwise equal
-  to the calls it stands for;
+  to the calls it stands for — after ``kernel.check_shape``, so that the
+  tile sizes taken do not depend on the device;
 * on a CUDA tensor it launches the hand-written kernel (``kernel``), one
-  block per tile, after checking device, dtype, shape (any b >= 1) and
-  contiguity, and raises if the kernel cannot build or launch.  It never
+  block per tile, after checking device, dtype, shape (1 <= b <=
+  ``kernel.WIDE_MAX_B``) and contiguity, and raises if the kernel cannot
+  build or launch.  It never
   falls back to the plain version.
 
 Outputs are new tensors (``torch.empty``).  ``LAUNCHES`` counts kernel
@@ -55,6 +57,7 @@ def _on_cpu(*xs: torch.Tensor) -> bool:
 
 
 def _plain(name: str, fn: Callable, *xs: torch.Tensor) -> Tuple:
+    kernel.check_shape(xs[0].shape[-1])
     kernel.count(PLAIN_CALLS, name)
     if xs[0].dim() == 2:
         return fn(*xs)

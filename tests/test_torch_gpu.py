@@ -125,21 +125,40 @@ def tol_dist(got, want):
                  .max())
 
 
-@pytest.mark.parametrize("b", [512, 1000])
+def float64_tiles(b, device):
+    """The inputs (a, c1, c2, r) of the float64 test at tile size b: at b
+    = 256 the 40 seeded tiles on which tools/qr_wide_accuracy.py measures
+    K1-K4 (tile s, input k from np.random.default_rng(1000 + 4 s + k));
+    elsewhere 2 tiles from np.random.default_rng(b), 1 past 4096 (an op
+    takes tens of seconds there)."""
+    if b == 256:
+        a, c1, c2, r = (torch.tensor(np.stack([
+            np.random.default_rng(1000 + 4 * s + k).standard_normal((b, b))
+            for s in range(40)]), dtype=torch.float32, device=device)
+            for k in range(4))
+    else:
+        rng = np.random.default_rng(b)
+        n = 1 if b > 4096 else 2
+        a, c1, c2, r = (torch.tensor(rng.standard_normal((n, b, b)),
+                                     dtype=torch.float32, device=device)
+                        for _ in range(4))
+    return a, c1, c2, torch.triu(r)
+
+
+@pytest.mark.parametrize("b", [256, 512, 1000, 1025, 2048, 2049, 4097])
 def test_wide_kernels_no_further_from_float64_than_plain(cuda, b):
-    """K1-K4 at b = 512 and 1000 (panels of 16 and 8).  Past 256 two
+    """K1-K4 at b = 256, 512 and 1000 (panels of 32, 16 and 8), at 1025 and
+    2048 (panels of 4, a column over two warps), 2049 (panels of 2, four
+    warps) and 4097 (one-column panels, eight warps).  From 256 on two
     float32 QRs lie about the kernel-vs-plain limit apart (the plain
-    version itself lies past it from float64 at b = 1000), so each output
-    is held to the float64 version of its plain function on the same
-    float32 inputs: within the limit, or no further than the plain float32
-    version is."""
-    rng = np.random.default_rng(b)
-    a, c1, c2, r = (torch.tensor(rng.standard_normal((2, b, b)),
-                                 dtype=torch.float32, device=cuda)
-                    for _ in range(4))
-    r = torch.triu(r)
+    version itself lies past it from float64 at b = 256 and 1000), so each
+    output is held to the float64 version of its plain function on the
+    same float32 inputs: within the limit, or no further than the plain
+    float32 version is.  At 256 on 40 seeded tiles (float64_tiles), where
+    W = V^T M summed as one float chain lay past both on 2."""
+    a, c1, c2, r = float64_tiles(b, cuda)
     got_f = [ops.geqrf(a), ops.tsqrf(r, c1)]
-    for i in range(2):
+    for i in range(a.shape[0]):
         rv, _, t = ref.geqrf_ref(a[i])
         _, v2, _, t2 = ref.tsqrf_ref(r[i], c1[i])
         d64 = [x.double() for x in (a[i], r[i], c1[i], c2[i], rv, t, v2,
@@ -170,9 +189,10 @@ def test_ops_check_operands(cuda):
     empty = torch.zeros((0, 0), device=cuda)
     with pytest.raises(ValueError, match="b >= 1"):
         ops.geqrf(empty)
-    rv, tau, t = ops.geqrf(torch.eye(128, device=cuda))   # b > 64 is taken
-    torch.cuda.synchronize()
-    assert bool(torch.isfinite(rv).all()) and bool((tau == 0).all())
+    for b in (128, 1025):              # b > 64 and b > 1024 are taken
+        rv, tau, t = ops.geqrf(torch.eye(b, device=cuda))
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(rv).all()) and bool((tau == 0).all())
     with pytest.raises(ValueError, match="b <= "):
         ops.geqrf(torch.zeros((kernel.WIDE_MAX_B + 1,) * 2, device=cuda))
     nc = torch.zeros((16, 32), device=cuda)[:, :16]
@@ -183,23 +203,21 @@ def test_ops_check_operands(cuda):
 def test_shared_memory_fits_a_block(cuda):
     """Every kind of tile size takes at most a block's 227 KB of shared
     memory, b = 64's bodies fit two blocks an SM, and the walk keeps a
-    block on every SM."""
-    for b in (1, 33, 64, 65, 96, 128, 129, 256, 257, 512, 513, 1000,
-              kernel.WIDE_MAX_B):
+    block on every SM: each panel width's edges (64 columns to 128, 32 to
+    256, 16 to 512, 8 to 1024, 4 to 2048, 2 to 4096, 1 to 8192)."""
+    for b in (1, 33, 64, 65, 96, 128, 129, 256, 257, 512, 513, 1000, 1024,
+              1025, 2048, 2049, 4096, 4097, kernel.WIDE_MAX_B):
         assert kernel.lib().qr_smem_bytes(b) <= 232448, b
         assert kernel.walk_grid(b) >= torch.cuda.get_device_properties(
             cuda).multi_processor_count, b
     assert 2 * (kernel.lib().qr_smem_bytes(64) + 1024) <= 233472
 
 
-@pytest.mark.parametrize("n,b", [(256, 32), (512, 64), (1024, 128),
-                                 (1024, 256), (2048, 512)])
-def test_modes_bitwise_equal_and_match_cpu(cuda, n, b):
-    """The four modes bitwise equal on the card (at 1024² / 128² and 256²
-    and 2048² / 512² through the blocked bodies: panels of 64, 32 and 16),
-    one walk launch a plan, R valid (Gram and
-    float64 LAPACK up to row signs, chip_smoke.py's limits) and close to
-    the plain path on the CPU."""
+def modes_bitwise_equal(cuda, n, b):
+    """run_qr of a seeded n² matrix at tile b in the four modes on the
+    card: bitwise equal, every QR kernel launched, one walk launch a plan,
+    no plain version, R valid (Gram and float64 LAPACK up to row signs,
+    chip_smoke.py's limits).  Returns (a, the engine's R)."""
     a = np.random.default_rng(1).standard_normal((n, n)).astype(
         np.float32)
     kernel.reset_counts()
@@ -218,9 +236,29 @@ def test_modes_bitwise_equal_and_match_cpu(cuda, n, b):
     sign = np.sign(np.diag(r)) * np.sign(np.diag(r64))
     lapack = np.linalg.norm(r * sign[:, None] - r64) / np.linalg.norm(r64)
     assert gram < 1e-5 and lapack < 1e-4, (gram, lapack)
+    return a, rs["engine"]
+
+
+@pytest.mark.parametrize("n,b", [(256, 32), (512, 64), (1024, 128),
+                                 (1024, 256), (2048, 512), (2050, 1025)])
+def test_modes_bitwise_equal_and_match_cpu(cuda, n, b):
+    """The four modes bitwise equal on the card (at 1024² / 128² and 256²,
+    2048² / 512² and 2050² / 1025² through the blocked bodies: panels of
+    64, 32, 16 and 4, the last a column over two warps), one walk launch a
+    plan, R valid (Gram and float64 LAPACK up to row signs, chip_smoke.py's
+    limits) and close to the plain path on the CPU."""
+    a, r_engine = modes_bitwise_equal(cuda, n, b)
     want = qr.run_qr(a, tile=b, mode="engine", device="cpu")[0].numpy()
-    assert_allclose(rs["engine"].cpu().numpy(), want,
+    assert_allclose(r_engine.cpu().numpy(), want,
                     atol=1e-4 * np.abs(want).max(), rtol=1e-4)
+
+
+def test_modes_bitwise_equal_tiles_of_2048(cuda):
+    """The four modes at 4096² / 2048² (2 x 2 tiles, panels of 4):
+    bitwise equal, one walk launch, R within the Gram and float64 LAPACK
+    limits.  The plain path on the CPU is not run: at b = 2048 it takes
+    minutes of the card run's time."""
+    modes_bitwise_equal(cuda, 4096, 2048)
 
 
 def test_threaded_workers_launch_on_the_callers_stream(cuda):
@@ -340,6 +378,15 @@ def test_walk_repeats_bitwise_tiles_of_256(cuda):
     """At b = 256 (panels of 32, eight a tile) as well."""
     tab = qr_table(1024, 256)
     init = qr_stack(1024, 256, 5, cuda)
+    first, again = walk_once(tab, init), walk_once(tab, init)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_walk_repeats_bitwise_tiles_of_2048(cuda):
+    """At b = 2048 (panels of 4, a column over two warps, its sums taken
+    across the warps through shared memory in a fixed order) as well."""
+    tab = qr_table(4096, 2048)
+    init = qr_stack(4096, 2048, 5, cuda)
     first, again = walk_once(tab, init), walk_once(tab, init)
     assert all(torch.equal(x, y) for x, y in zip(first, again))
 

@@ -224,17 +224,41 @@ def test_launch_counts_exact_under_threads():
 
 
 def test_check_shape_takes_any_tile_size():
-    """The kernels take every b from 1 to WIDE_MAX_B (shared-memory bodies
-    to 64, blocked bodies above), with no global scratch, and refuse the
-    rest; the check needs no card (tests/test_torch_gpu.py holds each tile
-    size's shared memory to a block's on the card)."""
-    for b in (1, 33, 64, 65, 96, 128, 256, 1000):
+    """The kernels take every b from 1 to WIDE_MAX_B = 8192 (shared-memory
+    bodies to 64, blocked bodies above: panels of 8 columns to 1024, then
+    of 4, 2 and 1, a column over 2, 4 and 8 warps), with no global scratch,
+    and refuse the rest; the check needs no card (tests/test_torch_gpu.py
+    holds each tile size's shared memory to a block's on the card)."""
+    for b in (1, 33, 64, 65, 96, 128, 256, 1000, 1024, 1025, 2048, 2049,
+              4096, 4097, 8192):
         kernel.check_shape(b)
     with pytest.raises(ValueError, match="b >= 1"):
         kernel.check_shape(0)
+    assert kernel.WIDE_MAX_B == 8192
     kernel.check_shape(kernel.WIDE_MAX_B)
     with pytest.raises(ValueError, match="b <= "):
         kernel.check_shape(kernel.WIDE_MAX_B + 1)
+
+
+@pytest.mark.parametrize("op", ["geqrf", "tsqrf", "apply_qt", "apply_tsqt",
+                                "qr_walk"])
+def test_cpu_path_refuses_past_the_widest_tile(op):
+    """The plain path on CPU tensors refuses b = WIDE_MAX_B + 1 as the card
+    does, before any arithmetic and before counting a plain call, so a
+    tile size is never taken on one device and refused on the other.  The
+    operands are one zero broadcast to (b, b): no memory, no work."""
+    b = kernel.WIDE_MAX_B + 1
+    x = torch.zeros((1, 1)).expand(b, b)
+    kernel.reset_counts()
+    with pytest.raises(ValueError, match=f"b <= {kernel.WIDE_MAX_B}"):
+        if op == "qr_walk":
+            from repro_torch import engine
+            engine.qr_round_fn(np.zeros((1, 4), np.int32), [0, 1], (),
+                               (x[None], x[None]))
+        else:
+            n = {"geqrf": 1, "tsqrf": 2, "apply_qt": 3, "apply_tsqt": 4}[op]
+            getattr(ops, op)(*(x,) * n)
+    assert kernel.PLAIN_CALLS[op] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +271,11 @@ def test_check_shape_takes_any_tile_size():
 # agree to rounding: 1e-12.
 # ---------------------------------------------------------------------------
 
-BLOCKED = [(65, 64), (96, 64), (128, 64), (256, 64), (256, 32)]
+# (b, panel width): the wide bodies' panels of 64 and 32, and the narrow
+# panels of the tiles past 1024 (4, 2 and 1 columns: the algorithm does
+# not depend on b, so small tiles hold them)
+BLOCKED = [(65, 64), (96, 64), (128, 64), (256, 64), (256, 32), (96, 4),
+           (96, 2), (65, 1)]
 BLOCKED_TOL = 1e-12
 
 

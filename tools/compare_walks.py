@@ -15,11 +15,11 @@ lowered once and kept in ``COMPARE_WALKS_CACHE`` (by default
 ``build/compare_walks/bh1m.pt`` under ROOT), which later runs reuse; run
 two checkouts in turns (A, B, B, A) with one cache to compare them.
 
-With ``--qr`` it times instead K1-K4 at b = 64, 128 and 256 (batch 1, the
-kernel launches alone with their outputs allocated beforehand, 50 of them
-in one CUDA graph, median of 3) and K5 over the 2048² / 64², 1024² / 128²
-and 1024² / 256² plans (``chip_smoke.walk_times``: median of 3 after a
-warm-up, beside the barrier floor).
+With ``--qr`` it times instead K1-K4 at b = 64, 128, 256 and 512 (batch
+1, the kernel launches alone with their outputs allocated beforehand, 50
+of them in one CUDA graph, median of 3) and K5 over the 2048² / 64², 1024²
+/ 128², 1024² / 256² and 2048² / 512² plans (``chip_smoke.walk_times``:
+median of 3 after a warm-up, beside the barrier floor).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def qr_kernels(torch, np, cs, tag: str) -> None:
     from repro_torch.kernels.qr_tile import kernel, ops
     dev = torch.device("cuda")
     out = []
-    for b in (64, 128, 256):
+    for b in (64, 128, 256, 512):
         rng = np.random.default_rng(7)
         x, c1, c2 = (torch.tensor(rng.standard_normal((1, b, b)),
                                   dtype=torch.float32, device=dev)
@@ -53,7 +53,7 @@ def qr_kernels(torch, np, cs, tag: str) -> None:
         for name, fn in fns.items():
             ms = cs.median_of(lambda: cs.graph_ms(torch, fn))
             out.append(f"{name}@{b} {ms:.5f}")
-    for n, b in ((2048, 64), (1024, 128), (1024, 256)):
+    for n, b in ((2048, 64), (1024, 128), (1024, 256), (2048, 512)):
         mat = torch.tensor(np.random.default_rng(n).standard_normal((n, n)),
                            dtype=torch.float32, device=dev)
         _, ms, floor, *_ = cs.walk_times(torch, mat, b)
