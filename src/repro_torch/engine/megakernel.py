@@ -187,13 +187,31 @@ def qr_round_fn(desc: torch.Tensor, phase_bounds: Sequence[int], statics,
         raise ValueError("on a card desc and its phases come from one "
                          "runner.upload_phases call, on the tiles' device")
     check_qr_table(phase_bounds.host_desc, phase_bounds, tiles.shape[0])
-    bounds = [int(b) for b in phase_bounds]
-    max_rows = max((b1 - b0 for b0, b1 in zip(bounds, bounds[1:])),
-                   default=0)
-    if max_rows > 0:
-        kernel.qr_walk(desc, phase_bounds.device_offsets, max_rows, tiles,
+    max_items = qr_phase_items(phase_bounds.host_desc, phase_bounds,
+                               tiles.shape[-1])
+    if max_items > 0:
+        kernel.qr_walk(desc, phase_bounds.device_offsets, max_items, tiles,
                        tmat)
     return tiles, tmat
+
+
+def qr_phase_items(desc, phase_bounds: Sequence[int], b: int) -> int:
+    """The most work items in a phase of the card walk at tile size b: a
+    row each, an apply row (LARFT, SSRFT) ``kernel.apply_chunks(b)``, one
+    a 64-column chunk past ``kernel.OUTER_MIN_B``.  ``desc`` is a host
+    copy."""
+    bounds = [int(x) for x in phase_bounds]
+    chunks = kernel.apply_chunks(b)
+    if chunks == 1:   # a row an item: no pass over the table on the host
+        #               path of every launch up to b = 1024
+        return max((q1 - q0 for q0, q1 in zip(bounds, bounds[1:])),
+                   default=0)
+    et = np.asarray(desc)[:, 0]
+    items = np.where((et == QR_LARFT) | (et == QR_SSRFT), chunks, 1)
+    ends = np.concatenate([[0], np.cumsum(items)])
+    return max((int(ends[q1] - ends[q0]) for q0, q1 in zip(bounds,
+                                                            bounds[1:])),
+               default=0)
 
 
 # ---------------------------------------------------------------------------

@@ -169,11 +169,43 @@ apply_tsqt_kernel(const float* v2, const float* t, const float* c1,
   store_tile(o2 + off, s.t[3], b);
 }
 
+// columns chunk * 64 .. + 63 of a (b,b) tile global -> global (the caller
+// syncs): an apply's work item past QR_OUTER_MIN_B copies only its chunk
+__device__ __forceinline__ void copy_chunk(float* dst, const float* src,
+                                           int b, int chunk) {
+  const int c0 = chunk * QR_MAX_B, nc = min(QR_MAX_B, b - c0), n = b * 64;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 16 * QR_THREADS) {
+    float x[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int e = e0 + k * QR_THREADS, i = e >> 6, c = e & 63;
+      x[k] = e < n && c < nc ? __ldcg(src + (size_t)i * b + c0 + c) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const int e = e0 + k * QR_THREADS, i = e >> 6, c = e & 63;
+      if (e < n && c < nc) __stcg(dst + (size_t)i * b + c0 + c, x[k]);
+    }
+  }
+}
+
+// an apply kernel's copy of its operand: the tile, or past QR_OUTER_MIN_B
+// the chunk blockIdx.y
+__device__ __forceinline__ void copy_item(float* dst, const float* src,
+                                          int b) {
+  if (qr_apply_chunks(b) > 1)
+    copy_chunk(dst, src, b, blockIdx.y);
+  else
+    copy_tile(dst, src, b);
+}
+
 // b > QR_MAX_B: the blocked bodies, in kernels of their own, one block an
 // SM (__launch_bounds__(QR_THREADS, 1)): a panel column's 32 rows a thread
 // sit in double registers, which at 128 registers a thread spilled to
 // local memory inside every column step.  The per-op kernels copy their
-// inputs into their outputs and run the body there.
+// inputs into their outputs and run the body there; the applies' grid is
+// (tiles, qr_apply_chunks(b)), a block a tile's 64-column chunk past
+// QR_OUTER_MIN_B.
 __global__ void __launch_bounds__(QR_THREADS, 1)
 geqrf_wide_kernel(const float* a, float* rv, float* tau, float* t, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
@@ -181,7 +213,7 @@ geqrf_wide_kernel(const float* a, float* rv, float* tau, float* t, int b) {
   copy_tile(rv + off, a + off, b);
   __syncthreads();
   QR_STAMP(10);
-  geqrf_wide(rv + off, t + off, tau + (size_t)blockIdx.x * b, b);
+  geqrf_blocked(rv + off, t + off, tau + (size_t)blockIdx.x * b, b);
 }
 
 __global__ void __launch_bounds__(QR_THREADS, 1)
@@ -193,7 +225,8 @@ tsqrf_wide_kernel(const float* r, const float* a, float* r1, float* v2,
   copy_tile(v2 + off, a + off, b);
   __syncthreads();
   QR_STAMP(10);
-  tsqrf_wide(r1 + off, v2 + off, t + off, tau + (size_t)blockIdx.x * b, b);
+  tsqrf_blocked(r1 + off, v2 + off, t + off, tau + (size_t)blockIdx.x * b,
+                b);
 }
 
 __global__ void __launch_bounds__(QR_THREADS, 1)
@@ -201,10 +234,10 @@ apply_qt_wide_kernel(const float* rv, const float* t, const float* c,
                      float* out, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
   QR_STAMP(9);
-  copy_tile(out + off, c + off, b);
+  copy_item(out + off, c + off, b);
   __syncthreads();
   QR_STAMP(10);
-  apply_qt_wide(rv + off, t + off, out + off, b);
+  apply_qt_wide(rv + off, t + off, out + off, b, blockIdx.y);
 }
 
 __global__ void __launch_bounds__(QR_THREADS, 1)
@@ -212,31 +245,34 @@ apply_tsqt_wide_kernel(const float* v2, const float* t, const float* c1,
                        const float* c2, float* o1, float* o2, int b) {
   const size_t off = (size_t)blockIdx.x * b * b;
   QR_STAMP(9);
-  copy_tile(o1 + off, c1 + off, b);
-  copy_tile(o2 + off, c2 + off, b);
+  copy_item(o1 + off, c1 + off, b);
+  copy_item(o2 + off, c2 + off, b);
   __syncthreads();
   QR_STAMP(10);
-  apply_tsqt_wide(v2 + off, t + off, o1 + off, o2 + off, b);
+  apply_tsqt_wide(v2 + off, t + off, o1 + off, o2 + off, b, blockIdx.y);
 }
 
 // One row [etype, s0, s1, s2] of the table, by the whole block, b >
-// QR_MAX_B: the wide bodies on the tile stack in place.
-__device__ __forceinline__ void qr_row_wide(const int* row, float* tiles,
-                                            float* tmat, int b) {
+// QR_MAX_B: the wide bodies on the tile stack in place; an apply row's
+// work item chunk (qr_row_items).
+__device__ __forceinline__ void qr_row_wide(const int* row, int chunk,
+                                            float* tiles, float* tmat,
+                                            int b) {
   const size_t bb = (size_t)b * b;
   const size_t s0 = row[1] * bb, s1 = row[2] * bb, s2 = row[3] * bb;
   switch (row[0]) {
     case 0:  // GEQRF [kk]
-      geqrf_wide(tiles + s0, tmat + s0, nullptr, b);
+      geqrf_blocked(tiles + s0, tmat + s0, nullptr, b);
       break;
     case 1:  // LARFT [kk, kj]
-      apply_qt_wide(tiles + s0, tmat + s0, tiles + s1, b);
+      apply_qt_wide(tiles + s0, tmat + s0, tiles + s1, b, chunk);
       break;
     case 2:  // TSQRF [kk, ik]
-      tsqrf_wide(tiles + s0, tiles + s1, tmat + s1, nullptr, b);
+      tsqrf_blocked(tiles + s0, tiles + s1, tmat + s1, nullptr, b);
       break;
     case 3:  // SSRFT [ik, kj, ij]
-      apply_tsqt_wide(tiles + s0, tmat + s0, tiles + s1, tiles + s2, b);
+      apply_tsqt_wide(tiles + s0, tmat + s0, tiles + s1, tiles + s2, b,
+                      chunk);
       break;
     default:  // QR_NOOP and anything out of range: no-op
       break;
@@ -291,14 +327,22 @@ __device__ __forceinline__ void qr_row(const int* row, float* tiles,
   __syncthreads();   // the stores have read the slots the next row reuses
 }
 
+// work items of a row of type et when an apply takes nch (qr_apply_chunks)
+__device__ __forceinline__ int qr_row_items(int et, int nch) {
+  return et == 1 || et == 3 ? nch : 1;
+}
+
 // The whole plan in one cooperative launch: phase p is rows offs[p] ..
-// offs[p + 1] - 1 of desc (width ints each: [etype, s0, s1, s2]); block
-// x takes rows offs[p] + x, + gridDim.x, ... in turns.  The write
-// coloring guarantees the rows of a phase touch disjoint tiles, so they
-// may run in any order and on any block; the grid barrier makes phase p's
-// stores visible before phase p + 1 loads.  tiles and tmat are (ntiles,
-// b, b) stacks in column-major tile order, updated in place.  WIDE: the
-// blocked bodies (qr_walk_wide_kernel, b > QR_MAX_B).
+// offs[p + 1] - 1 of desc (width ints each: [etype, s0, s1, s2]), each
+// row one work item, an apply row past QR_OUTER_MIN_B one a 64-column
+// chunk (qr_row_items: the phase's items in table order, a row's chunks
+// in order); block x takes items x, x + gridDim.x, ... in turns.  The
+// write coloring guarantees the rows of a phase touch disjoint tiles, and
+// an apply's chunks touch disjoint columns, so items may run in any order
+// and on any block; the grid barrier makes phase p's stores visible
+// before phase p + 1 loads.  tiles and tmat are (ntiles, b, b) stacks in
+// column-major tile order, updated in place.  WIDE: the blocked bodies
+// (qr_walk_wide_kernel, b > QR_MAX_B).
 template <bool WIDE>
 __device__ __forceinline__ void qr_walk_rows(const int* desc, const int* offs,
                                              int nphases, int width,
@@ -306,13 +350,28 @@ __device__ __forceinline__ void qr_walk_rows(const int* desc, const int* offs,
                                              int b) {
   cg::grid_group grid = cg::this_grid();
   const Slots s = qr_slots(b);
+  const int nch = WIDE ? qr_apply_chunks(b) : 1;
   for (int p = 0; p < nphases; ++p) {
-    const int q1 = offs[p + 1];
-    for (int q = offs[p] + blockIdx.x; q < q1; q += gridDim.x) {
-      if (WIDE)
-        qr_row_wide(desc + (size_t)q * width, tiles, tmat, b);
-      else
-        qr_row(desc + (size_t)q * width, tiles, tmat, s, b);
+    const int q0 = offs[p], q1 = offs[p + 1];
+    if (nch == 1) {
+      for (int q = q0 + blockIdx.x; q < q1; q += gridDim.x) {
+        if (WIDE)
+          qr_row_wide(desc + (size_t)q * width, 0, tiles, tmat, b);
+        else
+          qr_row(desc + (size_t)q * width, tiles, tmat, s, b);
+      }
+    } else {
+      int n = 0;
+      for (int q = q0; q < q1; ++q)
+        n += qr_row_items(desc[(size_t)q * width], nch);
+      for (int it = blockIdx.x; it < n; it += gridDim.x) {
+        int q = q0, k = it, m;
+        while (k >= (m = qr_row_items(desc[(size_t)q * width], nch))) {
+          k -= m;
+          ++q;
+        }
+        qr_row_wide(desc + (size_t)q * width, k, tiles, tmat, b);
+      }
     }
     if (p + 1 < nphases) grid.sync();
   }
@@ -378,6 +437,9 @@ int qr_smem_bytes(int b) { return (int)smem_bytes(b); }
 
 int qr_threads(void) { return QR_THREADS; }
 
+// work items (blocks of the per-op grid) of an apply at tile size b
+int qr_chunks(int b) { return qr_apply_chunks(b); }
+
 // Blocks of qr_walk resident on the current card at tile size b: the
 // largest grid a cooperative launch takes (0 when it cannot run at all).
 int qr_walk_grid(int b, int* blocks) {
@@ -392,7 +454,8 @@ int qr_walk_grid(int b, int* blocks) {
   return (int)err;
 }
 
-// The per-op launchers: n tiles, one block each.
+// The per-op launchers: n tiles, one block each (the applies past
+// QR_OUTER_MIN_B: one a tile's 64-column chunk, grid (n, qr_apply_chunks)).
 int qr_geqrf(const float* a, float* rv, float* tau, float* t, int n, int b,
              void* stream) {
   const auto fn = b > QR_MAX_B ? geqrf_wide_kernel : geqrf_kernel;
@@ -412,8 +475,8 @@ int qr_tsqrf(const float* r, const float* a, float* r1, float* v2,
 int qr_apply_qt(const float* rv, const float* t, const float* c, float* out,
                 int n, int b, void* stream) {
   const auto fn = b > QR_MAX_B ? apply_qt_wide_kernel : apply_qt_kernel;
-  fn<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(rv, t, c, out,
-                                                             b);
+  fn<<<dim3(n, qr_apply_chunks(b)), QR_THREADS, smem_bytes(b),
+       (cudaStream_t)stream>>>(rv, t, c, out, b);
   return (int)cudaGetLastError();
 }
 
@@ -421,23 +484,24 @@ int qr_apply_tsqt(const float* v2, const float* t, const float* c1,
                   const float* c2, float* o1, float* o2, int n, int b,
                   void* stream) {
   const auto fn = b > QR_MAX_B ? apply_tsqt_wide_kernel : apply_tsqt_kernel;
-  fn<<<n, QR_THREADS, smem_bytes(b), (cudaStream_t)stream>>>(v2, t, c1, c2,
-                                                             o1, o2, b);
+  fn<<<dim3(n, qr_apply_chunks(b)), QR_THREADS, smem_bytes(b),
+       (cudaStream_t)stream>>>(v2, t, c1, c2, o1, o2, b);
   return (int)cudaGetLastError();
 }
 
 // The whole plan: nphases phases, offs[0 .. nphases] the device row
-// offsets, max_rows the longest phase.  One cooperative launch of
-// min(resident blocks, max_rows) blocks; a refused launch (for example
-// cudaErrorCooperativeLaunchTooLarge) is returned, never retried.
-int qr_walk(const int* desc, const int* offs, int nphases, int max_rows,
+// offsets, max_items the most work items in a phase (qr_row_items).  One
+// cooperative launch of min(resident blocks, max_items) blocks; a refused
+// launch (for example cudaErrorCooperativeLaunchTooLarge) is returned,
+// never retried.
+int qr_walk(const int* desc, const int* offs, int nphases, int max_items,
             int width, float* tiles, float* tmat, int b, void* stream) {
   int resident = 0;
   const int err = qr_walk_grid(b, &resident);
   if (err != 0) return err;
   if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int blocks = max_rows < resident ? (max_rows > 0 ? max_rows : 1)
-                                         : resident;
+  const int blocks = max_items < resident ? (max_items > 0 ? max_items : 1)
+                                          : resident;
   void* args[] = {(void*)&desc, (void*)&offs, (void*)&nphases,
                   (void*)&width, (void*)&tiles, (void*)&tmat, (void*)&b};
   const cudaError_t launch = cudaLaunchCooperativeKernel(

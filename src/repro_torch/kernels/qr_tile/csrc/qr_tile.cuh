@@ -85,9 +85,18 @@
 #define QR_CHAIN_MAX_B 256
 #define QR_W_CHAIN_MAX_B 128
 #define QR_FLOAT_SUM_MAX_B 2048
+// tiles wider than this (panels of 4, 2 or 1 columns) factor in 64-column
+// outer panels and apply Q in blocks of 64 reflectors, one 64-column chunk
+// of C a work item (qr_o_* below)
+#define QR_OUTER_MIN_B 1024
 
 __host__ __device__ inline int qr_ld(int b) { return (b + 23) / 32 * 32 + 8; }
 __host__ __device__ inline int qr_rows(int b) { return (b + 3) & ~3; }
+// work items of an apply (apply_qt, apply_tsqt) at tile size b: past
+// QR_OUTER_MIN_B one a 64-column chunk of C, each on a block of its own
+__host__ __device__ inline int qr_apply_chunks(int b) {
+  return b > QR_OUTER_MIN_B ? (b + 63) / 64 : 1;
+}
 __host__ __device__ inline int qr_slot_floats(int b) {
   return qr_rows(b) * qr_ld(b);
 }
@@ -1274,12 +1283,15 @@ __device__ __forceinline__ void qr_w_merge_rows(const QrW& w, float* T,
                  -(float)acc[i][k]);
 }
 
-// T[0:j0, J] <- -T[0:j0, 0:j0] Z, Z = T[0:j0, J] on entry (the chunks left
-// of the panel wrote it), in 64-row blocks top down: block i reads Z's
-// rows from i on only, so it may overwrite its own rows when it is done
+// T[lo:j0, J] <- -T[lo:j0, lo:j0] Z, Z = T[lo:j0, J] on entry (the chunks
+// left of the panel wrote it), in 64-row blocks top down: block i reads
+// Z's rows from i on only, so it may overwrite its own rows when it is
+// done.  lo = 0 merges into the whole T; past QR_OUTER_MIN_B an inner
+// panel merges into its outer panel's T (lo: the outer panel's first
+// column) first
 __device__ __forceinline__ void qr_w_merge(const QrW& w, float* T, int b,
-                                           int j0, int nb) {
-  for (int i0 = 0; i0 < j0; i0 += QR_MAX_B) {
+                                           int lo, int j0, int nb) {
+  for (int i0 = lo; i0 < j0; i0 += QR_MAX_B) {
     if (b > QR_FLOAT_SUM_MAX_B)
       qr_w_merge_rows<true, double>(w, T, b, j0, nb, i0);
     else if (b > QR_CHAIN_MAX_B)
@@ -1326,8 +1338,378 @@ __device__ __forceinline__ void qr_w_fact_panel(const QrW& w, float* R,
     qr_w_chunk(w, nb, tld, A, b, r0, rows, c, min(c + QR_MAX_B, j0),
                nullptr, T + j0);
   QR_STAMP(6);
-  qr_w_merge(w, T, b, j0, nb);
+  qr_w_merge(w, T, b, 0, j0, nb);
   QR_STAMP(7);
+}
+
+// ---------------------------------------------------------------------------
+// b > QR_OUTER_MIN_B: 64-column outer panels and 64-reflector blocks.  The
+// register panel is 4, 2 or 1 columns wide there, and the bodies above pay
+// one staged pass over the whole trailing matrix a panel (512 at b =
+// 2048).  Here the WY block is decoupled from the register panel:
+//   * geqrf, tsqrf factor each 64-column outer panel J in the register
+//     panels of qr_wide_nb; an inner panel updates, and merges its T into,
+//     the rest of J only (qr_o_inner: one staged pass over J's rows), and
+//     J's 64-wide compact WY updates the trailing matrix once (qr_o_wy):
+//     b / 64 passes over it instead of b / nbw;
+//   * apply_qt, apply_tsqt apply Q block by block with the 64 x 64
+//     diagonal blocks of the merged T, one 64-column chunk of C a call:
+//     the chunks are independent, so a tile's ceil(b / 64) chunks run on
+//     as many blocks (qr_apply_chunks; the per-op grid's y, the walk's
+//     items), each chunk's arithmetic the same whichever block runs it.
+// V_k (up to 8192 x 64 floats) does not fit shared memory: it streams from
+// global memory in 64-row blocks beside the rows of the matrix it
+// updates, the next block's loads in flight while the current one is
+// summed.  The full T keeps its meaning (ref.py): T_J from the inner
+// panels' merges, then T[0:j0, J] = -T[0:j0, 0:j0] (V_prev^T V_J) T_J.
+// Sums: W = V^T M in 16-row float blocks into float call partials to
+// QR_FLOAT_SUM_MAX_B and double ones past it (as above), X = T^T W and
+// V X as float chains of 64 terms.
+
+// x <- rows t0 .. t0 + 63, columns 0 .. 63 of X (row-major at ld ldx;
+// zeros past row n and column nc), 16 coalesced loads a thread; unit:
+// geqrf's V from RV (1 on the diagonal, 0 above it)
+__device__ __forceinline__ void qr_o_load(float (&x)[16], const float* X,
+                                          int ldx, int t0, int n, int nc,
+                                          bool unit) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int e = threadIdx.x + k * QR_THREADS, r = t0 + (e >> 6),
+              c = e & 63;
+    const bool in = r < n && c < nc;
+    x[k] = in && (!unit || r > c) ? __ldcg(X + (size_t)r * ldx + c)
+                                  : (in && r == c ? 1.0f : 0.0f);
+  }
+}
+
+// S (64 rows at QR_WL) <- qr_o_load's x
+__device__ __forceinline__ void qr_o_store(float* S, const float (&x)[16]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int e = threadIdx.x + k * QR_THREADS;
+    S[(e >> 6) * QR_WL + (e & 63)] = x[k];
+  }
+}
+
+// acc[i][k] += sum_{t < n} A[t lda + r0 + i] B[t ldb + c0 + k], n a
+// multiple of QR_MM_IN: QR_MM_IN rows into fresh float accumulators, added
+// into the call's partials of type P, added into acc once a call
+// (qr_mm_nn4's blocking, with both operands along rows)
+template <typename P>
+__device__ __forceinline__ void qr_mm_tn4(const float* A, int lda,
+                                          const float* B, int ldb, int n,
+                                          int r0, int c0, P (&acc)[4][4]) {
+  const float* pa = A + r0;
+  const float* pb = B + c0;
+  P mid[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mid[i][k] = 0.0f;
+  for (int t0 = 0; t0 < n; t0 += QR_MM_IN) {
+    float in[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) in[i][k] = 0.0f;
+#pragma unroll 4
+    for (int t = 0; t < QR_MM_IN; ++t, pa += lda, pb += ldb) {
+      const float4 x = *reinterpret_cast<const float4*>(pa);
+      const float4 y = *reinterpret_cast<const float4*>(pb);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      const float ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) in[i][k] = fmaf(xs[i], ys[k], in[i][k]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mid[i][k] += in[i][k];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k] += mid[i][k];
+}
+
+// The block reflector of the nv <= 64 reflectors V (global, row-major at
+// ld b, rows 0 .. rows - 1; unit: geqrf's RV), T_k in w.t at ld tld, on
+// columns c0 .. c1 - 1 (at most 64) of M (rows 0 .. rows - 1, ld b):
+//   W = Top[:, c0:c1] + V^T M[:, c0:c1]   (Top: nv rows at ld b, or none)
+//   X = T_k^T W
+// then, for a chunk left of the outer panel (Z: T's block column), Z[c][r]
+// = X[r][c] (Y T_k, Y = V_prev^T V); else Top -= X and M -= V X.  V's and
+// M's 64-row blocks stage through w.s and w.r for W, V's again for V X,
+// which goes straight to global memory; w.a holds W, then X.  A function
+// of its own (one copy for every caller, its registers apart from the
+// panels'); its shared-memory pointers come from qr_smem (qr_w), so they
+// stay in the shared window.
+template <typename P>
+__device__ __noinline__ void qr_o_wy(int nv, int tld, const float* V,
+                                     bool unit, float* M, int b, int rows,
+                                     int c0, int c1, float* Top, float* Z) {
+  const QrW w = qr_w(b);
+  const int tr = (threadIdx.x >> 4) * 4, tc = (threadIdx.x & 15) * 4;
+  const int nc = c1 - c0;
+  const bool mine = tr < nv && tc < nc;
+  P acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      acc[i][k] = Top && mine && tr + i < nv && tc + k < nc
+                      ? __ldcg(Top + (size_t)(tr + i) * b + c0 + tc + k)
+                      : 0.0f;
+  float xv[16], xm[16];
+  qr_o_load(xv, V, b, 0, rows, nv, unit);
+  qr_o_load(xm, M + c0, b, 0, rows, nc, false);
+  for (int t0 = 0; t0 < rows; t0 += QR_MAX_B) {     // W = Top + V^T M
+    const int n = (min(QR_MAX_B, rows - t0) + QR_MM_IN - 1) & ~(QR_MM_IN - 1);
+    __syncthreads();                     // the slots' last readers are done
+    qr_o_store(w.s, xv);
+    qr_o_store(w.r, xm);
+    __syncthreads();
+    if (t0 + QR_MAX_B < rows) {          // the next block's loads in flight
+      qr_o_load(xv, V, b, t0 + QR_MAX_B, rows, nv, unit);
+      qr_o_load(xm, M + c0, b, t0 + QR_MAX_B, rows, nc, false);
+    }
+    if (mine) qr_mm_tn4<P>(w.s, QR_WL, w.r, QR_WL, n, tr, tc, acc);
+  }
+  float x[4][4];
+  if (mine) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[i][k] = (float)acc[i][k];
+    qr_store_block(w.a, QR_WL, x, tr, tc);
+  }
+  qr_o_load(xv, V, b, 0, rows, nv, unit);  // V X's first block in flight
+  __syncthreads();
+  if (mine) {
+    qr_mm_tn2(w.t, tld, w.a, QR_WL, nv, tr, tc, x);  // X
+  } else {                               // X's rows past nv are zero
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[i][k] = 0.0f;
+  }
+  __syncthreads();                       // every read of W is done
+  if (Z) {
+    if (mine)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (tr + i < nv && tc + k < nc)
+            __stcg(Z + (size_t)(c0 + tc + k) * b + tr + i, x[i][k]);
+    return;
+  }
+  qr_store_block(w.a, QR_WL, x, tr, tc);
+  if (Top && mine)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (tr + i < nv && tc + k < nc) {
+          float* p = Top + (size_t)(tr + i) * b + c0 + tc + k;
+          __stcg(p, __ldcg(p) - x[i][k]);
+        }
+  const int nv4 = (nv + 3) & ~3;
+  for (int t0 = 0; t0 < rows; t0 += QR_MAX_B) {     // M -= V X
+    __syncthreads();                     // X is in w.a; w.s is free
+    qr_o_store(w.s, xv);
+    __syncthreads();
+    if (t0 + QR_MAX_B < rows)
+      qr_o_load(xv, V, b, t0 + QR_MAX_B, rows, nv, unit);
+    float* row = M + (size_t)(t0 + tr) * b + c0 + tc;
+    float m[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        m[i][k] = t0 + tr + i < rows && tc + k < nc
+                      ? __ldcg(row + (size_t)i * b + k) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[i][k] = 0.0f;
+    qr_mm_nn4<false, float>(w.s, QR_WL, w.a, QR_WL, nv4, tr, tc, x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (t0 + tr + i < rows && tc + k < nc)
+          __stcg(row + (size_t)i * b + k, m[i][k] - x[i][k]);
+  }
+}
+
+// An inner panel's (nb columns J_i = j1 .. j1 + nb - 1, V_i in w.p, T_i in
+// w.t at ld tld) block reflector on the rest of its outer panel, columns j0
+// .. je - 1 of A's rows r0 .. r0 + rows - 1, in one staged pass:
+// W = V_i^T A[r0:, j0:je] (+ Top on the columns right of J_i), X = T_i^T W;
+// the columns left of J_i give T[c, J_i] = (Y T_i)[c], Y = V_prev^T V_i
+// (qr_w_merge then folds T_i into the outer panel's T); the columns right
+// of it take Top -= X and A -= V_i X, as qr_w_chunk does.  Top: tsqrf's
+// rows j1 .. of R (ld b), or null.  A function of its own, as qr_o_wy.
+__device__ __noinline__ void qr_o_inner(int nb, int tld, float* A, int b,
+                                        int r0, int rows, int j0, int j1,
+                                        int je, float* Top, float* T) {
+  const QrW w = qr_w(b);
+  const int tr = (threadIdx.x >> 4) * 4, tc = (threadIdx.x & 15) * 4;
+  const int nc = je - j0, jn = j1 + nb - j0;   // right columns: tc + k >= jn
+  const bool mine = tr < nb && tc < nc;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      acc[i][k] = Top && mine && tr + i < nb && tc + k < nc && tc + k >= jn
+                      ? __ldcg(Top + (size_t)(tr + i) * b + j0 + tc + k)
+                      : 0.0f;
+  if (b > QR_FLOAT_SUM_MAX_B) {          // W
+    double wd[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wd[i][k] = acc[i][k];
+    qr_w_vtm<true, double>(w, A, b, r0, rows, j0, nc, tr, tc, mine, wd);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = (float)wd[i][k];
+  } else {
+    qr_w_vtm<true, float>(w, A, b, r0, rows, j0, nc, tr, tc, mine, acc);
+  }
+  if (mine) qr_store_block(w.a, QR_WL, acc, tr, tc);
+  __syncthreads();
+  if (mine) qr_mm_tn2(w.t, tld, w.a, QR_WL, nb, tr, tc, acc);   // X
+  __syncthreads();                       // every read of W is done
+  if (mine) {
+    qr_store_block(w.a, QR_WL, acc, tr, tc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = tc + k;
+        if (tr + i >= nb || c >= nc) continue;
+        if (c < j1 - j0) {               // Y T_i into T[c, J_i]
+          __stcg(T + (size_t)(j0 + c) * b + j1 + tr + i, acc[i][k]);
+        } else if (Top && c >= jn) {
+          float* p = Top + (size_t)(tr + i) * b + j0 + c;
+          __stcg(p, __ldcg(p) - acc[i][k]);
+        }
+      }
+  }
+  __syncthreads();
+  if (j0 + tc + 3 < j1 + nb) return;     // none of this thread's columns
+  for (int i0 = tr; i0 < rows; i0 += QR_MAX_B) {    // A -= V_i X, right of J_i
+    if (tc >= nc) break;
+    qr_mm_tn2(w.p + i0, w.pld, w.a, QR_WL, nb, 0, tc, acc);
+    float* row = A + (size_t)(r0 + i0) * b + j0 + tc;
+    float x[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        x[i][k] = i0 + i < rows && tc + k < nc && tc + k >= jn
+                      ? __ldcg(row + i * b + k) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i0 + i < rows && tc + k < nc && tc + k >= jn)
+          __stcg(row + i * b + k, x[i][k] - acc[i][k]);
+  }
+}
+
+// qr_o_wy with W's call partials in float to QR_FLOAT_SUM_MAX_B, in
+// double past it
+__device__ __forceinline__ void qr_o_wy_b(int nv, int tld, const float* V,
+                                          bool unit, float* M, int b,
+                                          int rows, int c0, int c1,
+                                          float* Top, float* Z) {
+  if (b > QR_FLOAT_SUM_MAX_B)
+    qr_o_wy<double>(nv, tld, V, unit, M, b, rows, c0, c1, Top, Z);
+  else
+    qr_o_wy<float>(nv, tld, V, unit, M, b, rows, c0, c1, Top, Z);
+}
+
+// geqrf (TS = false: A -> RV) or tsqrf (TS: [R; A] -> R', V2 in place of
+// A) past QR_OUTER_MIN_B, with T and taus (or null) as the bodies above
+// write them.  Each outer panel J = j0 .. je - 1: its inner panels (the
+// register panels of qr_wide_nb: 4, 2 or 1 columns, a column over
+// several warps) factor as in qr_w_fact_panel, but update and merge into
+// J alone (qr_o_inner, qr_w_merge from j0); then J's T_J updates the
+// columns right of J (qr_o_wy, V_J streamed from A), and the chunks left
+// of J give Y T_J for T's merge.
+template <bool TS>
+__device__ __noinline__ void qr_o_factor(float* R, float* A, float* T,
+                                         float* taus, int b) {
+  const QrW w = qr_w(b);
+  for (int j0 = 0; j0 < b; j0 += QR_MAX_B) {
+    const int je = min(j0 + QR_MAX_B, b);
+    for (int j1 = j0; j1 < je; j1 += w.nbw) {
+      const int nb = min(w.nbw, je - j1), tld = qr_ld(nb);
+      const int r0 = TS ? 0 : j1, rows = b - r0;
+      float* pa = A + (size_t)r0 * b + j1;
+      __syncthreads();                   // the last panel's readers are done
+      qr_w_load_panel(w, pa, b, rows, nb, false);
+      if (TS) qr_w_load_r(w, R + (size_t)j1 * b + j1, b, nb);
+      qr_zero_slot(w.t, nb);
+      __syncthreads();
+      qr_w_factor_span<TS>(w, rows, nb, tld);      // g > 32 past 1024
+      __syncthreads();                   // the panel is back in w.p
+      qr_w_store_panel(w, pa, b, rows, nb, !TS);   // RV / V2 out, V in w.p
+      if (TS) qr_w_store_r(w, R + (size_t)j1 * b + j1, b, nb);
+      if (taus)
+        for (int c = threadIdx.x; c < nb; c += QR_THREADS)
+          __stcg(taus + j1 + c, w.taus[c]);
+      __syncthreads();
+      qr_build_t(w.t, w.a, w.taus, w.s, nb);
+      qr_w_store_t(w, T, b, j1, nb, tld);
+      if (je - j0 > nb)
+        qr_o_inner(nb, tld, A, b, r0, rows, j0, j1, je,
+                   TS ? R + (size_t)j1 * b : nullptr, T);
+      if (j1 > j0) qr_w_merge(w, T, b, j0, j1, nb);
+    }
+    const int nv = je - j0, tld = qr_ld(nv);
+    const int r0 = TS ? 0 : j0, rows = b - r0;
+    const float* V = A + (size_t)r0 * b + j0;
+    __syncthreads();                     // T_J is in T
+    qr_w_load_t(w, T + (size_t)j0 * b + j0, b, nv, tld);
+    for (int c = je; c < b; c += QR_MAX_B)       // the trailing columns
+      qr_o_wy_b(nv, tld, V, !TS, A + (size_t)r0 * b, b, rows, c,
+                min(c + QR_MAX_B, b), TS ? R + (size_t)j0 * b : nullptr,
+                nullptr);
+    for (int c = 0; c < j0; c += QR_MAX_B)       // Y T_J, Y = V_prev^T V_J
+      qr_o_wy_b(nv, tld, V, !TS, A + (size_t)r0 * b, b, rows, c,
+                min(c + QR_MAX_B, j0), nullptr, T + j0);
+    if (j0 > 0) qr_w_merge(w, T, b, 0, j0, nv);
+  }
+  __syncthreads();
+}
+
+// apply_qt (TS = false: C = M, V_k from RV) or apply_tsqt (TS: Top = C1's
+// rows J, M = C2, V_k = V2's columns J) past QR_OUTER_MIN_B on the chunk
+// columns chunk * 64 .. + 63 of C, Q_1^T first, T_k the 64 x 64 diagonal
+// blocks of T
+template <bool TS>
+__device__ __forceinline__ void qr_o_apply(const float* V, const float* T,
+                                           float* C1, float* C, int b,
+                                           int chunk) {
+  const QrW w = qr_w(b);
+  const int c0 = chunk * QR_MAX_B, c1 = min(c0 + QR_MAX_B, b);
+  for (int j0 = 0; j0 < b; j0 += QR_MAX_B) {
+    const int nv = min(QR_MAX_B, b - j0), tld = qr_ld(nv);
+    const int r0 = TS ? 0 : j0;
+    __syncthreads();                     // the last block's readers are done
+    qr_w_load_t(w, T + (size_t)j0 * b + j0, b, nv, tld);
+    qr_o_wy_b(nv, tld, V + (size_t)r0 * b + j0, !TS, C + (size_t)r0 * b, b,
+              b - r0, c0, c1, TS ? C1 + (size_t)j0 * b : nullptr, nullptr);
+  }
+  __syncthreads();
 }
 
 // GEQRF, b > QR_MAX_B: A -> RV in place, T, taus (b floats, or null).
@@ -1366,11 +1748,37 @@ __device__ __noinline__ void tsqrf_wide(float* R, float* A, float* T,
   __syncthreads();
 }
 
+// The factorizations every entry point runs past QR_MAX_B: the outer
+// panels past QR_OUTER_MIN_B, geqrf_wide / tsqrf_wide (which take any b)
+// up to it.  The choice stays out of those bodies, whose registers it
+// would change at b <= 1024 (a call inside them made their column steps
+// spill: +3 % at b = 128).
+__device__ __forceinline__ void geqrf_blocked(float* A, float* T,
+                                              float* taus, int b) {
+  if (b > QR_OUTER_MIN_B)
+    qr_o_factor<false>(nullptr, A, T, taus, b);
+  else
+    geqrf_wide(A, T, taus, b);
+}
+
+__device__ __forceinline__ void tsqrf_blocked(float* R, float* A, float* T,
+                                              float* taus, int b) {
+  if (b > QR_OUTER_MIN_B)
+    qr_o_factor<true>(R, A, T, taus, b);
+  else
+    tsqrf_wide(R, A, T, taus, b);
+}
+
 // LARFT apply, b > QR_MAX_B: C <- Q^T C, Q = Q_1 Q_2 ... the panels'
 // block reflectors (V_k from the unit-lower part of RV, T_k the diagonal
-// blocks of T), Q_1^T first.
+// blocks of T), Q_1^T first.  Past QR_OUTER_MIN_B on the 64 columns of C
+// from chunk * 64 (chunk < qr_apply_chunks(b)), else on all of C (chunk 0).
 __device__ __noinline__ void apply_qt_wide(const float* RV, const float* T,
-                                           float* C, int b) {
+                                           float* C, int b, int chunk) {
+  if (b > QR_OUTER_MIN_B) {
+    qr_o_apply<false>(RV, T, nullptr, C, b, chunk);
+    return;
+  }
   const QrW w = qr_w(b);
   for (int j0 = 0; j0 < b; j0 += w.nbw) {
     const int nb = min(w.nbw, b - j0), tld = qr_ld(nb);
@@ -1387,9 +1795,15 @@ __device__ __noinline__ void apply_qt_wide(const float* RV, const float* T,
 }
 
 // SSRFT apply, b > QR_MAX_B: [C1; C2] <- Q^T [C1; C2] panel by panel: W =
-// C1[J, :] + V2_k^T C2; X = T_k^T W; C1[J, :] -= X; C2 -= V2_k X.
+// C1[J, :] + V2_k^T C2; X = T_k^T W; C1[J, :] -= X; C2 -= V2_k X.  Past
+// QR_OUTER_MIN_B on the chunk's 64 columns of C1 and C2, as apply_qt_wide.
 __device__ __noinline__ void apply_tsqt_wide(const float* V2, const float* T,
-                                             float* C1, float* C2, int b) {
+                                             float* C1, float* C2, int b,
+                                             int chunk) {
+  if (b > QR_OUTER_MIN_B) {
+    qr_o_apply<true>(V2, T, C1, C2, b, chunk);
+    return;
+  }
   const QrW w = qr_w(b);
   for (int j0 = 0; j0 < b; j0 += w.nbw) {
     const int nb = min(w.nbw, b - j0), tld = qr_ld(nb);

@@ -5,10 +5,12 @@
 up to b = ``WIDE_MAX_B``, that work on the tiles in global memory through
 a shared-memory layout sized by the panel);
 ``csrc/qr_tile.cu`` wraps them in batched per-op kernels (one block per
-tile) and in the task-table walk ``qr_walk`` (one cooperative launch a
-plan: every resident block strides over the rows of each write-colored
-phase, with a grid-wide barrier between phases), and exports a plain C
-launcher for each.  They
+tile; past b = ``OUTER_MIN_B`` the applies take one block per 64-column
+chunk of a tile, ``apply_chunks``) and in the task-table walk ``qr_walk``
+(one cooperative launch a plan: every resident block strides over the
+work items of each write-colored phase, a row each or an apply's chunk,
+with a grid-wide barrier between phases), and exports a plain C launcher
+for each.  They
 replace the Pallas kernels ``repro/kernels/qr_tile/kernel.py::geqrf``,
 ``tsqrf``, ``apply_qt``, ``apply_tsqt`` and the walk
 ``repro/engine/megakernel.py::qr_round_fn``.
@@ -45,6 +47,9 @@ WIDE_MAX_B = 8192  # QR_WIDE_MAX_B: the widest tile of the blocked bodies
 #                    (a one-column panel, its rows over the block's 256
 #                    threads, 32 a thread in registers; a 256 MB tile).
 #                    The ops refuse wider tiles on every device
+OUTER_MIN_B = 1024  # QR_OUTER_MIN_B: wider tiles factor in 64-column outer
+#                    panels and apply Q in blocks of 64 reflectors, one
+#                    64-column chunk of C a work item
 
 # kernel launches by wrapper, and plain-version calls taken by a wrapper
 # because its tensor lay on the CPU; chip_smoke.py zeroes both before the
@@ -65,6 +70,7 @@ _SIGNATURES = {
     "qr_apply_tsqt": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "qr_walk": (_P, _P, _I, _I, _I, _P, _P, _I, _P),
     "qr_walk_grid": (_I, _P),
+    "qr_chunks": (_I,),
     "qr_smem_bytes": (_I,),
 }
 
@@ -85,6 +91,12 @@ def check_shape(b: int) -> None:
     if not 1 <= b <= WIDE_MAX_B:
         raise ValueError(f"tile size {b} not supported: the tile ops take "
                          f"b >= 1 and b <= {WIDE_MAX_B} on every device")
+
+
+def apply_chunks(b: int) -> int:
+    """Work items of an apply at tile size b (``qr_apply_chunks``): one a
+    64-column chunk of C past ``OUTER_MIN_B``, else one.  Needs no card."""
+    return -(-b // SHARED_MAX_B) if b > OUTER_MIN_B else 1
 
 
 def lib() -> ctypes.CDLL:
@@ -137,14 +149,15 @@ def walk_grid(b: int) -> int:
     return blocks.value
 
 
-def qr_walk(desc, offsets, max_rows: int, tiles, tmat) -> None:
+def qr_walk(desc, offsets, max_items: int, tiles, tmat) -> None:
     """Walk every phase of the device ``desc`` in one cooperative launch:
     ``offsets`` is the int32 device copy of the phase row offsets
-    (nphases + 1), ``max_rows`` the longest phase (host integer), and the
-    (ntiles,b,b) ``tiles``/``tmat`` stacks are updated in place.  A
-    refused launch raises; there is no per-phase fallback."""
+    (nphases + 1), ``max_items`` the most work items in a phase (host
+    integer: a row each, an apply row ``apply_chunks(b)``; the grid is at
+    most that), and the (ntiles,b,b) ``tiles``/``tmat`` stacks are updated
+    in place.  A refused launch raises; there is no per-phase fallback."""
     b = tiles.shape[-1]
     _check(lib().qr_walk(_ptr(desc), _ptr(offsets), offsets.numel() - 1,
-                         max_rows, desc.shape[1], _ptr(tiles), _ptr(tmat),
+                         max_items, desc.shape[1], _ptr(tiles), _ptr(tmat),
                          b, _stream()), "qr_walk")
     count(LAUNCHES, "qr_walk")

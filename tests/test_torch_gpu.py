@@ -149,7 +149,9 @@ def float64_tiles(b, device):
 def test_wide_kernels_no_further_from_float64_than_plain(cuda, b):
     """K1-K4 at b = 256, 512 and 1000 (panels of 32, 16 and 8), at 1025 and
     2048 (panels of 4, a column over two warps), 2049 (panels of 2, four
-    warps) and 4097 (one-column panels, eight warps).  From 256 on two
+    warps) and 4097 (one-column panels, eight warps); past 1024 the
+    register panels factor 64-column outer panels and the applies go in
+    64-reflector blocks, one 64-column chunk of C a block.  From 256 on two
     float32 QRs lie about the kernel-vs-plain limit apart (the plain
     version itself lies past it from float64 at b = 256 and 1000), so each
     output is held to the float64 version of its plain function on the
@@ -180,6 +182,29 @@ def test_wide_kernels_no_further_from_float64_than_plain(cuda, b):
             for k, (g, p, e) in enumerate(zip(got, plain, exact)):
                 dk, dp = tol_dist(g.squeeze(0), e), tol_dist(p, e)
                 assert dk <= max(1.0, dp), (op, i, k, dk, dp)
+
+
+@pytest.mark.parametrize("b", [1025, 2048])
+def test_wide_applies_bitwise_across_batches(cuda, b):
+    """Past b = 1024 an apply runs a tile as ceil(b / 64) work items, one a
+    64-column chunk of C, each on a block of its own: the per-op grid is
+    (tiles, chunks).  A tile's result depends on b alone, never on the
+    grid: K3 and K4 on a batch of 3 give, tile for tile, the bits of the
+    same tiles launched one at a time."""
+    assert kernel.lib().qr_chunks(b) == kernel.apply_chunks(b) == -(-b // 64)
+    a, c1, c2, r = (rand((3, b, b), b + k, cuda) for k in range(4))
+    rv, _, t = ops.geqrf(a)
+    _, v2, _, t2 = ops.tsqrf(torch.triu(r), c1)
+    q3 = ops.apply_qt(rv, t, c2)
+    s3 = ops.apply_tsqt(v2, t2, c1, c2)
+    for i in range(3):
+        one = slice(i, i + 1)
+        q1 = ops.apply_qt(rv[one], t[one], c2[one])
+        s1 = ops.apply_tsqt(v2[one], t2[one], c1[one], c2[one])
+        torch.cuda.synchronize()
+        assert torch.equal(q3[i], q1[0]), i
+        assert torch.equal(s3[0][i], s1[0][0]) and torch.equal(s3[1][i],
+                                                                s1[1][0]), i
 
 
 def test_ops_check_operands(cuda):

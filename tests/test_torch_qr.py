@@ -32,6 +32,17 @@ MODES = ("sequential", "threaded", "rounds", "engine")
 CASES = [(96, 32), (128, 16), (256, 128), (192, 96)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """run_qr on the CPU is thousands of plain ops on small tiles: one
+    intra-op thread runs them many times faster than a pool contending
+    with the other test workers for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rand_matrix(n, seed=0):
     return np.random.default_rng(seed).standard_normal((n, n)).astype(
         np.float32)
@@ -130,6 +141,30 @@ class TestStructure:
                 t.stats["max_phase_len"]) == (94, 125, 11440, 296)
         host, launches = qr.dispatch_counts(np.empty((2048, 2048)), 64, 4)
         assert (host, launches) == (649, 1)
+
+    @pytest.mark.parametrize("n,b,rows,items", [(2048, 512, 5, 5),
+                                                (2050, 1025, 1, 17),
+                                                (4096, 2048, 1, 32)])
+    def test_walk_items_per_phase(self, n, b, rows, items):
+        """The card walk's grid is the most work items in a phase: a row
+        each, but an apply row past b = 1024 one a 64-column chunk of C
+        (ceil(b / 64) blocks), so the 4096² / 2048² plan's apply phases
+        run on 32 blocks, not one."""
+        from repro_torch import engine
+        from repro_torch.core import lower
+        assert [kernel.apply_chunks(x) for x in (1, 64, 1024, 1025, 2048,
+                                                 2049, 8192)] == [
+            1, 1, 1, 17, 32, 33, 128]
+        mt = n // b
+        s, _ = qr.make_qr_graph(mt, mt, nr_queues=4)
+        st = qr._TileState({(i, j): torch.empty(0) for i in range(mt)
+                            for j in range(mt)})
+        t = engine.lower_tables(lower(s, 4), s, st.batch_registry(),
+                                arg_width=engine.QR_ARG_WIDTH,
+                                row_access=engine.qr_row_access)
+        assert t.stats["max_phase_len"] == rows
+        assert engine.megakernel.qr_phase_items(t.desc, t.phase_offsets,
+                                                b) == items
 
     def test_dispatch_counts_match_reference(self):
         """One walk launch a plan, as the reference's one jitted dispatch,

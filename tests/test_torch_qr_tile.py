@@ -11,6 +11,7 @@ kernels themselves are held against the plain ops on the card
 (``chip_smoke.py`` and tests/test_torch_gpu.py).
 """
 
+import functools
 import sys
 
 import numpy as np
@@ -28,6 +29,17 @@ from repro_torch.kernels.qr_tile import kernel, ops, ref  # noqa: E402
 SIZES = [4, 8, 16, 32, 64, 128]
 FACT = dict(atol=2e-5, rtol=1e-4)     # reference: factorization tolerance
 APPLY = dict(atol=1e-5)               # reference: apply tolerance
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The plain ops run column loops over small tiles: one intra-op thread
+    runs them many times faster than a pool contending with the other test
+    workers for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def rand(shape, seed):
@@ -266,17 +278,37 @@ def test_cpu_path_refuses_past_the_widest_tile(op):
 # in float64 torch: panels factored column by column, each panel's T from
 # its Gram matrix, the trailing columns updated with the panel's compact
 # WY, T merged panel by panel as [[T1, -T1 (V1^T V2) T2], [0, T2]]; the
-# applies go panel by panel with the diagonal blocks of T.  Held to the
+# applies go panel by panel with the diagonal blocks of T.  Past b = 1024
+# (qr_o_*) the panels nest: each outer panel (64 columns) is factored in
+# inner panels (the register panels: 4, 2 or 1 columns) that update and
+# merge their T into the rest of the outer panel only, then the outer
+# panel's compact WY updates the trailing columns once and its T merges
+# into the whole T; the applies go in 64-reflector blocks.  Held to the
 # plain column-by-column versions (ref) in float64, where the two orders
 # agree to rounding: 1e-12.
 # ---------------------------------------------------------------------------
 
-# (b, panel width): the wide bodies' panels of 64 and 32, and the narrow
-# panels of the tiles past 1024 (4, 2 and 1 columns: the algorithm does
-# not depend on b, so small tiles hold them)
-BLOCKED = [(65, 64), (96, 64), (128, 64), (256, 64), (256, 32), (96, 4),
-           (96, 2), (65, 1)]
+# (b, outer width, inner width): the wide bodies' panels of 64 and 32, the
+# narrow panels of 4, 2 and 1 columns updating the whole trailing matrix,
+# and the bodies past 1024 (outer panels of 64 in inner panels of 4, 2
+# and 1; the algorithm does not depend on b, so small tiles hold them)
+BLOCKED = [(65, 64, 64), (96, 64, 64), (128, 64, 64), (256, 64, 64),
+           (256, 32, 32), (96, 4, 4), (96, 2, 2), (65, 1, 1), (96, 64, 4),
+           (130, 64, 2), (65, 64, 1)]
+BLOCKED_IDS = [f"{b}-{o}" if o == i else f"{b}-{o}-{i}"
+               for b, o, i in BLOCKED]
 BLOCKED_TOL = 1e-12
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_factors(b, seed):
+    """geqrf_ref and tsqrf_ref in float64 on the seeded (a, r) of
+    test_blocked_factorizations_match_plain, computed once a module: the
+    cases of one b and seed share them."""
+    rng = np.random.default_rng(seed)
+    a = torch.tensor(rng.standard_normal((b, b)))
+    r = torch.triu(torch.tensor(rng.standard_normal((b, b))))
+    return a, r, ref.geqrf_ref(a), ref.tsqrf_ref(r, a)
 
 
 def _panel_t(v, taus):
@@ -291,64 +323,82 @@ def _panel_t(v, taus):
     return t
 
 
-def _merge_t(t, y, j0, nb):
-    """T[:j0, J] = -T[:j0, :j0] (Y T_J), Y = V_prev^T V_J."""
-    t[:j0, j0:j0 + nb] = -t[:j0, :j0] @ (y @ t[j0:j0 + nb, j0:j0 + nb])
+def _merge_t(t, y, j0, nb, lo=0):
+    """T[lo:j0, J] = -T[lo:j0, lo:j0] (Y T_J), Y = V[:, lo:j0]^T V_J."""
+    t[lo:j0, j0:j0 + nb] = -t[lo:j0, lo:j0] @ (y @ t[j0:j0 + nb,
+                                                     j0:j0 + nb])
 
 
-def _blocked_geqrf(a, nbw):
+def _blocked_geqrf(a, outer, inner):
     a = a.clone()
     b = a.shape[0]
     t = torch.zeros_like(a)
     taus = torch.zeros(b, dtype=a.dtype)
-    for j0 in range(0, b, nbw):
-        nb = min(nbw, b - j0)
-        p = a[j0:, j0:j0 + nb]              # the panel, a view
-        for j in range(nb):
-            x = p[:, j].clone()
-            beta, tau, inv = ref._householder(x[j], torch.sum(x[j + 1:] ** 2))
-            v = torch.zeros_like(x)
-            v[j] = 1.0
-            v[j + 1:] = x[j + 1:] * inv
-            p[:, j + 1:] -= torch.outer(v, tau * (v @ p[:, j + 1:]))
-            p[j, j] = beta
-            p[j + 1:, j] = v[j + 1:]
-            taus[j0 + j] = tau
-        v = torch.tril(p, -1) + torch.eye(*p.shape, dtype=a.dtype)
-        t[j0:j0 + nb, j0:j0 + nb] = _panel_t(v, taus[j0:j0 + nb])
-        tk = t[j0:j0 + nb, j0:j0 + nb]
-        c = a[j0:, j0 + nb:]
+    for j0 in range(0, b, outer):
+        je = min(j0 + outer, b)
+        for j1 in range(j0, je, inner):
+            nb = min(inner, je - j1)
+            p = a[j1:, j1:j1 + nb]          # the inner panel, a view
+            for j in range(nb):
+                x = p[:, j].clone()
+                beta, tau, inv = ref._householder(x[j],
+                                                  torch.sum(x[j + 1:] ** 2))
+                v = torch.zeros_like(x)
+                v[j] = 1.0
+                v[j + 1:] = x[j + 1:] * inv
+                p[:, j + 1:] -= torch.outer(v, tau * (v @ p[:, j + 1:]))
+                p[j, j] = beta
+                p[j + 1:, j] = v[j + 1:]
+                taus[j1 + j] = tau
+            v = torch.tril(p, -1) + torch.eye(*p.shape, dtype=a.dtype)
+            t[j1:j1 + nb, j1:j1 + nb] = _panel_t(v, taus[j1:j1 + nb])
+            tk = t[j1:j1 + nb, j1:j1 + nb]
+            c = a[j1:, j1 + nb:je]           # the rest of the outer panel
+            c -= v @ (tk.T @ (v.T @ c))
+            _merge_t(t, a[j1:, j0:j1].T @ v, j1, nb, lo=j0)
+        blk = a[j0:, j0:je]                  # the outer panel's WY
+        v = torch.tril(blk, -1) + torch.eye(*blk.shape, dtype=a.dtype)
+        tk = t[j0:je, j0:je]
+        c = a[j0:, je:]
         c -= v @ (tk.T @ (v.T @ c))
-        _merge_t(t, a[j0:, :j0].T @ v, j0, nb)
+        _merge_t(t, a[j0:, :j0].T @ v, j0, je - j0)
     return a, taus, t
 
 
-def _blocked_tsqrf(r, a, nbw):
+def _blocked_tsqrf(r, a, outer, inner):
     r, a = r.clone(), a.clone()
     b = a.shape[0]
     t = torch.zeros_like(a)
     taus = torch.zeros(b, dtype=a.dtype)
-    for j0 in range(0, b, nbw):
-        nb = min(nbw, b - j0)
-        p, rb = a[:, j0:j0 + nb], r[j0:j0 + nb, j0:j0 + nb]
-        for j in range(nb):
-            x = p[:, j].clone()
-            beta, tau, inv = ref._householder(rb[j, j].clone(),
-                                              torch.sum(x * x))
-            v = x * inv
-            w = rb[j, j + 1:] + v @ p[:, j + 1:]
-            rb[j, j + 1:] -= tau * w
-            p[:, j + 1:] -= tau * torch.outer(v, w)
-            rb[j, j] = beta
-            p[:, j] = v
-            taus[j0 + j] = tau
-        t[j0:j0 + nb, j0:j0 + nb] = _panel_t(p, taus[j0:j0 + nb])
-        tk = t[j0:j0 + nb, j0:j0 + nb]
-        w = r[j0:j0 + nb, j0 + nb:] + p.T @ a[:, j0 + nb:]
+    for j0 in range(0, b, outer):
+        je = min(j0 + outer, b)
+        for j1 in range(j0, je, inner):
+            nb = min(inner, je - j1)
+            p, rb = a[:, j1:j1 + nb], r[j1:j1 + nb, j1:j1 + nb]
+            for j in range(nb):
+                x = p[:, j].clone()
+                beta, tau, inv = ref._householder(rb[j, j].clone(),
+                                                  torch.sum(x * x))
+                v = x * inv
+                w = rb[j, j + 1:] + v @ p[:, j + 1:]
+                rb[j, j + 1:] -= tau * w
+                p[:, j + 1:] -= tau * torch.outer(v, w)
+                rb[j, j] = beta
+                p[:, j] = v
+                taus[j1 + j] = tau
+            t[j1:j1 + nb, j1:j1 + nb] = _panel_t(p, taus[j1:j1 + nb])
+            tk = t[j1:j1 + nb, j1:j1 + nb]
+            w = r[j1:j1 + nb, j1 + nb:je] + p.T @ a[:, j1 + nb:je]
+            x = tk.T @ w
+            r[j1:j1 + nb, j1 + nb:je] -= x
+            a[:, j1 + nb:je] -= p @ x
+            _merge_t(t, a[:, j0:j1].T @ p, j1, nb, lo=j0)
+        v, tk = a[:, j0:je], t[j0:je, j0:je]
+        w = r[j0:je, je:] + v.T @ a[:, je:]
         x = tk.T @ w
-        r[j0:j0 + nb, j0 + nb:] -= x
-        a[:, j0 + nb:] -= p @ x
-        _merge_t(t, a[:, :j0].T @ p, j0, nb)
+        r[j0:je, je:] -= x
+        a[:, je:] -= v @ x
+        _merge_t(t, a[:, :j0].T @ v, j0, je - j0)
     return r, a, taus, t
 
 
@@ -379,31 +429,29 @@ def _max_gap(got, want):
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("b,nbw", BLOCKED)
-def test_blocked_factorizations_match_plain(b, nbw):
-    """The panel split and the T merge reproduce geqrf_ref's and
-    tsqrf_ref's RV / R', V2, taus and T."""
-    rng = np.random.default_rng(b + nbw)
-    a = torch.tensor(rng.standard_normal((b, b)))
-    r = torch.triu(torch.tensor(rng.standard_normal((b, b))))
-    got = _blocked_geqrf(a, nbw)
-    assert _max_gap(got, ref.geqrf_ref(a)) <= BLOCKED_TOL
-    got = _blocked_tsqrf(r, a, nbw)
-    assert _max_gap(got, ref.tsqrf_ref(r, a)) <= BLOCKED_TOL
+@pytest.mark.parametrize("b,outer,inner", BLOCKED, ids=BLOCKED_IDS)
+def test_blocked_factorizations_match_plain(b, outer, inner):
+    """The panel split (inner panels within outer ones) and the T merges
+    reproduce geqrf_ref's and tsqrf_ref's RV / R', V2, taus and T."""
+    a, r, plain_f, plain_t = _plain_factors(b, b + outer)
+    assert _max_gap(_blocked_geqrf(a, outer, inner), plain_f) <= BLOCKED_TOL
+    got = _blocked_tsqrf(r, a, outer, inner)
+    assert _max_gap(got, plain_t) <= BLOCKED_TOL
 
 
-@pytest.mark.parametrize("b,nbw", BLOCKED)
-def test_blocked_applies_match_plain(b, nbw):
-    """Applying panel by panel with the diagonal blocks of the merged T
+@pytest.mark.parametrize("b,outer,inner", BLOCKED, ids=BLOCKED_IDS)
+def test_blocked_applies_match_plain(b, outer, inner):
+    """Applying block by block (outer width) with the diagonal blocks of
+    the merged T, whose panels were factored inner columns at a time,
     equals apply_qt_ref and apply_tsqt_ref with the whole T."""
-    rng = np.random.default_rng(2 * b + nbw)
+    rng = np.random.default_rng(2 * b + outer)
     a, c1, c2 = (torch.tensor(rng.standard_normal((b, b))) for _ in range(3))
     r = torch.triu(torch.tensor(rng.standard_normal((b, b))))
-    rv, _, t = _blocked_geqrf(a, nbw)
-    got = _blocked_apply_qt(rv, t, c1, nbw)
+    rv, _, t = _blocked_geqrf(a, outer, inner)
+    got = _blocked_apply_qt(rv, t, c1, outer)
     assert _max_gap([got], [ref.apply_qt_ref(rv, t, c1)]) <= BLOCKED_TOL
-    _, v2, _, t2 = _blocked_tsqrf(r, a, nbw)
-    got = _blocked_apply_tsqt(v2, t2, c1, c2, nbw)
+    _, v2, _, t2 = _blocked_tsqrf(r, a, outer, inner)
+    got = _blocked_apply_tsqt(v2, t2, c1, c2, outer)
     assert _max_gap(got, ref.apply_tsqt_ref(v2, t2, c1, c2)) <= BLOCKED_TOL
 
 
